@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port's serving and training paths on one
+NVIDIA GPU.
 
-    python3 chip_smoke.py          # from the root of the repository
+    python3 chip_smoke.py            # from the root of the repository
+    python3 chip_smoke.py --profile  # also: one torch.profiler run of 3 steps
 
 Phases, each checked; any failure exits non-zero without the final line:
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions.
    No CUDA device is a failure.
 2. Build the kernels of ``votenet_tpu_torch/csrc`` and time the build.
-3. Each kernel against its plain PyTorch version on the card, at the five
-   shapes of a full-width forward (sa1-sa4 and the proposal layer), at B=1
-   and B=8, plus the ball query's r^2 boundary case. Integer outputs must be
-   equal; CUDA-event times of both are printed.
+3. FPS and the ball query against their plain PyTorch versions on the card,
+   at the five shapes of a full-width forward (sa1-sa4 and the proposal
+   layer), at B=1 and B=8, plus the ball query's r^2 boundary case. Integer
+   outputs must be equal; CUDA-event times of both are printed.
 4. Serve: a full-width ``VoteNetPredictor`` with seeded random weights
    (the objectness bias shifted so that about half the proposals reach NMS)
    answers 3 batch requests at B=8 and 3 ``detect()`` calls at B=1 on
@@ -20,6 +22,19 @@ Phases, each checked; any failure exits non-zero without the final line:
 5. One B=1 scene through the GPU and the port's CPU path with the same
    weights: seeds_xyz equal, votes and proposals_output within tolerance,
    and the CPU NMS of the GPU's boxes equal to the GPU's keep mask.
+6. The scatter-add kernel (the group_point backward) at the four scatters
+   of a full-width training step (sa2, sa3, sa4, proposal; ball-query
+   indices of synthetic scenes), B=2 and B=8: bit-equal to the plain
+   version run on the CPU, within tolerance of the plain version on the
+   card, CUDA-event times of both.
+7. Train: a full-width ``create_train_state`` with seeded weights;
+   ``Trainer.train_epoch`` takes 3 steps at B=8 on one batch of synthetic
+   scenes (after one warm-up step). Each step must launch FPS 5 times, the
+   ball query 5 times and the scatter 4 times; losses must be finite and
+   the parameters must move. Prints ms per step and scenes/s.
+8. One B=2 forward and backward on the GPU and on the port's CPU path from
+   the same weights: losses and per-leaf gradients (norm-wise) within
+   tolerance; proposal-slot flips between the two devices' votes counted.
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``.
@@ -40,6 +55,20 @@ SEED = 0
 # (cuBLAS against the CPU BLAS, both f32) drift by ~1e-6 of a tensor's
 # scale per layer over ~15 layers; allowed: 1e-4 of the reference's scale.
 REL_TOL = 1e-4
+# The scatter kernel against the plain version on the card: index_add_ adds
+# with atomics in a run-dependent order, the kernel in ascending k; two f32
+# orders of the same ~10-1000 terms per row differ by a few ulps of the
+# row's partial sums. Allowed: 1e-5 of the output's scale. (Against the
+# plain version on the CPU, which adds in ascending k, it must be equal.)
+SCATTER_TOL = 1e-5
+# Gradients GPU against CPU, norm-wise per leaf: ||gpu - cpu|| below
+# GRAD_TOL * max(||cpu||, 1e-2 * sqrt(size)). The forward drifts by ~1e-6 of
+# scale per layer (as above), batch norm's fast variance cancels on channels
+# whose mean dwarfs their spread, and a near-tied max-pool slot can take the
+# gradient on one device and not the other; the floor covers leaves whose
+# gradient is mathematically ~0 (a dense bias followed by batch norm).
+GRAD_TOL = 5e-3
+SCATTER_WIDTHS = {"sa2": 128, "sa3": 256, "sa4": 256, "proposal": 259}
 
 
 def card_line() -> str:
@@ -262,6 +291,182 @@ def phase_cpu_parity(cfg, scenes, predictor):
         raise AssertionError("GPU vs CPU parity")
 
 
+def phase_scatter(cfg, scenes, report):
+    """The scatter kernel at the four scatters of a training step, B=2 and 8."""
+    import torch
+
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.ops.cuda.scatter import scatter_add_cuda, scatter_add_plain
+
+    print("phase 6: scatter-add kernel vs plain (ball-query indices of synthetic scenes; CUDA events, warm L2)")
+    print(f"  {'kernel':<10} {'layer':<9} {'B':>2} {'shape':<26} {'equal':<6} {'kernel_us':>10} {'plain_us':>11}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for B in (2, 8):
+        points = torch.from_numpy(np.stack([s["points"] for s in scenes[:B]])).cuda()
+        _, bq_cases = layer_inputs(points, cfg)
+        for layer, radius, nsample, xyz, q in bq_cases[1:]:  # sa1's input carries no gradient
+            N, C = xyz.shape[1], SCATTER_WIDTHS[layer]
+            idx = ops.query_ball_point(radius, nsample, xyz, q)[0].reshape(B, -1).contiguous()
+            g = torch.randn((B, idx.shape[1], C), generator=gen, device="cuda")
+            got = scatter_add_cuda(g, idx, N)
+            want_cpu = scatter_add_plain(g.cpu(), idx.cpu(), N)
+            want_card = scatter_add_plain(g, idx, N)
+            exact = torch.equal(got.cpu(), want_cpu)
+            err = float((got.cpu() - want_cpu).abs().max())
+            card_err = float((got - want_card).abs().max())
+            card_tol = SCATTER_TOL * float(want_card.abs().max())
+            k_ms = cuda_ms(lambda: scatter_add_cuda(g, idx, N), 20)
+            p_ms = cuda_ms(lambda: scatter_add_plain(g, idx, N), 20)
+            report("scatter", layer, B, f"K={idx.shape[1]} N={N} C={C}", exact and card_err <= card_tol,
+                   err, k_ms, p_ms)
+            print(f"    vs the CPU plain version: {'bit-equal' if exact else f'max diff {err:.3g}'}; "
+                  f"vs the card's index_add_: max diff {card_err:.3g} <= {card_tol:.3g}")
+
+
+def train_counters():
+    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda
+    from votenet_tpu_torch.ops.cuda.scatter import scatter_add_cuda
+
+    return {"fps": farthest_point_sample_cuda, "ballquery": query_ball_point_cuda, "scatter": scatter_add_cuda}
+
+
+def phase_train(cfg, scenes, profile=False):
+    """Trainer.train_epoch: 3 full-width steps at B=8 after one warm-up."""
+    import torch
+
+    from votenet_tpu.data.dataflow import batch_scenes
+    from votenet_tpu_torch.train import Trainer, create_train_state
+
+    counters = train_counters()
+    batch = next(batch_scenes(iter(scenes[:8]), 8, cfg.max_gt_boxes))
+    state = create_train_state(cfg, 512, torch.Generator().manual_seed(SEED), device="cuda")
+    trainer = Trainer(cfg, state)
+    trainer.train_epoch([batch], metrics_every=1)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    marks = []
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    def timed(n):
+        for _ in range(n):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), counts()))
+            yield batch
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), counts()))
+
+    for c in counters.values():
+        c.launches = 0
+    trainer.train_epoch(timed(3), metrics_every=1)
+    launches = counts()
+    step_s, per_step = [], []
+    for (t0, c0), (t1, c1) in zip(marks, marks[1:]):
+        step_s.append(t1 - t0)
+        per_step.append({k: c1[k] - c0[k] for k in c0})
+    for i, d in enumerate(per_step):
+        if d != {"fps": 5, "ballquery": 5, "scatter": 4}:
+            raise AssertionError(f"train step {i} launched {d}, not fps 5, ballquery 5, scatter 4")
+    losses = {k: list(v) for k, v in trainer.logger.moving.buffers.items()}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"non-finite metrics {losses}")
+    still = [n for n, p in state.model.named_parameters() if torch.equal(p, before[n])]
+    if still:
+        raise AssertionError(f"parameters that did not move in 3 steps: {still}")
+    print(f"phase 7: Trainer.train_epoch, 3 full-width steps at B=8 (after 1 warm-up): launches {launches}, "
+          f"per step {per_step[0]}; all {len(before)} parameter leaves moved")
+    print(f"  step ms {[s * 1e3 for s in step_s]}; scenes/s {[8 / s for s in step_s]}")
+    print(f"  total_cost over the 4 steps {losses['total_cost']}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_train(trainer, batch)
+    return launches
+
+
+def profile_train(trainer, batch):
+    """Device time by kernel over 3 steps under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch([batch] * 3, metrics_every=3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key))
+    total = sum(ms for ms, _, _ in kernels)
+    if total == 0:
+        print("profile: the profiler recorded no device time; time with CUDA events instead")
+        return
+    groups = {}
+    for ms, _, name in kernels:
+        low = name.lower()
+        key = ("fps" if "fps_kernel" in low else "ballquery" if "ballquery_kernel" in low
+               else "scatter" if "scatter_add_kernel" in low
+               else "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "sm90_")) else "other")
+        groups[key] = groups.get(key, 0.0) + ms
+    print(f"profile: 3 steps, wall {wall_ms:.1f} ms, kernel time {total:.1f} ms, "
+          f"busy share {total / wall_ms:.3f}")
+    print("  by group (ms, share of kernel time): " + ", ".join(
+        f"{k} {v:.1f} ({v / total:.3f})" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for ms, count, name in sorted(kernels, reverse=True)[:15]:
+        print(f"  {ms:9.2f} ms  x{count:<5} {name[:110]}")
+
+
+def phase_train_cpu_parity(cfg, scenes):
+    """One B=2 forward and backward on the GPU and on the CPU, same weights."""
+    import torch
+
+    from votenet_tpu.data.dataflow import batch_scenes
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.train import create_train_state, forward_backward
+
+    batch = next(batch_scenes(iter(scenes[:2]), 2, cfg.max_gt_boxes))
+    gpu = create_train_state(cfg, 512, torch.Generator().manual_seed(SEED + 1), device="cuda")
+    cpu = create_train_state(cfg, 512, torch.Generator().manual_seed(SEED + 1))
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    lg = forward_backward(gpu.model, batch, cfg)
+    lc = forward_backward(cpu.model, batch, cfg)
+    pts = torch.from_numpy(batch["points"])
+    with torch.no_grad():  # the same train-mode forward, for the votes
+        ge = {k: v.cpu() for k, v in gpu.model(pts.cuda()).items()}
+        ce = cpu.model(pts)
+    fi = ops.farthest_point_sample(cfg.proposal_num, ce["seeds_xyz"])
+    idx_g, _ = ops.query_ball_point(cfg.proposal_radius, cfg.proposal_nsample, ge["votes_xyz"], ops.gather_point(ge["votes_xyz"], fi))
+    idx_c, _ = ops.query_ball_point(cfg.proposal_radius, cfg.proposal_nsample, ce["votes_xyz"], ops.gather_point(ce["votes_xyz"], fi))
+    flips = int((idx_g != idx_c).sum())
+    checks = {}
+    for field in lc._fields:
+        err, tol = scale_err(getattr(lg, field), getattr(lc, field))
+        checks[f"{field} err {err:.3g} <= {tol:.3g}"] = err <= tol
+    grads_c = dict(cpu.model.named_parameters())
+    rels = []
+    for name, p in gpu.model.named_parameters():
+        if flips and name.startswith("proposal."):
+            continue  # a slot that flipped moves this layer's gradient by O(1)
+        a, b = p.grad.cpu().double(), grads_c[name].grad.double()
+        floor = 1e-2 * b.numel() ** 0.5
+        rels.append((float((a - b).norm()) / max(float(b.norm()), floor), name))
+    worst = sorted(rels, reverse=True)[:3]
+    leaves = "backbone and voting leaves (proposal layer left out)" if flips else "all leaves"
+    checks[f"gradients, {len(rels)} {leaves}, norm-wise: worst {[(f'{r:.3g}', n) for r, n in worst]} < {GRAD_TOL}"] = (
+        worst[0][0] < GRAD_TOL
+    )
+    print(f"phase 8: one B=2 training forward and backward, GPU vs the port's CPU path; "
+          f"{flips} proposal-slot flips between the two devices' votes")
+    for name, ok in checks.items():
+        print(f"  {name}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise AssertionError("training GPU vs CPU parity")
+    return flips
+
+
 def main() -> int:
     import torch
 
@@ -289,7 +494,7 @@ def main() -> int:
     cfg = default_config()
     scenes = synthetic_scenes(SEED, cfg, 8)
     failed = []
-    stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0} for k in ("fps", "ballquery")}
+    stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0} for k in ("fps", "ballquery", "scatter")}
 
     def report(kernel, layer, B, shape, equal, err, k_ms, p_ms):
         st = stats[kernel]
@@ -317,25 +522,42 @@ def main() -> int:
         run("calibrate head", lambda: calibrate_head(predictor, scenes))
         launches = run("serve", lambda: phase_serve(cfg, scenes, predictor))
         run("cpu parity", lambda: phase_cpu_parity(cfg, scenes, predictor))
+        del predictor
+    run("scatter kernel", lambda: phase_scatter(cfg, scenes, report))
+    train_launches = run("train", lambda: phase_train(cfg, scenes, profile="--profile" in sys.argv[1:]))
+    run("train cpu parity", lambda: phase_train_cpu_parity(cfg, scenes))
 
     if failed:
         print(f"chip_smoke: FAILED: {failed}", file=sys.stderr)
         return 1
+    # launches: the training path's count (phase 7, 3 steps); the serving
+    # path's (phase 4, 6 forwards) stands beside it for FPS and the ball query
     kernels = [
         {
             "name": "fps", "route": "cuda", "source": "votenet_tpu_torch/csrc/fps.cu",
             "replaces": "votenet_tpu/ops/pallas/fps.py:47",
             "also_replaces": "votenet_tpu/ops/pallas/fps.py:79",
-            "launches": launches["fps"], "max_abs_err": stats["fps"]["err"], "tolerance": 0,
+            "launches": train_launches["fps"], "launches_serve": launches["fps"],
+            "max_abs_err": stats["fps"]["err"], "tolerance": 0,
             "ms": stats["fps"]["ms"], "plain_ms": stats["fps"]["plain_ms"],
             "ms_is": "sum over the 5 main-path shapes at B=8",
         },
         {
             "name": "ballquery", "route": "cuda", "source": "votenet_tpu_torch/csrc/ballquery.cu",
             "replaces": "votenet_tpu/ops/pallas/ballquery.py:71",
-            "launches": launches["ballquery"], "max_abs_err": stats["ballquery"]["err"], "tolerance": 0,
+            "launches": train_launches["ballquery"], "launches_serve": launches["ballquery"],
+            "max_abs_err": stats["ballquery"]["err"], "tolerance": 0,
             "ms": stats["ballquery"]["ms"], "plain_ms": stats["ballquery"]["plain_ms"],
             "ms_is": "sum over the 5 main-path shapes at B=8",
+        },
+        {
+            "name": "scatter", "route": "cuda", "source": "votenet_tpu_torch/csrc/scatter.cu",
+            "replaces": "votenet_tpu/ops/pallas/scatter.py:43",
+            "launches": train_launches["scatter"],
+            "max_abs_err": stats["scatter"]["err"], "tolerance": 0,
+            "tolerance_vs_card_plain": f"{SCATTER_TOL} of scale",
+            "ms": stats["scatter"]["ms"], "plain_ms": stats["scatter"]["plain_ms"],
+            "ms_is": "sum over the 4 training-step shapes at B=8",
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,9 @@ flax path                                 port state_dict key
 
 with ``/`` becoming ``.`` in ``<path>`` (``sa1/mlp/dense0``,
 ``voting/voting0_bn``, ``proposal/mlp2/dense2``, ...). Any other top-level
-collection (``opt_state``, ``step``) is ignored.
+collection (``opt_state``, ``step``) is ignored by
+:func:`convert_flax_variables`; :func:`convert_flax_opt_state` carries
+optax's Adam moments into a ``torch.optim.Adam`` by the same leaf map.
 """
 
 from __future__ import annotations
@@ -77,3 +79,56 @@ def convert_flax_variables(
                 raise ValueError(f"{k}: flax shape {tuple(v.shape)} != model shape {tuple(want[k].shape)}")
         model.load_state_dict(state, strict=True)
     return state
+
+
+def flax_param_path(name: str, model: nn.Module) -> str:
+    """The flax path of a port parameter: ``sa1.mlp.dense0.weight`` ->
+    ``sa1/mlp/dense0/kernel``, ``voting.voting0_bn.weight`` ->
+    ``voting/voting0_bn/scale``."""
+    mod_name, leaf = name.rsplit(".", 1)
+    if leaf == "weight":
+        leaf = "kernel" if isinstance(model.get_submodule(mod_name), nn.Linear) else "scale"
+    return "/".join(mod_name.split(".") + [leaf])
+
+
+def convert_flax_opt_state(
+    opt_state: Mapping[str, Any], model: nn.Module, optimizer: torch.optim.Optimizer
+) -> int:
+    """Load the JAX optimizer's state into ``optimizer`` (a
+    ``torch.optim.Adam`` over ``model.parameters()`` as
+    ``train.optimizer.make_optimizer`` builds it); returns the step count.
+
+    ``opt_state`` is the flax-serialized state of the JAX package's
+    ``optax.chain(clip_by_average_norm, scale_by_adam, scale_by_learning_rate)``
+    (as in a checkpoint's ``opt_state``): ``"0"`` empty, ``"1"`` ``{count,
+    mu, nu}``, ``"2"`` ``{count}``. ``mu`` becomes Adam's ``exp_avg``, ``nu``
+    its ``exp_avg_sq`` and ``count`` its ``step``, leaf by leaf as the
+    parameters map (kernels transposed). Raises ValueError on a leaf it
+    cannot map, on a parameter left without moments, or on an Adam count
+    that differs from the schedule's.
+    """
+    adam = opt_state["1"]
+    count = int(np.asarray(adam["count"]))
+    sched_count = int(np.asarray(opt_state["2"]["count"]))
+    if count != sched_count:
+        raise ValueError(f"Adam count {count} != schedule count {sched_count}")
+    names = {flax_param_path(n, model): p for n, p in model.named_parameters()}
+    moments: Dict[str, Dict[str, torch.Tensor]] = {}
+    for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        for path, leaf in _flatten(adam[slot]):
+            flax_path = "/".join(path)
+            if path[-1] not in ("kernel", "bias", "scale") or flax_path not in names:
+                raise ValueError(f"cannot convert flax leaf opt_state/1/{slot}/{flax_path}")
+            arr = np.asarray(leaf, dtype=np.float32)
+            if path[-1] == "kernel":
+                arr = arr.T
+            p = names[flax_path]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{flax_path}: {slot} shape {tuple(arr.shape)} != parameter shape {tuple(p.shape)}")
+            moments.setdefault(flax_path, {})[key] = torch.from_numpy(np.array(arr, order="C")).to(p.device)
+    missing = sorted(n for n in names if len(moments.get(n, {})) != 2)
+    if missing:
+        raise ValueError(f"opt_state has no mu/nu for {missing}")
+    for flax_path, m in moments.items():
+        optimizer.state[names[flax_path]] = {"step": torch.tensor(float(count), dtype=torch.float32), **m}
+    return count

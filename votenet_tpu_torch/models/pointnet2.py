@@ -1,11 +1,13 @@
-"""PointNet++ set-abstraction and feature-propagation layers, inference path.
+"""PointNet++ set-abstraction and feature-propagation layers.
 
-Port of :mod:`votenet_tpu.models.pointnet2`, eval forward only. Tensors keep
-the JAX package's channels-last layout (B, N, C); the reference's 1x1
-convolutions are :class:`torch.nn.Linear` layers on the last axis, whose
-``weight`` is (out, in) (the flax kernel transposed, see
-``models/convert.py``). Batch norm runs with its running statistics in
-flax's order; batch statistics and their update come with training.
+Port of :mod:`votenet_tpu.models.pointnet2`, eval and train forward. Every
+module starts in eval mode, as the port's ``VoteNet`` does; ``train()``
+switches it to the JAX package's ``train=True`` path. Tensors keep the JAX
+package's channels-last layout (B, N, C); the reference's 1x1 convolutions
+are :class:`torch.nn.Linear` layers on the last axis, whose ``weight`` is
+(out, in) (the flax kernel transposed, see ``models/convert.py``). Batch
+norm follows flax's ``nn.BatchNorm`` (momentum 0.9 on the running value,
+biased fast variance), in its rounding order.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 from votenet_tpu_torch import ops
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: the weight of the old running value
 
 
 def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -39,30 +42,53 @@ def make_linear(cin: int, cout: int, generator: torch.Generator) -> nn.Linear:
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over the last axis, with flax's rounding order:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """Batch norm over the last axis, in flax's order:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
 
-    def __init__(self, channels: int, eps: float = BN_EPS):
+    In training mode (``self.training``) mean and var are the batch's, taken
+    over every axis but the last as flax 0.12 does (``_compute_stats`` with
+    ``use_fast_variance=True``): ``mean = E[x]``, ``var = max(0, E[x^2] -
+    mean^2)``, biased. The running statistics then move in place, outside
+    autograd, to ``momentum * running + (1 - momentum) * batch``: flax's
+    convention, where ``momentum=0.9`` weights the old value (torch's
+    ``F.batch_norm`` weights the new one and updates the variance unbiased,
+    so it is not used). In eval mode the running statistics normalise.
+    """
+
+    def __init__(self, channels: int, eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class MLPStack(nn.Module):
     """Shared per-point MLP: Linear + BN + ReLU per width (``dense{i}``,
     ``bn{i}``). ``final_activation=False`` leaves the last layer linear.
 
-    With ``center`` and ``idx`` the first layer is the JAX package's
-    ``CenteredDense`` in its project-before-gather form: ``x`` holds the
-    ungrouped (B, N, Cin) points, and the layer computes
-    ``(gather(x @ W, idx) - center @ W[:3]) + b`` in that association.
+    With ``center`` the first layer is the JAX package's ``CenteredDense``:
+    ``(h - center @ W[:3]) + b`` in that association. Without ``idx``, ``x``
+    is the grouped (B, M, S, Cin) tensor and ``h = x @ W`` (the training
+    path, gather first); with ``idx``, ``x`` holds the ungrouped (B, N, Cin)
+    points and ``h = gather(x @ W, idx)`` (eval, project before gather).
     """
 
     def __init__(
@@ -81,6 +107,7 @@ class MLPStack(nn.Module):
             if final_activation or i < self.n - 1:
                 setattr(self, f"bn{i}", BatchNorm(w, eps))
             cin = w
+        self.eval()
 
     def forward(
         self,
@@ -92,7 +119,7 @@ class MLPStack(nn.Module):
             dense = getattr(self, f"dense{i}")
             if i == 0 and center is not None:
                 w = dense.weight.t()  # (in, out)
-                h = ops.group_point(x @ w, idx)  # (B, M, S, out)
+                h = x @ w if idx is None else ops.group_point(x @ w, idx)  # (B, M, S, out)
                 x = (h - (center @ w[:3])[:, :, None, :]) + dense.bias
             else:
                 x = dense(x)
@@ -103,13 +130,23 @@ class MLPStack(nn.Module):
 
 class PointNetSAModule(nn.Module):
     """Set abstraction with ball-query grouping and max pooling (the JAX
-    module's fused eval path, ``pointnet2.py:422-525``).
+    module's fused path, ``pointnet2.py:422-525``).
 
     FPS picks ``npoint`` centres (on ``sample_xyz`` when given: the proposal
     layer samples seeds but groups votes), the ball query groups
-    ``[xyz | points]`` around them, the MLP runs project-before-gather, the
-    ball slots are max-pooled, and the optional ``mlp2`` head follows with a
-    linear last layer.
+    ``[xyz | points]`` around them, the MLP runs, the ball slots are
+    max-pooled, and the optional ``mlp2`` head follows with a linear last
+    layer. Eval projects before the gather; training gathers first
+    (``pointnet2.py:468-515``), so that the backward scatters the narrow
+    ``[xyz | points]`` rows and not the wide dense0 output.
+
+    ``coord_grad=False`` declares ``xyz`` non-differentiable: the backbone's
+    coordinates derive from the input cloud alone. They are detached before
+    the gather, and its backward scatters only the feature channels. The
+    proposal layer keeps ``True``: its xyz are votes, which carry gradient.
+    Pooling is ``torch.amax``, which, like ``jnp.max``, splits the gradient
+    evenly among tied maxima (ties are common: the ball query fills empty
+    slots with the first hit).
     """
 
     def __init__(
@@ -122,15 +159,18 @@ class PointNetSAModule(nn.Module):
         generator: torch.Generator,
         mlp2: Optional[Sequence[int]] = None,
         eps: float = BN_EPS,
+        coord_grad: bool = True,
     ):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.coord_grad = coord_grad
         self.mlp = MLPStack(3 + cin, mlp, generator, eps=eps)
         self.mlp2 = (
             MLPStack(mlp[-1], mlp2, generator, final_activation=False, eps=eps)
             if mlp2 is not None
             else None
         )
+        self.eval()
 
     def forward(
         self,
@@ -143,8 +183,15 @@ class PointNetSAModule(nn.Module):
         fps_src = sample_xyz if sample_xyz is not None else xyz
         new_xyz = ops.gather_point(xyz, ops.farthest_point_sample(self.npoint, fps_src))
         idx, _ = ops.query_ball_point(self.radius, self.nsample, xyz, new_xyz)
-        both = torch.cat([xyz, points], dim=-1)
-        new_points = self.mlp(both, center=new_xyz, idx=idx)
+        if self.training:
+            gather_xyz = xyz if self.coord_grad else xyz.detach()
+            grouped = ops.group_point(
+                torch.cat([gather_xyz, points], dim=-1), idx,
+                grad_skip_prefix=0 if self.coord_grad else 3,
+            )
+            new_points = self.mlp(grouped, center=new_xyz)
+        else:
+            new_points = self.mlp(torch.cat([xyz, points], dim=-1), center=new_xyz, idx=idx)
         new_points = torch.amax(new_points, dim=2)
         if self.mlp2 is not None:
             new_points = self.mlp2(new_points)
@@ -158,6 +205,7 @@ class PointNetFPModule(nn.Module):
     def __init__(self, cin: int, mlp: Sequence[int], generator: torch.Generator, eps: float = BN_EPS):
         super().__init__()
         self.mlp = MLPStack(cin, mlp, generator, eps=eps)
+        self.eval()
 
     def forward(self, xyz1, xyz2, points1, points2):
         """xyz1 (B, N, 3) fine, xyz2 (B, M, 3) coarse, points1 (B, N, C1),

@@ -1,4 +1,4 @@
-"""The VoteNet model, inference forward (port of votenet_tpu/models/votenet.py).
+"""The VoteNet model, eval and train forward (port of votenet_tpu/models/votenet.py).
 
 Four SA layers and two FP layers, a 3-layer voting MLP that offsets seed
 coordinates and features, and the proposal SA layer (FPS on the seeds,
@@ -35,6 +35,9 @@ def check_supported(config: Config) -> None:
         "mixed_precision": (config.mixed_precision, False, "opt-in modes (mixed precision)"),
         "bq_precision": (config.bq_precision, "exact", "opt-in modes (fast_bf16 ball query)"),
         "samlp": (config.samlp, "off", "opt-in modes plus kernel 5 (fused SA MLP+pool)"),
+        "scatter_precision": (config.scatter_precision, "exact", "opt-in modes (fast_bf16 scatter)"),
+        "gather_packing": (config.gather_packing, "none", "opt-in modes (bf16_hilo gather packing)"),
+        "remat": (config.remat, False, "opt-in modes (remat)"),
     }
     for name, (value, supported, item) in unsupported.items():
         if value != supported:
@@ -56,6 +59,7 @@ class VotingModule(nn.Module):
             if i < self.n - 1:
                 setattr(self, f"voting{i}_bn", BatchNorm(w, eps))
             cin = w
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
@@ -71,8 +75,9 @@ class VoteNet(nn.Module):
 
     Weights are drawn from ``generator`` (flax's initialisers: he-normal
     kernels, zero biases, unit batch-norm scales); a checkpoint replaces
-    them through ``load_state_dict``. The module is always in eval mode:
-    training batch norm comes with the training port.
+    them through ``load_state_dict``. The module starts in eval mode;
+    ``train()`` switches batch norm to batch statistics and the SA layers to
+    their gather-first path (the JAX model's ``train=True``).
     """
 
     def __init__(self, config: Config, generator: Optional[torch.Generator] = None):
@@ -86,6 +91,7 @@ class VoteNet(nn.Module):
             sa = PointNetSAModule(
                 cfg.sa_npoints[i], cfg.sa_radii[i], cfg.sa_nsamples[i], cin,
                 cfg.sa_mlps[i], g, eps=eps,
+                coord_grad=False,  # backbone xyz come from the input cloud alone
             )
             setattr(self, f"sa{i + 1}", sa)
             cin = cfg.sa_mlps[i][-1]
@@ -102,15 +108,10 @@ class VoteNet(nn.Module):
             mlp2=tuple(cfg.proposal_mlp2_hidden) + (cfg.num_proposal_channels,),
             eps=eps,
         )
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.momentum = cfg.bn_momentum
         self.eval()
-
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(
-                "votenet_tpu_torch runs inference only: see ROADMAP.md, "
-                "'Modules still to port', training step"
-            )
-        return super().train(False)
 
     def forward(self, points: torch.Tensor) -> Dict[str, torch.Tensor]:
         """points (B, N, 3) f32 -> end points (the JAX model's keys)."""

@@ -100,6 +100,8 @@ def library() -> ctypes.CDLL:
                 ptr, ptr, i32, i32, i32, f32, i32, ptr, ptr, ptr
             ]
             lib.votenet_ball_query.restype = i32
+            lib.votenet_scatter_add.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
+            lib.votenet_scatter_add.restype = i32
             lib.votenet_error_string.argtypes = [i32]
             lib.votenet_error_string.restype = ctypes.c_char_p
             _lib = lib
