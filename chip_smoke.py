@@ -4,6 +4,12 @@ paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --profile  # also: torch.profiler over 3 training steps and over each eval mode
+    python3 chip_smoke.py --kernel-times  # phases 1-3 and 9 alone (no final line)
+
+``--kernel-times`` also runs from a copy of this file placed at the root of
+another checkout of the port (an earlier commit's archive), so that both
+commits' kernels are timed by the same code in one call: phase 3 then skips
+the ball query's route rows where that checkout has one route.
 
 Phases, each checked; any failure exits non-zero without the final line:
 
@@ -14,9 +20,13 @@ Phases, each checked; any failure exits non-zero without the final line:
    at the five shapes of a full-width forward (sa1-sa4 and the proposal
    layer), at B=1 and B=8, plus the ball query's r^2 boundary case. Integer
    outputs must be equal; CUDA-event times of both are printed, beside each
-   call's bound (see BOUNDS below) and, for FPS, the CTAs a row is split
-   over; then FPS's time a step at every cluster size at sa1's and sa2's
-   shapes (B=8), the evidence for ops/cuda/fps.py's cluster-size rule.
+   call's bound (see BOUNDS below), for FPS the CTAs a row is split over and
+   for the ball query the route (``seg``: segments a row's points are cut
+   into, 1 for the unsplit route); then FPS's time a step at every cluster
+   size at sa1's and sa2's shapes (B=8), the evidence for ops/cuda/fps.py's
+   cluster-size rule, and the ball query forced through the other route at
+   every B=8 shape and at sa1 B=1 (bit-equal too), the evidence for
+   ops/cuda/ballquery.py's route rule.
 4. Serve: a full-width ``VoteNetPredictor`` with seeded random weights
    (the objectness bias shifted so that about half the proposals reach NMS)
    answers 3 batch requests at B=8 and 3 ``detect()`` calls at B=1 on
@@ -44,7 +54,8 @@ Phases, each checked; any failure exits non-zero without the final line:
    proposal layer), B=1 and B=8, on arguments captured from one forward of
    the trained checkpoint (``.scratch/r4_heldout``, read by
    ``read_flax_msgpack``): within SAMLP_TOL of the output's scale, and at
-   B=1 also of the plain version on the CPU; CUDA-event times of both.
+   B=1 also of the plain version on the CPU; CUDA-event times of both; the
+   bound is the 3xTF32 tensor-core figure, the f32 CUDA-core one beside it.
 10. Evaluation: the trained checkpoint, 16 synthetic scenes in a
    ``DeviceSceneCache``, ``Evaluator(batch_size=8)`` over
    ``make_packed_predict_fn`` with ``samlp`` "off", then "on". Each forward
@@ -59,17 +70,24 @@ Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums over the B=8 shapes
 of a forward (FPS, ball query, samlp) or of a training step (scatter);
-``launches`` is the training path's count.
+``launches`` is the training path's count. Kernel times are device times:
+``cuda_ms`` queues its timed calls behind a sleep kernel, so the wrappers'
+host time between launches does not count (a call whose kernel is shorter
+than its Python would otherwise be timed by the host).
 
 BOUNDS: the least time the card could take for a call's work, the larger of
 its bytes (each input read once, each output written once) over 3.35 TB/s
-and its f32 operations over 67 TFLOP/s (H100 SXM, NVIDIA's data sheet),
-counted from this run's inputs: FPS 10 operations a point and step (3
-subtract, 3 multiply, 2 add, min, compare); the ball query 9 a tested
-(query, point) pair, up to the point where the query's nsample-th hit ends
-its early exit (all N where the ball holds fewer); the scatter one add per
-valid index and column; samlp 2 per multiply-add of its matmuls plus 3 per
-element of each affine + ReLU and 1 per pooled element.
+and its operations over the peak of the units that do them (H100 SXM,
+NVIDIA's data sheet), counted from this run's inputs: FPS 10 f32 operations
+a point and step (3 subtract, 3 multiply, 2 add, min, compare); the ball
+query 9 a tested (query, point) pair, up to the point where the query's
+nsample-th hit ends its early exit (all N where the ball holds fewer); the
+scatter one add per valid index and column; these at 67 TFLOP/s (f32
+outside the tensor cores). samlp: its matmuls run on the tensor cores in
+3xTF32, 3 x 2 operations per multiply-add at 495 TFLOP/s (TF32); beside it
+(``bound_f32_ms``) the f32 CUDA-core figure of an f32 kernel, 2 per
+multiply-add plus 3 per element of each affine + ReLU and 1 per pooled
+element at 67 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -109,6 +127,7 @@ SCATTER_WIDTHS = {"sa2": 128, "sa3": 256, "sa4": 256, "proposal": 259}
 SAMLP_TOL = 1e-5
 SA_LAYERS = ("sa1", "sa2", "sa3", "sa4", "proposal")
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 CKPT = Path(__file__).resolve().parent / ".scratch" / "r4_heldout" / "checkpoint_0000000081.msgpack"
 EVAL_SCENES = 16
@@ -123,11 +142,19 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` between CUDA events, after one warm-up."""
+    """Mean device ms per call of ``fn`` between CUDA events, after one
+    warm-up. The calls are queued behind a sleep kernel long enough to cover
+    their enqueueing, so the device runs them back to back and the host's
+    time between launches (the wrappers' Python) does not count."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2.0 * reps * host_s, 0.2) * 2e9))  # cycles, at most ~0.1-0.2 s
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -164,16 +191,17 @@ def scatter_bound(g, idx, N):
 
 
 def samlp_bound(h_all, idx, sh0, s0, layers):
+    """((3xTF32 tensor-core ms, bytes ms), f32 CUDA-core ms)."""
     B, N, w0 = h_all.shape
     _, M, S = idx.shape
     rows = B * M * S
     widths = [w0] + [w.shape[1] for w, _, _ in layers]
-    ops = 3.0 * rows * w0 + rows * widths[-1]
-    for w_in, w_out in zip(widths, widths[1:]):
-        ops += 2.0 * rows * w_in * w_out + 3.0 * rows * w_out
+    macs = sum(rows * w_in * w_out for w_in, w_out in zip(widths, widths[1:]))
+    f32_ops = 2.0 * macs + 3.0 * rows * w0 + rows * widths[-1] + sum(3.0 * rows * w for w in widths[1:])
     params = sum(w.numel() + s.numel() + t.numel() for w, s, t in layers) + s0.numel()
     nbytes = (h_all.numel() + sh0.numel() + params + B * M * widths[-1]) * 4.0 + idx.numel() * 4.0
-    return bound_ms(ops, nbytes)
+    _, bytes_ms = bound_ms(0.0, nbytes)
+    return (3.0 * 2.0 * macs / PEAK_TF32_FLOPS * 1e3, bytes_ms), f32_ops / PEAK_F32_FLOPS * 1e3
 
 
 def scale_err(got, want) -> tuple[float, float]:
@@ -216,12 +244,18 @@ def phase_kernels(cfg, scenes, report):
     """Kernel against plain at every main-path shape, B=1 and B=8."""
     import torch
 
+    from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
     from votenet_tpu_torch.ops.cuda import fps as fps_mod
     from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda, query_ball_point_plain
+
+    # None where --kernel-times runs in a checkout whose ball query has one route
+    ballquery_route = getattr(bq_mod, "ballquery_route", None)
     from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda, farthest_point_sample_plain
 
     print("phase 3: kernel vs plain on the card (CUDA events, warm L2)")
     print(TABLE_HEAD)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    forced = []  # (layer, B, case): the ball query through the route the rule did not take
     for B in (1, 8):
         points = torch.from_numpy(np.stack([s["points"] for s in scenes[:B]])).cuda()
         fps_cases, bq_cases = layer_inputs(points, cfg)
@@ -242,8 +276,12 @@ def phase_kernels(cfg, scenes, report):
             k_ms = cuda_ms(lambda: query_ball_point_cuda(radius, nsample, xyz, q), 20)
             p_ms = cuda_ms(lambda: query_ball_point_plain(radius, nsample, xyz, q), 2)
             err = max(int((got[i] - want[i]).abs().max()) for i in range(2))
-            report("ballquery", layer, B, f"N={xyz.shape[1]} M={q.shape[1]} r={radius}", equal, err, k_ms, p_ms,
+            N, M = xyz.shape[1], q.shape[1]
+            seg = ballquery_route(B, N, M, sm_count)[0] if ballquery_route else 1
+            report("ballquery", layer, B, f"N={N} M={M} r={radius} seg={seg}", equal, err, k_ms, p_ms,
                    ballquery_bound(xyz, q, nsample, *want))
+            if ballquery_route and (B == 8 or layer == "sa1"):
+                forced.append((layer, B, (radius, nsample, xyz, q), want, 1 if seg > 1 else 4))
 
     # the cluster-size rule's evidence: every route at sa1's and sa2's shapes
     for layer, npoint, xyz in fps_cases[:2]:
@@ -253,12 +291,26 @@ def phase_kernels(cfg, scenes, report):
         print(f"  fps {layer} B=8 us a step by CTAs a row: " + ", ".join(f"{c}: {v:.3f}" for c, v in us.items())
               + f" (the rule: {fps_mod.fps_route(xyz)[0]})")
 
+    # the route rule's evidence: each shape through the other route
+    for layer, B, (radius, nsample, xyz, q), want, segments in forced:
+        N, M = xyz.shape[1], q.shape[1]
+        got = query_ball_point_cuda(radius, nsample, xyz, q, segments=segments)
+        equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        k_ms = cuda_ms(lambda: query_ball_point_cuda(radius, nsample, xyz, q, segments=segments), 20)
+        seg = ballquery_route(B, N, M, sm_count, segments)[0]
+        print(f"  ballquery {layer} B={B} forced seg={seg}: {'bit-equal' if equal else 'DIFFERS'}, "
+              f"{k_ms * 1e3:.1f} us (the rule's route: seg={ballquery_route(B, N, M, sm_count)[0]})")
+        if not equal:
+            raise AssertionError(f"ball query {layer} B={B} with {seg} segments differs from its plain version")
+
     # r^2 boundary: d2 = 0.039999996 < float32(0.2)*float32(0.2) = 0.040000003
     p = torch.tensor([[[0.19999999, 5e-05, 0.0], [1.0, 1.0, 1.0]]], device="cuda")
     q = torch.zeros((1, 1, 3), device="cuda")
-    got = query_ball_point_cuda(0.2, 4, p, q)
     want = query_ball_point_plain(0.2, 4, p, q)
-    ok = int(got[1][0, 0]) == 1 and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ok = int(want[1][0, 0]) == 1
+    for segments in (None, 2) if ballquery_route else (None,):
+        got = query_ball_point_cuda(0.2, 4, p, q, **({"segments": segments} if segments else {}))
+        ok = ok and int(got[1][0, 0]) == 1 and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     print(f"  r^2 boundary point (0.19999999, 5e-05, 0), r=0.2: kernel cnt={int(got[1][0, 0])} "
           f"plain cnt={int(want[1][0, 0])} -> {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -508,8 +560,10 @@ def profile_device(run, label):
     groups = {}
     for ms, _, name in kernels:
         low = name.lower()
-        key = ("fps" if "fps_cluster_kernel" in low else "ballquery" if "ballquery_kernel" in low
-               else "scatter" if "namespace)::scatter_" in low else "samlp" if "samlp_kernel" in low
+        key = ("fps" if "fps_cluster_kernel" in low
+               else "ballquery" if "ballquery_kernel" in low or "bq_merge_kernel" in low
+               else "scatter" if "namespace)::scatter_" in low
+               else "samlp" if "samlp_kernel" in low or "samlp_split_weights" in low
                else "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "sm90_")) else "other")
         groups[key] = groups.get(key, 0.0) + ms
     print(f"profile ({label}): wall {wall_ms:.1f} ms, kernel time {total:.1f} ms, "
@@ -608,7 +662,7 @@ def capture_samlp_args(cfg, state_dict, points):
     return captured
 
 
-def phase_samlp(cfg, scenes, state_dict, report):
+def phase_samlp(cfg, scenes, state_dict, report, f32_bound):
     """The samlp kernel against its plain version at the five calls, B=1 and 8."""
     import torch
 
@@ -639,8 +693,11 @@ def phase_samlp(cfg, scenes, state_dict, report):
                 k_ms = cuda_ms(lambda: fused_sa_mlp_pool_cuda(*args), 10)
                 p_ms = cuda_ms(lambda: fused_sa_mlp_pool_plain(*args), 5)
                 shape = f"M={idx.shape[1]} S={idx.shape[2]} w={'/'.join(map(str, widths))}"
-                report("samlp", layer, B, shape, ok, err, k_ms, p_ms, samlp_bound(*args))
-                print(line)
+                bound, f32_ms = samlp_bound(*args)
+                report("samlp", layer, B, shape, ok, err, k_ms, p_ms, bound)
+                if B == 8:
+                    f32_bound[0] += f32_ms
+                print(line + f"; f32 CUDA-core bound {f32_ms * 1e3:.1f} us")
 
 
 def eval_counters():
@@ -788,6 +845,7 @@ def main() -> int:
     cfg = default_config()
     scenes = synthetic_scenes(SEED, cfg, 8)
     failed = []
+    f32_bound = [0.0]  # samlp's f32 CUDA-core bound over the B=8 shapes
     stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0,
                  "bound_ms": 0.0} for k in ("fps", "ballquery", "scatter", "samlp")}
 
@@ -819,6 +877,14 @@ def main() -> int:
             return None
 
     run("kernels", lambda: phase_kernels(cfg, scenes, report))
+    if "--kernel-times" in sys.argv[1:]:  # phases 1-3 and 9 only: kernel times, to set beside another checkout's
+        state_dict = run("read checkpoint", trained_state_dict)
+        if state_dict is not None:
+            run("samlp kernel", lambda: phase_samlp(cfg, scenes, state_dict, report, f32_bound))
+        print(json.dumps({"kernel_times": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
+                                           for k, v in stats.items() if k != "scatter"}, "failed": failed}))
+        print(card)
+        return 1 if failed else 0
     predictor = run("predictor", lambda: VoteNetPredictor(
         cfg, device="cuda", batch_size=8, generator=torch.Generator().manual_seed(SEED)))
     launches = None
@@ -833,7 +899,7 @@ def main() -> int:
     state_dict = run("read checkpoint", trained_state_dict)
     eval_launches = None
     if state_dict is not None:
-        run("samlp kernel", lambda: phase_samlp(cfg, scenes, state_dict, report))
+        run("samlp kernel", lambda: phase_samlp(cfg, scenes, state_dict, report, f32_bound))
         eval_launches = run("eval", lambda: phase_eval(cfg, state_dict, profile="--profile" in sys.argv[1:]))
 
     if failed:
@@ -881,7 +947,7 @@ def main() -> int:
             "name": "samlp", "route": "cuda", "source": "votenet_tpu_torch/csrc/samlp.cu",
             "replaces": "votenet_tpu/ops/pallas/samlp.py:78",
             "launches": eval_launches["samlp"],
-            **measured("samlp"), "tolerance": f"{SAMLP_TOL} of scale",
+            **measured("samlp"), "bound_f32_ms": f32_bound[0], "tolerance": f"{SAMLP_TOL} of scale",
             "ms_is": "sum over the 5 eval-forward shapes at B=8",
         },
     ]

@@ -4,9 +4,15 @@ batching), the AP math, gt_dict_from_labels, MetricLogger and the native
 host library. Each pair gets the same inputs and must give the same output,
 bit for bit."""
 
+import ctypes
 import dataclasses
+import fcntl
 import json
+import os
+import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -247,8 +253,49 @@ def test_native_library_builds_into_the_port():
     assert port_native.BUILD_DIR.parent.name == "votenet_tpu_torch"
 
 
-def test_native_iou_matcher_nms_equal():
-    assert port_native.available() and jax_native.available()
+def _load_error(path) -> str:
+    try:
+        ctypes.CDLL(str(path))
+        return "loads now"
+    except OSError as e:
+        return str(e)
+
+
+@pytest.fixture
+def jax_native_lib(monkeypatch):
+    """The JAX package's native library, loaded whichever process built it.
+
+    ``votenet_tpu.native`` runs ``make`` once per process where the library
+    is missing and latches any failure to load. Under pytest-xdist every
+    worker imports ``tests/test_native.py``, whose ``skipif`` calls
+    ``native.available()`` while collecting: the workers build at once, g++
+    writes ``libvotenet_native.so`` in place, and a worker that loads it
+    while another is still writing it gets "file too short" and keeps that
+    failure for the session. After such a latched failure, this runs
+    ``make`` again under a lock (every worker has collected by the time a
+    test runs, so the file is whole), re-arms the latch and loads again; a
+    file still broken is rebuilt once (``make -B``)."""
+    if jax_native.available():
+        return jax_native
+    native_dir = os.path.dirname(jax_native._SO)
+    first = _load_error(jax_native._SO)
+    runs = []
+    with open(Path(tempfile.gettempdir()) / "votenet_tpu_native_make.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for force in ([], ["-B"]):
+            res = subprocess.run(["make", "-C", native_dir, "-s", *force], capture_output=True, text=True, timeout=300)
+            runs.append(f"make {' '.join(['-C', native_dir, '-s', *force])}: exit {res.returncode} {res.stdout}{res.stderr}")
+            monkeypatch.setattr(jax_native, "_tried", False)
+            monkeypatch.setattr(jax_native, "_lib", None)
+            if jax_native.available():
+                return jax_native
+    pytest.fail(f"votenet_tpu.native did not load: first {first}; then {'; '.join(runs)}; "
+                f"now {_load_error(jax_native._SO)}")
+
+
+def test_native_iou_matcher_nms_equal(jax_native_lib):
+    assert port_native.available(), f"votenet_tpu_torch.native did not build: {port_native._error}"
+    jax_native = jax_native_lib
     rng = np.random.RandomState(2)
     dets, gts = random_boxes(rng, 40), random_boxes(rng, 12)
     iou = port_native.iou3d_matrix(dets, gts)

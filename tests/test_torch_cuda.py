@@ -107,12 +107,76 @@ def test_ball_query_kernel_matches_plain(cuda, B, N, M, radius, S, kind):
     assert int(got[1][0, -1]) == 0
 
 
-def test_ball_query_kernel_r2_boundary(cuda):
+@pytest.mark.parametrize("segments", [None, 1, 2])
+def test_ball_query_kernel_r2_boundary(cuda, segments):
     from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda
 
     p = torch.tensor([[[0.19999999, 5e-05, 0.0], [1.0, 1.0, 1.0]]], device=cuda)
-    idx, cnt = query_ball_point_cuda(0.2, 4, p, torch.zeros((1, 1, 3), device=cuda))
+    idx, cnt = query_ball_point_cuda(0.2, 4, p, torch.zeros((1, 1, 3), device=cuda), segments=segments)
     assert int(cnt[0, 0]) == 1 and idx[0, 0].tolist() == [0, 0, 0, 0]
+
+
+def crafted_balls(N, hits):
+    """Points far from the origin except at the indices of ``hits``, which
+    lie inside a ball of radius 0.5 around it: the query at the origin hits
+    exactly those, in index order."""
+    rng = np.random.RandomState(N)
+    xyz = rng.uniform(2.0, 3.0, (1, N, 3)).astype(np.float32)
+    xyz[0, hits] = rng.uniform(-0.25, 0.25, (len(hits), 3)).astype(np.float32)
+    return xyz
+
+
+# (N, hit indices, nsample, segments): the first nsample hits end where a
+# tile (512 points) or a segment (1024 points when forced to 2 segments of
+# 2048 points) ends, or are spread across segments; N off the tile; nsample
+# above N; an empty ball
+BALL_EDGES = {
+    "fills-at-tile-end": (2000, list(range(448, 512)) + list(range(600, 700)), 64, None),
+    "fills-at-segment-end": (2048, list(range(960, 1024)) + list(range(1024, 1100)), 64, 2),
+    "spread-over-segments": (4096, [5, 1023, 1024, 2047, 2048, 3000, 4095], 64, 4),
+    "segment-fills-early": (4096, list(range(0, 4096, 7)), 16, 4),
+    "ragged-N": (1111, [0, 511, 512, 1023, 1024, 1110], 8, None),
+    "nsample-above-N": (50, list(range(0, 50, 3)), 64, None),
+    "empty": (3000, [], 32, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(BALL_EDGES))
+def test_ball_query_kernel_edges(cuda, case):
+    """Bit-equal to the plain version, each crafted case at the default route
+    and forced through both routes (1 segment, and split)."""
+    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda, query_ball_point_plain
+
+    N, hits, S, segments = BALL_EDGES[case]
+    xyz = torch.from_numpy(crafted_balls(N, hits)).to(cuda)
+    q = torch.zeros((1, 3, 3), device=cuda)
+    q[0, 1] = 2.5  # a second query among the far points
+    q[0, 2] = 100.0  # an empty ball
+    want = query_ball_point_plain(0.5, S, xyz, q)
+    assert int(want[1][0, 0]) == min(S, len(hits))
+    for seg in {segments, 1, 3}:
+        got = query_ball_point_cuda(0.5, S, xyz, q, segments=seg)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), seg
+
+
+@pytest.mark.parametrize("B,N,M", [(1, 20480, 2048), (2, 2048, 1024), (3, 1500, 77)])
+def test_ball_query_kernel_both_routes_agree(cuda, B, N, M):
+    """The same shape through one segment and through 2, 5 and the default
+    number of segments; M not a multiple of the block's 128 queries."""
+    from votenet_tpu_torch.ops.cuda.ballquery import (
+        ballquery_route, query_ball_point_cuda, query_ball_point_plain)
+
+    xyz = torch.from_numpy(cloud(N + M, B, N, "scene")).to(cuda)
+    q = xyz[:, :M].clone()
+    want = query_ball_point_plain(0.3, 64, xyz, q)
+    sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    routes = {ballquery_route(B, N, M, sm, s)[0] for s in (1, 2, 5, None)}
+    assert 1 in routes and len(routes) >= 2
+    for s in (1, 2, 5, None):
+        got = query_ball_point_cuda(0.3, 64, xyz, q, segments=s)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), s
 
 
 def test_predictor_on_the_card_matches_cpu(cuda):
@@ -297,6 +361,11 @@ SAMLP_SHAPES = {
     "ragged-M": (300, 77, 16, [32, 32, 64]),
     "odd-widths-S8": (100, 33, 8, [5, 7, 13, 3]),
     "S-past-a-chunk": (500, 9, 100, [20, 40, 24]),
+    "S16-odd-widths": (200, 70, 16, [13, 21, 37]),
+    "S24": (300, 50, 24, [32, 32, 64]),
+    "S24-odd-widths": (300, 29, 24, [11, 30, 19]),
+    "S5": (90, 41, 5, [8, 24, 16]),
+    "wide-K-S100": (400, 6, 100, [128, 256, 64]),
 }
 
 
@@ -304,9 +373,11 @@ SAMLP_SHAPES = {
 @pytest.mark.parametrize("case", list(SAMLP_SHAPES))
 def test_samlp_kernel_matches_plain(cuda, case, B):
     """Within 1e-5 of the output's scale of the plain version on the card and
-    on the CPU (the matmuls sum in another order): the five live shapes,
-    the tiny config's widths, M not a multiple of the centres a block takes,
-    widths not a multiple of 4 with S=8, and S above the 64 rows of a chunk."""
+    on the CPU (3xTF32 matmuls, summed in another order): the five live
+    shapes, the tiny config's widths, M not a multiple of the centres a tile
+    takes, widths not a multiple of 8 with S in {5, 8, 16, 24}, S above the
+    64 rows of a tile, and K slices of 16 channels (a 256-wide hidden layer
+    with S=100)."""
     from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain
 
     N, M, S, widths = SAMLP_SHAPES[case]
@@ -367,3 +438,40 @@ def test_eval_on_the_card_launches_samlp_and_matches_cpu(cuda):
         for (_, a, sa), (_, b, sb) in zip(pg[img_id], pc[img_id]):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * max(1.0, float(np.abs(b).max())))
             assert sa == pytest.approx(sb, rel=1e-4, abs=1e-4)
+
+
+def test_samlp_kernel_is_3xtf32(cuda):
+    """Inputs with full 24-bit mantissas at magnitudes where one TF32 product
+    per f32 product (1xTF32) lands outside 1e-5 of scale: the kernel stays
+    inside, so it sums all three terms."""
+    from votenet_tpu_torch.ops.cuda.samlp import chain_3xtf32, fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain
+
+    h_all, idx, sh0, s0, layers = chain_inputs(11, 2, 600, 64, 64, [128, 128, 256])
+    rng = np.random.RandomState(12)
+    h_all = (h_all * 37.0 + rng.uniform(-1, 1, h_all.shape) * 3.3).astype(np.float32)
+    layers = [((w * 3.0 + 1e-3 * rng.randn(*w.shape)).astype(np.float32), s, t) for w, s, t in layers]
+    cpu = [torch.from_numpy(a) for a in (h_all, idx, sh0, s0)] + [[tuple(torch.from_numpy(x) for x in lay) for lay in layers]]
+    card = [a.to(cuda) for a in cpu[:4]] + [[tuple(x.to(cuda) for x in lay) for lay in cpu[4]]]
+    want = fused_sa_mlp_pool_plain(*cpu)
+    tol = 1e-5 * float(want.abs().max())
+    one = chain_3xtf32(*cpu, terms=1)
+    assert float((one - want).abs().max()) > tol  # 1xTF32 would fail
+    got = fused_sa_mlp_pool_cuda(*card)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
+
+
+def test_samlp_kernel_takes_transposed_linear_weights(cuda):
+    """W as the model passes it, a transposed view of nn.Linear's (w_out,
+    w_in) weight: the same result as a contiguous copy."""
+    from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda
+
+    h_all, idx, sh0, s0, layers = chain_inputs(4, 1, 200, 33, 64, [64, 64, 128])
+    dev = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    contiguous = [(dev(w), dev(s), dev(t)) for w, s, t in layers]
+    viewed = [(dev(np.ascontiguousarray(w.T)).t(), dev(s), dev(t)) for w, s, t in layers]
+    assert not viewed[0][0].is_contiguous()
+    a = fused_sa_mlp_pool_cuda(dev(h_all), dev(idx), dev(sh0), dev(s0), contiguous)
+    b = fused_sa_mlp_pool_cuda(dev(h_all), dev(idx), dev(sh0), dev(s0), viewed)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

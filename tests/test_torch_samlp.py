@@ -114,19 +114,25 @@ def test_dispatch_on_cpu_is_the_plain_version():
 @pytest.mark.parametrize(
     "S,widths,want",
     [
-        (64, [64, 64, 128], (1, 64, (2 * 64 * 64 + 32 * 128 + 128) * 4)),
-        (64, [128, 128, 256], (1, 128, (2 * 64 * 128 + 32 * 128 + 256) * 4)),
-        (8, [16, 16, 32], (8, 16, (2 * 64 * 16 + 32 * 128 + 8 * 32) * 4)),
-        (7, [6, 9, 13], (9, 12, (2 * 64 * 12 + 32 * 128 + 9 * 13) * 4)),
-        (100, [128, 256, 64], (1, 256, (2 * 64 * 256 + 32 * 128 + 64) * 4)),
+        (64, [64, 64, 128], (1, 1, (64, 128), (64, 64), 32, 4)),
+        (64, [128, 128, 256], (1, 1, (128, 256), (128, 128), 32, 2)),
+        (8, [16, 16, 32], (8, 1, (32, 32), (32, 32), 32, 4)),
+        (7, [6, 9, 13], (9, 1, (32, 32), (32, 32), 32, 4)),
+        (100, [128, 256, 64], (1, 2, (256, 64), (128, 256), 16, 2)),
     ],
 )
 def test_samlp_plan(S, widths, want):
-    """Centres per block fill 64 rows; the row stride is the widest non-last
-    width rounded up to 4; shared memory as the kernel lays it out."""
+    """Centres a 64-row tile takes (or tiles a centre), each layer's wgmma N
+    and K, the weight slice and the ring's stages; shared memory as the
+    kernel lays it out: the ring, two warpgroups' A-fragment slots and pooled
+    rows, the affine vectors, the mbarriers."""
     plan = samlp_mod.samlp_plan(S, widths)
-    assert plan == want
-    assert plan[2] <= samlp_mod.SMEM_LIMIT
+    assert tuple(plan[:6]) == want
+    T, _, npad, kpad, ks, stages = want
+    affine = kpad[0] + 2 * sum(npad)
+    fixed = 2 * (max(kpad) // 8) * 128 * 16 + 2 * T * npad[-1] * 4 + affine * 4 + 2 * samlp_mod.MAX_STAGES * 8
+    assert plan.smem == fixed + stages * max(npad) * ks * 8
+    assert plan.smem <= samlp_mod.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------- modules

@@ -11,19 +11,36 @@
 // is all index 0 (votenet_tpu/ops/grouping.py:536-544 finalize_first_k,
 // applied here in the kernel).
 //
-// What bounds it on the H100: the distance tests, B*M*N of them in the
-// worst case, each three loads through L2 and a few FLOPs, so L2 bandwidth
-// and instruction throughput; a query whose ball fills early stops early.
-// The TPU kernel's MXU extraction (chunk counts, one-hot gathers,
-// triangular-matmul ranks, ballquery.py:107-150) exists because the TPU has
-// no cheap compaction; here a warp compacts 32 points at a time with one
-// ballot.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): the distance
+// tests, B*M*N of them where the balls hold fewer than nsample points (sa1:
+// r=0.2 over 20480 points, up to 335 M tests at B=8), fewer where a ball
+// fills early. Each test is ~9 f32 operations that must not fuse (3
+// subtract, 3 multiply, 2 add, compare), so the CUDA cores' rate for
+// instructions other than FMA, about half the FMA peak that the operations
+// bound divides by, sets the floor: ~2x that bound.
 //
-// Design: one warp per query. The warp walks the points in index order, 32
-// at a time: each lane tests one point, __ballot_sync gathers the hits, and
-// a popcount under the lanes-below mask gives each hit its slot. The walk
-// stops once nsample hits are found. Staging point tiles in shared memory
-// for the warps of a block is left for a later change.
+// Design: one thread per query. A block owns kQueries queries of one batch
+// row and walks the row's points in shared-memory tiles of kTile points,
+// double buffered: cp.async fills the next tile while the current one is
+// tested. The tile keeps the points' (x, y, z) layout, so every thread reads
+// four points with three 16-byte broadcast loads (all lanes one address: no
+// bank conflict) and tests kGroup points against its query held in
+// registers before it looks at the hits (independent tests, whose latencies
+// overlap), then appends the hits to its own slots; the order within a
+// thread is the index order, so no ballot or compaction is needed. A thread
+// whose ball is full stops testing, and the block leaves the point loop
+// once every query of it is full (__syncthreads_and), which keeps the early
+// exit. Points are read from L2 once per block instead of once per query.
+//
+// Routes (ops/cuda/ballquery.py ballquery_route): with few queries (sa1 at
+// B=1: 2048 queries, 16 blocks for 132 SMs) the grid would underfill the
+// card, and a thread's tests are a latency chain that only other warps
+// hide, so each row's points are cut into `nseg` segments of seg_pts points
+// (a multiple of kTile), one block per (query block, segment). A block then
+// writes its segment's first <= nsample hits and their count to a scratch,
+// and bq_merge_kernel concatenates the segments in order up to nsample and
+// pads: exact by construction. With nseg == 1 the kernel writes idx and cnt
+// and pads itself.
 //
 // Bit-exactness hazards:
 // - FMA contraction. d2 is ((dx*dx + dy*dy) + dz*dz) in round-to-nearest f32
@@ -33,12 +50,19 @@
 //   f32 on the host, as the JAX XLA twin does (grouping.py:194). The Pallas
 //   kernel instead rounds float(radius)**2 taken in double (ballquery.py:217);
 //   the two differ by one ulp at radius 0.2, 0.4 and 0.8.
+// - Tile padding. Slots past a tile's last point hold +inf coordinates:
+//   their d2 is +inf (or NaN), never < r2.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kQueries = 128;  // threads (queries) of a block
+constexpr int kTile = 256;     // points of a shared-memory tile
+constexpr int kGroup = 16;     // points a thread tests before it looks at the hits
+static_assert(kTile % kGroup == 0 && kGroup % 4 == 0, "a tile is whole groups of 4-point loads");
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx,
                                         float by, float bz) {
@@ -49,37 +73,140 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx,
                    __fmul_rn(dz, dz));
 }
 
-// grid = ceil(B*M / kWarpsPerBlock), block = 32 * kWarpsPerBlock.
-// xyz (B, N, 3), new_xyz (B, M, 3) f32; idx (B, M, nsample), cnt (B, M) i32.
-__global__ void ballquery_kernel(const float* __restrict__ xyz,
-                                 const float* __restrict__ new_xyz, int N,
-                                 int M, int total, float r2, int nsample,
-                                 int* __restrict__ idx, int* __restrict__ cnt) {
-  const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// grid = (ceil(M / kQueries), nseg, B), block = kQueries.
+// xyz (B, N, 3), new_xyz (B, M, 3) f32. nseg == 1: out_idx is idx
+// (B, M, nsample) and out_cnt is cnt (B, M), padded here; nseg > 1: out_idx
+// is the scratch (B, M, nseg, nsample) and out_cnt (B, M, nseg) the hits of
+// each segment (at most nsample), merged by bq_merge_kernel.
+__global__ void __launch_bounds__(kQueries)
+    ballquery_kernel(const float* __restrict__ xyz,
+                     const float* __restrict__ new_xyz, int N, int M,
+                     int seg_pts, int nseg, float r2, int nsample,
+                     int* __restrict__ out_idx, int* __restrict__ out_cnt) {
+  __shared__ __align__(16) float tile[2][kTile * 3];
+
+  const int tid = threadIdx.x;
+  const int m = blockIdx.x * kQueries + tid;
+  const int seg = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool active = m < M;
+  const size_t q = static_cast<size_t>(b) * M + m;
+  const float* p = xyz + static_cast<size_t>(b) * N * 3;
+  const int k_begin = seg * seg_pts;
+  const int k_end = min(N, k_begin + seg_pts);
+  const int ntiles = (k_end - k_begin + kTile - 1) / kTile;
+
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  if (active) {
+    qx = new_xyz[3 * q];
+    qy = new_xyz[3 * q + 1];
+    qz = new_xyz[3 * q + 2];
+  }
+  int* out = out_idx + (q * nseg + seg) * nsample;
+
+  // tile t of this segment into buffer t & 1; +inf past the last point
+  auto load = [&](int t) {
+    const int k0 = k_begin + t * kTile;
+    const int n3 = min(kTile, k_end - k0) * 3;
+    float* dst = tile[t & 1];
+    const float* src = p + static_cast<size_t>(k0) * 3;
+    for (int e = tid; e < kTile * 3; e += kQueries) {
+      if (e < n3) {
+        cp_async4(dst + e, src + e);
+      } else {
+        dst[e] = __int_as_float(0x7f800000);
+      }
+    }
+    cp_async_commit();
+  };
+
+  int found = active ? 0 : nsample;  // an idle thread counts as full
+  int first = 0;
+  load(0);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t is in shared memory for every thread
+    if (found < nsample) {
+      const float4* v = reinterpret_cast<const float4*>(tile[t & 1]);
+      const int k0 = k_begin + t * kTile;
+      const int ngroups = (min(kTile, k_end - k0) + kGroup - 1) / kGroup;
+      for (int j = 0; j < ngroups; ++j) {
+        // kGroup points, four at a time from three 16-byte loads: independent
+        // tests, so their latencies overlap
+        unsigned hits = 0u;
+#pragma unroll
+        for (int i = 0; i < kGroup / 4; ++i) {
+          const float4 a = v[3 * (j * kGroup / 4 + i)];
+          const float4 c = v[3 * (j * kGroup / 4 + i) + 1];
+          const float4 e = v[3 * (j * kGroup / 4 + i) + 2];
+          hits |= (static_cast<unsigned>(sqdist(qx, qy, qz, a.x, a.y, a.z) < r2) |
+                   static_cast<unsigned>(sqdist(qx, qy, qz, a.w, c.x, c.y) < r2) << 1 |
+                   static_cast<unsigned>(sqdist(qx, qy, qz, c.z, c.w, e.x) < r2) << 2 |
+                   static_cast<unsigned>(sqdist(qx, qy, qz, e.y, e.z, e.w) < r2) << 3)
+                  << (4 * i);
+        }
+        while (hits != 0u && found < nsample) {  // in index order
+          const int k = k0 + j * kGroup + __ffs(hits) - 1;
+          hits &= hits - 1u;
+          if (found == 0) first = k;
+          out[found++] = k;
+        }
+        if (found == nsample) break;
+      }
+    }
+    // every query full: the block is done. Also the barrier after which the
+    // buffer of tile t may be refilled (by load(t + 2)).
+    if (__syncthreads_and(found >= nsample)) break;
+  }
+  cp_async_wait<0>();  // no copy may land after the block has left
+  if (!active) return;
+
+  if (nseg == 1) {
+    const int fill = found > 0 ? first : 0;
+    for (int s = found; s < nsample; ++s) out[s] = fill;
+    out_cnt[q] = found;
+  } else {
+    out_cnt[q * nseg + seg] = found;
+  }
+}
+
+// One warp per query: the segments' hits in segment order, up to nsample,
+// then finalize_first_k's padding. grid = ceil(B*M / 8), block = 256.
+__global__ void bq_merge_kernel(const int* __restrict__ seg_idx,
+                                const int* __restrict__ seg_cnt, int total,
+                                int nseg, int nsample, int* __restrict__ idx,
+                                int* __restrict__ cnt) {
+  const int q = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (q >= total) return;  // uniform across the warp
-  const float* p = xyz + static_cast<size_t>(q / M) * N * 3;
-  const float qx = new_xyz[3 * static_cast<size_t>(q)];
-  const float qy = new_xyz[3 * static_cast<size_t>(q) + 1];
-  const float qz = new_xyz[3 * static_cast<size_t>(q) + 2];
   int* out = idx + static_cast<size_t>(q) * nsample;
-  const unsigned below = (1u << lane) - 1u;
-
-  int found = 0;  // the same in every lane
-  int first = 0;
-  for (int base = 0; base < N && found < nsample; base += 32) {
-    const int k = base + lane;
-    const bool hit =
-        k < N && sqdist(qx, qy, qz, p[3 * k], p[3 * k + 1], p[3 * k + 2]) < r2;
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (mask == 0u) continue;
-    if (found == 0) first = base + __ffs(mask) - 1;
-    const int slot = found + __popc(mask & below);
-    if (hit && slot < nsample) out[slot] = k;
-    found += __popc(mask);
+  int c = 0;
+  for (int s = 0; s < nseg && c < nsample; ++s) {
+    const size_t qs = static_cast<size_t>(q) * nseg + s;
+    const int n = min(seg_cnt[qs], nsample - c);
+    const int* src = seg_idx + qs * nsample;
+    for (int i = lane; i < n; i += 32) out[c + i] = src[i];
+    c += n;
   }
-  const int c = found < nsample ? found : nsample;
-  const int fill = c > 0 ? first : 0;
+  __syncwarp();
+  const int fill = c > 0 ? out[0] : 0;
   for (int s = c + lane; s < nsample; s += 32) out[s] = fill;
   if (lane == 0) cnt[q] = c;
 }
@@ -88,15 +215,32 @@ __global__ void ballquery_kernel(const float* __restrict__ xyz,
 
 extern "C" {
 
-// Launches the ball query on `stream`; returns the cudaError_t of the launch.
+// Launches the ball query on `stream`; returns the cudaError_t of the
+// launches. nseg == 1: one kernel writes idx and cnt. nseg > 1: seg_idx
+// (B*M*nseg*nsample int32) and seg_cnt (B*M*nseg int32) are scratch, and a
+// merge kernel writes idx and cnt. seg_pts is a multiple of the tile.
 int votenet_ball_query(const float* xyz, const float* new_xyz, int B, int N,
-                       int M, float r2, int nsample, int* idx, int* cnt,
+                       int M, float r2, int nsample, int nseg, int seg_pts,
+                       int* seg_idx, int* seg_cnt, int* idx, int* cnt,
                        void* stream) {
+  if (B < 1 || N < 1 || M < 1 || nsample < 1 || nseg < 1 || seg_pts < 1 ||
+      seg_pts % kTile != 0 || (nseg - 1) * seg_pts >= N ||
+      static_cast<long long>(nseg) * seg_pts < N || B > 65535 || nseg > 65535)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((M + kQueries - 1) / kQueries, nseg, B);
+  if (nseg == 1) {
+    ballquery_kernel<<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
+                                               r2, nsample, idx, cnt);
+    return cudaGetLastError();
+  }
+  ballquery_kernel<<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, nseg,
+                                             r2, nsample, seg_idx, seg_cnt);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const int total = B * M;
-  const int blocks = (total + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  ballquery_kernel<<<blocks, 32 * kWarpsPerBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      xyz, new_xyz, N, M, total, r2, nsample, idx, cnt);
+  bq_merge_kernel<<<(total + 7) / 8, 256, 0, s>>>(seg_idx, seg_cnt, total, nseg,
+                                                  nsample, idx, cnt);
   return cudaGetLastError();
 }
 

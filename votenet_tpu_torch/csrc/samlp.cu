@@ -1,4 +1,5 @@
-// Fused set-abstraction MLP + max-pool (eval) on Hopper (sm_90a).
+// Fused set-abstraction MLP + max-pool (eval) on Hopper (sm_90a), on the
+// tensor cores in 3xTF32.
 //
 // Replaces the Pallas TPU kernel votenet_tpu/ops/pallas/samlp.py:78
 // `_samlp_kernel` (wrapper `fused_sa_mlp_pool`, :100), which the JAX package
@@ -12,243 +13,661 @@
 //   x[s, c]  = relu(h_all[b, idx[b, m, s], c] * s0[c] + sh0[b, m, c])
 //   x[s, :]  = relu((x[s, :] @ W_i) * scale_i + shift_i)   for each later layer
 //   out[b, m, :] = max over the S ball slots s of x[s, :]
-// in f32 with round-to-nearest multiplies and adds (the build passes
-// -fmad=false; the dot products call __fmaf_rn explicitly, one rounding per
-// multiply-add, summed in ascending k from +0.0). The TPU kernel takes the
-// gathered h0 = h_all[idx] as input; this one takes the ungathered h_all and
-// the indices and gathers as its first load, so the (B, M, S, w0) tensor is
-// never written to device memory (268 MB at sa1, B=8, against 42 MB of
-// h_all). An index outside [0, N) gathers a row of zeros.
+// The kernel takes the ungathered h_all and the indices and gathers as its
+// first load, so the (B, M, S, w0) tensor never reaches device memory (268
+// MB at sa1, B=8, against 42 MB of h_all, which stays in the 50 MB L2). An
+// index outside [0, N) gathers a row of zeros.
 //
-// What bounds it on the H100: f32 multiply-adds on the CUDA cores. The five
-// calls of a full-width forward at B=8 do 62.3 G multiply-adds (124.6 GFLOP),
-// 1.9 ms at the card's 67 TFLOP/s f32 peak; the bytes (h_all, idx, the
-// pooled output; the weights from L2) are a few hundred MB, ~0.1 ms at
-// 3.35 TB/s. No tensor cores: the path is f32, as the plain version's
-// matmuls are (TF32 is off in the port).
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; the rates
+// and sizes here are the data sheet's): multiply-adds. The five calls of a
+// full-width forward at B=8 do 62.3 G of them. On the CUDA cores in f32 that is 1.9 ms
+// at 67 TFLOP/s; here they run on the tensor cores in 3xTF32, three TF32
+// products per f32 product, 3 x 124.6 GFLOP at 495 TFLOP/s: 0.76 ms. The
+// bytes (h_all, idx, sh0, the pooled output, the weights) are a few hundred
+// MB, ~0.1 ms at 3.35 TB/s.
 //
-// Design: one block of kThreads per (batch row, tile of centres). A tile
-// holds max(1, kRows / S) centres; its tile * S rows (ball slots) are
-// processed kRows at a time. For each chunk of rows:
-// - layer 0: each warp gathers 8 rows of h_all (independent loads, one
-//   idx per lane broadcast by shuffles), applies the scale, shift and ReLU,
-//   and writes them to shared memory, row-major with a stride of `ld` floats
-//   (the widest non-last width, rounded up to 4, zero padded);
-// - each later layer: a register-tiled matmul. The output is cut into
-//   passes of kCols columns; a thread owns 4 rows x 8 columns of a pass (two
-//   float4 column groups 64 apart, so a warp reads 256 contiguous bytes of
-//   the staged weights). The weights are staged through shared memory kK
-//   rows at a time, read from L2 (they are at most 128 KB and shared by all
-//   blocks). The activations of a non-last layer go to the other of two
-//   shared row buffers (ping-pong);
-// - the last layer is never stored: each thread takes the max over its rows
-//   of one centre and folds it into the centre's pooled row in shared memory
-//   with an integer atomicMax. Every pooled value is a ReLU output, >= 0, and
-//   non-negative floats order as their bit patterns do.
-// At the end the block writes its pooled rows. Shared memory: two row
-// buffers (kRows x ld floats each), the staged weights (kK x kCols) and the
-// pooled rows (tile x w_last): 81 KB at sa2-sa4 (ld 128), above the 48 KB
-// default, hence cudaFuncSetAttribute. Offsets into h_all, idx, sh0 and out
-// are 64-bit (B*M*S*w reaches 1.07e9 at sa1 with B=64). Any width works:
-// widths that are not a multiple of 4 are zero padded in shared memory.
-// Making it fast (wgmma on TF32 splits, TMA, larger register tiles) is left
-// for a later change.
+// 3xTF32: each f32 operand x is split as big = tf32(x) and small =
+// tf32(x - big) (cvt.rna.tf32.f32: round to nearest, ties away, as the
+// tensor core takes 10 mantissa bits), and x*y is taken as small*big +
+// big*small + big*big into an f32 accumulator: the dropped small*small term
+// is ~2^-22 of the product, so the chain stays within ~1e-6 of the f32
+// result where one TF32 product (~1e-3) would not. The affine steps and the
+// ReLU stay f32 with __fmul_rn/__fadd_rn (-fmad=false does not touch wgmma).
+//
+// Design. A block is one producer warpgroup and two consumer warpgroups,
+// persistent over the grid's work; setmaxnreg moves registers from the
+// producer (40 a thread) to the consumers (232), whose accumulators take up
+// to 128. A consumer owns 64 rows (ball slots) at a time, one wgmma M tile:
+// one centre when S = 64 (every S of the default configuration), 64 / S
+// centres for a smaller S (rows past the last whole centre masked), and
+// ceil(S / 64) tiles in turn for S > 64.
+// - Activations never leave registers and shared memory. A thread's
+//   accumulator fragment (rows g and g+8 of its warp's 16, columns 2t and
+//   2t+1 of every 8) is reused as its A fragment of the next layer (rows g
+//   and g+8, k-positions t and t+4 of every 8): the k order is permuted
+//   within each group of 8, k-position p holding channel 2p (p < 4) or
+//   2(p-4)+1, and the weights are laid out in the same order. A thread parks
+//   its fragments in shared-memory slots that only it touches (16 bytes a
+//   k8 step, conflict free) and loads them back one K slice at a time, split
+//   into big and small, as wgmma's register A operand. No barrier between
+//   the layers of a tile.
+// - Layer 0 gathers each thread's own rows of h_all straight into those
+//   fragments (8-byte loads, L2 hits, kGatherSteps k8 steps in flight), with
+//   the scale, shift and ReLU.
+// - Weights: the wrapper passes each layer's W as (w_out, w_in) (K-major,
+//   which TF32 wgmma needs for both operands); a prologue kernel splits it
+//   into big and small once per call, in the permuted k order and in wgmma's
+//   no-swizzle K-major core-matrix layout (8 rows x 16 bytes a core matrix),
+//   K slice by K slice. One producer thread streams the slices (32 channels
+//   of K, both terms, up to 64 KB; 16 channels where the shared memory would
+//   not hold two such stages) through a ring of stages with cp.async.bulk on
+//   mbarriers; both consumers read each stage, so the weights cross L2 once
+//   per 128 rows. sa2-sa4's second layer (128 x 256, 256 KB with both terms)
+//   is never held whole. A consumer waits for each slice's products before
+//   it releases the stage: a software-pipelined loop (two register sets of
+//   fragments) made ptxas put a warpgroup.arrive before every wgmma and ran
+//   slower.
+// - Epilogue: scale, shift and ReLU (the vectors staged in shared memory) on
+//   the accumulator, parked as the next layer's A fragments. The last layer
+//   is pooled straight from the registers. Where a warp's 16 rows belong to
+//   one centre (S a multiple of 16, or S > 64) the lanes reduce over the
+//   rows by a reduce-scatter of shuffles (each lane ends with the warp's
+//   maxima of distinct columns) and fold them into the centre's pooled row in
+//   shared memory; where only blocks of 8 rows do (S a multiple of 8), by
+//   plain shuffles; otherwise every lane folds its own rows. Pooled values
+//   are ReLU outputs, >= 0, which order as their bit patterns do, so the fold
+//   is an integer atomicMax.
+// Widths: each layer's output is padded to 32, 64, 128 or 256 columns (the
+// wgmma N; zero weights, scale and shift past the width), and its input K to
+// a multiple of kKS; every width may be at most 256. Offsets into h_all,
+// idx, sh0 and out are 64-bit.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;           // activation rows per chunk
-constexpr int kRowsPerWarp = kRows / kWarps;
-constexpr int kCols = 128;          // output columns per pass
-constexpr int kK = 32;              // weight rows per staged step
-constexpr int kMaxLayers = 8;       // dense layers after layer 0, at most
-
-static_assert(kThreads == 256 && kRows == 64 && kCols == 128,
-              "the 16 x 16 thread grid owns 4 rows x 8 columns each");
-static_assert(kRowsPerWarp <= 32, "one idx per lane");
-static_assert(kK % 4 == 0, "the k loop steps by 4");
+constexpr int kConsumerWGs = 2;              // consumer warpgroups of a block
+constexpr int kThreads = 128 * (1 + kConsumerWGs);  // + the producer warpgroup
+// registers a thread keeps after setmaxnreg: the producer gives up what the
+// consumers' accumulators (up to 128 a thread) need; 64K a block in all
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + 128 * kConsumerWGs * kConsumerRegs <= 65536, "register file");
+constexpr int kRows = 64;                    // rows of a wgmma M tile
+constexpr int kMaxLayers = 8;                // dense layers after layer 0, at most
+constexpr int kMaxStages = 4;                // weight-ring stages, at most
 
 struct Chain {
-  const float* w[kMaxLayers];      // layer l: (width[l], width[l+1]) row-major
   const float* scale[kMaxLayers];  // (width[l+1],)
   const float* shift[kMaxLayers];  // (width[l+1],)
+  long long woff[kMaxLayers];      // layer l's first slice in the split weights (floats)
   int width[kMaxLayers + 1];       // w0, then each layer's output width
-  int n;                           // dense layers after layer 0, 1..kMaxLayers
+  int npad[kMaxLayers];            // layer l's wgmma N: 32, 64, 128 or 256
+  int kpad[kMaxLayers];            // layer l's K, a multiple of the slice's ks
+  int n;                           // dense layers after layer 0
 };
 
 __device__ __forceinline__ float relu(float x) { return x < 0.0f ? 0.0f : x; }
-__device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
-
-__device__ __forceinline__ float lane_of(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+__device__ __forceinline__ float affine_relu(float x, float s, float t) {
+  return relu(__fadd_rn(__fmul_rn(x, s), t));
 }
 
-// grid = (ceil(M / tile), B), block = kThreads, dynamic shared memory =
-// (2 * kRows * ld + kK * kCols + tile * w_last) floats.
-__global__ void __launch_bounds__(kThreads, 2)
-    samlp_kernel(const float* __restrict__ h_all, const int* __restrict__ idx,
-                 const float* __restrict__ sh0, const float* __restrict__ s0,
-                 const Chain chain, int N, int M, int S, int tile, int ld,
-                 float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* const buf0 = smem;
-  float* const buf1 = buf0 + kRows * ld;
-  float* const ws = buf1 + kRows * ld;
-  int* const pooled = reinterpret_cast<int*>(ws + kK * kCols);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tx = tid & 15;  // column groups tx*4 and 64 + tx*4 of a pass
-  const int ty = tid >> 4;  // rows ty*4 .. ty*4+3 of a chunk
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * tile;
-  const int centres = min(tile, M - m0);
-  const int rows = centres * S;
-  const int w0 = chain.width[0];
-  const int wl = chain.width[chain.n];
-  const size_t bm0 = static_cast<size_t>(b) * M + m0;
+// round to TF32 (10 mantissa bits), nearest, ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u;
+}
 
-  for (int i = tid; i < centres * wl; i += kThreads) pooled[i] = 0;  // +0.0f
+// ---- mbarriers and the bulk copy (TMA) ----
 
-  for (int c0 = 0; c0 < rows; c0 += kRows) {
-    __syncthreads();  // the previous chunk is done with buf0 and buf1
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+__device__ __forceinline__ void wg_barrier(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
 
-    // layer 0: gather, scale, shift, ReLU -> buf0
-    {
-      const int r0 = warp * kRowsPerWarp;
-      int my_n = -1;
-      if (lane < kRowsPerWarp && c0 + r0 + lane < rows) {
-        const int gr = c0 + r0 + lane;
-        const int t = gr / S;
-        my_n = __ldg(idx + (bm0 + t) * S + (gr - t * S));
-      }
-      int nrow[kRowsPerWarp];
+// ---- wgmma ----
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-      for (int j = 0; j < kRowsPerWarp; ++j) nrow[j] = __shfl_sync(0xffffffffu, my_n, j);
-      for (int c = lane; c < round4(w0); c += 32) {
-        float h[kRowsPerWarp];
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a K-major B operand without swizzle: core matrices of 8 rows
+// x 16 bytes, the next along K 128 bytes on (LBO), the next 8 rows `sbo`
+// bytes on (SBO).
+__device__ __forceinline__ uint64_t bdesc(uint32_t addr, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// D (64 x N, f32) += A (64 x 8, TF32 from registers) * B (8 x N, TF32 in
+// shared memory, K-major). A's fragment: a[0] (row g, k t), a[1] (row g+8,
+// k t), a[2] (row g, k t+4), a[3] (row g+8, k t+4) of the warp's 16 rows.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Where a thread's two rows (g and g+8 of its warp's 16) sit in the work.
+struct Rows {
+  int cl[2];       // centre within the tile's pooled rows
+  bool ok[2];      // a real (centre, slot)
+  bool blk_ok[2];  // the row's block of 8 may fold into the pooled rows
+};
+
+// What a consumer warpgroup's layers share.
+struct Ctx {
+  float4* afrag;       // the warpgroup's A-fragment slots: [k8 step][thread]
+  int t;               // thread within the warpgroup
+  const uint8_t* ring;
+  int stage_bytes, stages;
+  uint64_t* full;
+  uint64_t* empty;
+  int* pooled;         // the warpgroup's pooled rows, T x pool_ld
+  int pool_ld;
+  bool grp8, grp16;    // 8 (16) consecutive rows from a multiple of 8 (16) share a centre
+};
+
+__device__ __forceinline__ void fold(int* p, float v) { atomicMax(p, __float_as_int(v)); }
+
+// One dense layer of a tile: acc = A @ W over the K slices of the ring (KB
+// k8 steps a slice), then the epilogue: parked as the next layer's A
+// fragments, or pooled (last). aff: the layer's scale (N floats, zero past
+// its width) then shift, in shared memory.
+template <int N, int KB>
+__device__ __forceinline__ void dense_layer(const Ctx& cx, int kpad, const float* aff, bool last,
+                                            const Rows& rows, int& stage, int& phase) {
+  constexpr uint32_t kSbo = KB * 2 * 128;  // bytes from one 8-row core-matrix group to the next
+  const int lane = cx.t & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  float acc[N / 2];
 #pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          const int n = nrow[j];
-          h[j] = (c < w0 && n >= 0 && n < N)
-                     ? __ldg(h_all + (static_cast<size_t>(b) * N + n) * w0 + c)
-                     : 0.0f;
-        }
-        const float sc = c < w0 ? __ldg(s0 + c) : 0.0f;
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+
+  for (int k0 = 0; k0 < kpad; k0 += 8 * KB) {
+    uint32_t big[KB][4], small[KB][4];
 #pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          const int gr = c0 + r0 + j;
-          float v = 0.0f;
-          if (c < w0 && gr < rows) {
-            const float sh = __ldg(sh0 + (bm0 + gr / S) * w0 + c);
-            v = relu(__fadd_rn(__fmul_rn(h[j], sc), sh));
-          }
-          buf0[(r0 + j) * ld + c] = v;
-        }
+    for (int kk = 0; kk < KB; ++kk) {
+      const float4 f = cx.afrag[(k0 / 8 + kk) * 128 + cx.t];
+      const float x[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        big[kk][i] = tf32_rna(x[i]);
+        small[kk][i] = tf32_rna(__fsub_rn(x[i], __uint_as_float(big[kk][i])));
       }
     }
+    mbar_wait(&cx.full[stage], phase);
+    const uint32_t base = smem_u32(cx.ring + stage * cx.stage_bytes);
+    const uint32_t sbase = base + N * KB * 8 * 4;  // the small term follows the big one
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {  // the small products first, then big * big
+      wgmma_tf32<N>(acc, small[kk], bdesc(base + kk * 256, kSbo));
+      wgmma_tf32<N>(acc, big[kk], bdesc(sbase + kk * 256, kSbo));
+      wgmma_tf32<N>(acc, big[kk], bdesc(base + kk * 256, kSbo));
+    }
+    wgmma_commit();
+    fence_regs(acc);
+    wgmma_wait0();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&cx.empty[stage]);  // this warp is done with the stage
+    if (++stage == cx.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
 
-    float* x = buf0;
-    float* y = buf1;
-    for (int l = 0; l < chain.n; ++l) {
-      const int win = chain.width[l];
-      const int wout = chain.width[l + 1];
-      const int kin = round4(win);
-      const bool last = l == chain.n - 1;
-      const float* __restrict__ W = chain.w[l];
-      for (int n0 = 0; n0 < wout; n0 += kCols) {
-        float acc[4][8];
+  if (last && cx.grp16) {
+    // Rows g and g+8, and all 16 rows of the warp, belong to one centre: the
+    // max over the warp's 8 row pairs (lanes g = 0..7, lane bits 2-4) of
+    // each of the thread's columns, as a reduce-scatter over CJ groups of 8
+    // columns at a time: at each of three steps a lane sends the half of its
+    // columns that its partner keeps, so the shuffles halve from step to step
+    // (7/4 a group, not 6), and each lane ends with the warp's maxima of
+    // CJ/4 distinct columns, which it folds into the pooled row.
+    constexpr int CJ = N / 8 < 8 ? N / 8 : 8;
+    const int b2 = (lane >> 2) & 1, b3 = (lane >> 3) & 1, b4 = (lane >> 4) & 1;
+    int* const prow = cx.pooled + rows.cl[0] * cx.pool_ld;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < N / 8 / CJ; ++q) {
+      float a[CJ];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-        for (int k0 = 0; k0 < kin; k0 += kK) {
-          __syncthreads();  // x is complete; the previous step is done with ws
-          for (int e = tid; e < kK * kCols; e += kThreads) {
-            const int k = k0 + e / kCols;
-            const int n = n0 + (e & (kCols - 1));
-            ws[e] = (k < win && n < wout) ? __ldg(W + static_cast<size_t>(k) * wout + n) : 0.0f;
-          }
-          __syncthreads();
-          const int kn = min(kK, kin - k0);
-          for (int kk = 0; kk < kn; kk += 4) {
-            float4 a[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              a[i] = *reinterpret_cast<const float4*>(x + (ty * 4 + i) * ld + k0 + kk);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float4 b0 = *reinterpret_cast<const float4*>(ws + (kk + q) * kCols + tx * 4);
-              const float4 b1 = *reinterpret_cast<const float4*>(ws + (kk + q) * kCols + 64 + tx * 4);
-              const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const float av = lane_of(a[i], q);
-#pragma unroll
-                for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(av, bv[j], acc[i][j]);
-              }
-            }
-          }
-        }
-
-        // epilogue: scale, shift, ReLU; store (not last) or pool (last)
-        float scl[8], sft[8];
-        int col[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          col[j] = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-          scl[j] = col[j] < wout ? __ldg(chain.scale[l] + col[j]) : 0.0f;
-          sft[j] = col[j] < wout ? __ldg(chain.shift[l] + col[j]) : 0.0f;
-        }
-        if (!last) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float v[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) v[j] = relu(__fadd_rn(__fmul_rn(acc[i][j], scl[j]), sft[j]));
-            float* row = y + (ty * 4 + i) * ld;
-            if (col[0] < ld) *reinterpret_cast<float4*>(row + col[0]) = make_float4(v[0], v[1], v[2], v[3]);
-            if (col[4] < ld) *reinterpret_cast<float4*>(row + col[4]) = make_float4(v[4], v[5], v[6], v[7]);
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            if (col[j] >= wout) continue;
-            int cur = -1;
-            float best = 0.0f;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int gr = c0 + ty * 4 + i;
-              if (gr >= rows) break;
-              const int t = gr / S;
-              const float v = relu(__fadd_rn(__fmul_rn(acc[i][j], scl[j]), sft[j]));
-              if (t != cur) {
-                if (cur >= 0) atomicMax(pooled + cur * wl + col[j], __float_as_int(best));
-                cur = t;
-                best = v;
-              } else if (v > best) {
-                best = v;
-              }
-            }
-            if (cur >= 0) atomicMax(pooled + cur * wl + col[j], __float_as_int(best));
-          }
-        }
+      for (int jj = 0; jj < CJ; ++jj) {  // keep column 8j + 2t + b2
+        const int j = q * CJ + jj;
+        const float2 sc = *reinterpret_cast<const float2*>(aff + 8 * j + 2 * tig);
+        const float2 sf = *reinterpret_cast<const float2*>(aff + N + 8 * j + 2 * tig);
+        float m0 = fmaxf(rows.ok[0] ? affine_relu(acc[4 * j], sc.x, sf.x) : 0.0f,
+                         rows.ok[1] ? affine_relu(acc[4 * j + 2], sc.x, sf.x) : 0.0f);
+        float m1 = fmaxf(rows.ok[0] ? affine_relu(acc[4 * j + 1], sc.y, sf.y) : 0.0f,
+                         rows.ok[1] ? affine_relu(acc[4 * j + 3], sc.y, sf.y) : 0.0f);
+        a[jj] = fmaxf(b2 ? m1 : m0, __shfl_xor_sync(0xffffffffu, b2 ? m0 : m1, 4));
       }
-      float* const tmp = x;
-      x = y;
-      y = tmp;
+      float c[CJ / 2];
+#pragma unroll
+      for (int i = 0; i < CJ / 2; ++i) {  // keep jj = 2i + b3
+        c[i] = fmaxf(b3 ? a[2 * i + 1] : a[2 * i], __shfl_xor_sync(0xffffffffu, b3 ? a[2 * i] : a[2 * i + 1], 8));
+      }
+#pragma unroll
+      for (int k = 0; k < CJ / 4; ++k) {  // keep i = 2k + b4: jj = 4k + 2 b4 + b3
+        const float d = fmaxf(b4 ? c[2 * k + 1] : c[2 * k], __shfl_xor_sync(0xffffffffu, b4 ? c[2 * k] : c[2 * k + 1], 16));
+        if (rows.blk_ok[0]) fold(prow + 8 * (q * CJ + 4 * k + 2 * b4 + b3) + 2 * tig + b2, d);
+      }
+    }
+    return;
+  }
+
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c0 = 8 * j + 2 * tig;
+    const int c1 = c0 + 1;
+    const float2 sc = *reinterpret_cast<const float2*>(aff + c0);
+    const float2 sf = *reinterpret_cast<const float2*>(aff + N + c0);
+    float v00 = affine_relu(acc[4 * j], sc.x, sf.x);      // row g, column c0
+    float v01 = affine_relu(acc[4 * j + 1], sc.y, sf.y);  // row g, column c1
+    float v10 = affine_relu(acc[4 * j + 2], sc.x, sf.x);  // row g+8, column c0
+    float v11 = affine_relu(acc[4 * j + 3], sc.y, sf.y);  // row g+8, column c1
+    if (!last) {
+      // the next layer's A fragment: k-positions t and t+4 hold channels c0, c1
+      cx.afrag[j * 128 + cx.t] = make_float4(v00, v10, v01, v11);
+      continue;
+    }
+    if (!rows.ok[0]) v00 = v01 = 0.0f;  // 0 folds into a max of ReLU outputs as nothing
+    if (!rows.ok[1]) v10 = v11 = 0.0f;
+    int* const p0 = cx.pooled + rows.cl[0] * cx.pool_ld;
+    int* const p1 = cx.pooled + rows.cl[1] * cx.pool_ld;
+    if (cx.grp8) {  // each block of 8 rows: one centre
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        v00 = fmaxf(v00, __shfl_xor_sync(0xffffffffu, v00, o));
+        v01 = fmaxf(v01, __shfl_xor_sync(0xffffffffu, v01, o));
+        v10 = fmaxf(v10, __shfl_xor_sync(0xffffffffu, v10, o));
+        v11 = fmaxf(v11, __shfl_xor_sync(0xffffffffu, v11, o));
+      }
+      if (g == 0 && rows.blk_ok[0]) {
+        fold(p0 + c0, v00);
+        fold(p0 + c1, v01);
+      }
+      if (g == 0 && rows.blk_ok[1]) {
+        fold(p1 + c0, v10);
+        fold(p1 + c1, v11);
+      }
+    } else {  // any S: every lane folds its own rows
+      if (rows.ok[0]) {
+        fold(p0 + c0, v00);
+        fold(p0 + c1, v01);
+      }
+      if (rows.ok[1]) {
+        fold(p1 + c0, v10);
+        fold(p1 + c1, v11);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float2 load_pair(const float* __restrict__ p, int c, int w) {
+  if ((w & 1) == 0) return c < w ? __ldg(reinterpret_cast<const float2*>(p + c)) : make_float2(0.0f, 0.0f);
+  return make_float2(c < w ? __ldg(p + c) : 0.0f, c + 1 < w ? __ldg(p + c + 1) : 0.0f);
+}
+
+constexpr int kGatherSteps = 8;  // k8 steps of layer 0 whose loads are in flight together
+
+// grid = min(ceil(items / 2), SMs), block = kThreads: warpgroup 0 the
+// producer (one thread streams the weight slices), warpgroups 1 and 2 the
+// consumers. Dynamic shared memory: the weight ring (stages x stage_bytes),
+// each consumer's A-fragment slots (kb_max x 128 threads x 16 bytes) and
+// pooled rows (T x pool_ld ints), the affine vectors (s0 padded to kpad[0],
+// then each layer's scale and shift padded to npad), the ring's mbarriers.
+// An item is one tile of T centres (S <= 64) or the R tiles of one centre
+// (S > 64); consumer w of a block takes item 2p + w of each pair p the
+// block walks.
+__global__ void __launch_bounds__(kThreads, 1)
+    samlp_kernel(const float* __restrict__ h_all, const int* __restrict__ idx, const float* __restrict__ sh0,
+                 const float* __restrict__ s0, const float* __restrict__ wsplit,
+                 const __grid_constant__ Chain chain, int N, int M, int S, int T, int R, int items_per_row,
+                 int items, int ks, int stages, int stage_bytes, int kb_max, int pool_ld,
+                 float* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* const ring = smem;
+  float4* const afrag_all = reinterpret_cast<float4*>(smem + stages * stage_bytes);
+  int* const pooled_all = reinterpret_cast<int*>(afrag_all + kConsumerWGs * kb_max * 128);
+  float* const affine = reinterpret_cast<float*>(pooled_all + kConsumerWGs * T * pool_ld);
+  int n_aff = chain.kpad[0];
+  for (int l = 0; l < chain.n; ++l) n_aff += 2 * chain.npad[l];
+  uint64_t* const full = reinterpret_cast<uint64_t*>(affine + n_aff);
+  uint64_t* const empty = full + kMaxStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumerWGs);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < kConsumerWGs * T * pool_ld; i += kThreads) pooled_all[i] = 0;  // +0.0f
+  {
+    const int w0 = chain.width[0];
+    for (int c = tid; c < chain.kpad[0]; c += kThreads) affine[c] = c < w0 ? s0[c] : 0.0f;
+    float* a = affine + chain.kpad[0];
+    for (int l = 0; l < chain.n; ++l) {
+      const int np = chain.npad[l], w = chain.width[l + 1];
+      for (int c = tid; c < np; c += kThreads) {
+        a[c] = c < w ? chain.scale[l][c] : 0.0f;
+        a[np + c] = c < w ? chain.shift[l][c] : 0.0f;
+      }
+      a += 2 * np;
     }
   }
   __syncthreads();
 
-  for (int i = tid; i < centres * wl; i += kThreads) {
-    const int t = i / wl;
-    out[(bm0 + t) * wl + (i - t * wl)] = __int_as_float(pooled[i]);
+  const int pairs = (items + 1) / 2;
+  const int wg = tid >> 7;
+  if (wg == 0) {  // the producer: every slice of every layer of every tile, in order
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      int stage = 0, phase = 0;
+      for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+        for (int j = 0; j < R; ++j) {
+          for (int l = 0; l < chain.n; ++l) {
+            const int bytes = chain.npad[l] * ks * 8;
+            const float* src = wsplit + chain.woff[l];
+            for (int k0 = 0; k0 < chain.kpad[l]; k0 += ks, src += bytes / 4) {
+              mbar_wait(&empty[stage], phase ^ 1);
+              mbar_expect_tx(&full[stage], bytes);
+              bulk_load(ring + stage * stage_bytes, src, bytes, &full[stage]);
+              if (++stage == stages) {
+                stage = 0;
+                phase ^= 1;
+              }
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int cw = wg - 1;  // consumer warpgroup 0 or 1
+  const int t = tid & 127;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int r0 = (t >> 5) * 16 + g;  // the thread's rows r0 and r0 + 8 of the tile
+  const bool wide = S > kRows;
+  Ctx cx;
+  cx.afrag = afrag_all + cw * kb_max * 128;
+  cx.t = t;
+  cx.ring = ring;
+  cx.stage_bytes = stage_bytes;
+  cx.stages = stages;
+  cx.full = full;
+  cx.empty = empty;
+  cx.pooled = pooled_all + cw * T * pool_ld;
+  cx.pool_ld = pool_ld;
+  cx.grp8 = wide || S % 8 == 0;
+  cx.grp16 = wide || S % 16 == 0;
+  const int used = wide ? kRows : T * S;  // rows of a tile that hold slots
+  const int w0 = chain.width[0];
+  const int wl = chain.width[chain.n];
+  const int kb0 = chain.kpad[0] / 8;  // a multiple of 4
+  int stage = 0, phase = 0;
+
+  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    const int item = 2 * pair + cw;
+    const bool live = item < items;  // else a dummy tile keeps the ring in step
+    const int b = live ? item / items_per_row : 0;
+    const int it = item - b * items_per_row;
+    const size_t bm = static_cast<size_t>(b) * M;
+    for (int j = 0; j < R; ++j) {
+      // layer 0: gather the thread's rows into its A fragments
+      Rows rows;
+      const float* hrow[2];
+      const float* srow[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        const int cl = wide ? 0 : r / S;
+        const int centre = wide ? it : it * T + cl;
+        const int slot = wide ? j * kRows + r : r - cl * S;
+        rows.cl[h] = cl;
+        rows.ok[h] = live && r < used && centre < M && slot < S;
+        rows.blk_ok[h] = (r & ~7) < used;
+        hrow[h] = nullptr;
+        srow[h] = nullptr;
+        if (rows.ok[h]) {
+          const int n = __ldg(idx + (bm + centre) * S + slot);
+          if (n >= 0 && n < N) hrow[h] = h_all + (static_cast<size_t>(b) * N + n) * w0;
+          srow[h] = sh0 + (bm + centre) * w0;
+        }
+      }
+      for (int kbase = 0; kbase < kb0; kbase += kGatherSteps) {
+        float2 x[kGatherSteps][2], sh[kGatherSteps][2];
+#pragma unroll
+        for (int u = 0; u < kGatherSteps; ++u) {  // all loads first
+          const int c = 8 * (kbase + u) + 2 * tig;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            x[u][h] = hrow[h] != nullptr && kbase + u < kb0 ? load_pair(hrow[h], c, w0) : make_float2(0.0f, 0.0f);
+            sh[u][h] = srow[h] != nullptr && kbase + u < kb0 ? load_pair(srow[h], c, w0) : make_float2(0.0f, 0.0f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGatherSteps; ++u) {
+          const int kb = kbase + u;
+          if (kb >= kb0) break;
+          const int c = 8 * kb + 2 * tig;
+          const float2 sc = *reinterpret_cast<const float2*>(affine + c);
+          float2 v[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            v[h] = make_float2(0.0f, 0.0f);
+            if (srow[h] != nullptr) {  // zero scale past w0: relu(0 * 0 + 0)
+              v[h] = make_float2(affine_relu(x[u][h].x, sc.x, sh[u][h].x), affine_relu(x[u][h].y, sc.y, sh[u][h].y));
+            }
+          }
+          cx.afrag[kb * 128 + t] = make_float4(v[0].x, v[1].x, v[0].y, v[1].y);
+        }
+      }
+
+      const float* aff = affine + chain.kpad[0];
+      for (int l = 0; l < chain.n; ++l) {
+        const bool last = l == chain.n - 1;
+        const int np = chain.npad[l];
+#define SAMLP_LAYER(NP, KB) dense_layer<NP, KB>(cx, chain.kpad[l], aff, last, rows, stage, phase)
+        if (ks == 32) {
+          switch (np) {
+            case 32: SAMLP_LAYER(32, 4); break;
+            case 64: SAMLP_LAYER(64, 4); break;
+            case 128: SAMLP_LAYER(128, 4); break;
+            default: SAMLP_LAYER(256, 4); break;
+          }
+        } else {
+          switch (np) {
+            case 32: SAMLP_LAYER(32, 2); break;
+            case 64: SAMLP_LAYER(64, 2); break;
+            case 128: SAMLP_LAYER(128, 2); break;
+            default: SAMLP_LAYER(256, 2); break;
+          }
+        }
+#undef SAMLP_LAYER
+        aff += 2 * np;
+      }
+    }
+
+    // the item's centres are pooled: write them out, zero the pooled rows
+    wg_barrier(cw);
+    for (int i = t; i < T * wl; i += 128) {
+      const int cl = i / wl;
+      const int c = i - cl * wl;
+      const int centre = wide ? it : it * T + cl;
+      if (live && centre < M) out[(bm + centre) * wl + c] = __int_as_float(cx.pooled[cl * pool_ld + c]);
+      cx.pooled[cl * pool_ld + c] = 0;
+    }
+    wg_barrier(cw);
+  }
+}
+
+struct Split {
+  const float* w[kMaxLayers];  // layer l's weight, (w_out, w_in) row-major
+  long long woff[kMaxLayers + 1];
+  int win[kMaxLayers], wout[kMaxLayers], npad[kMaxLayers];
+  int n, ks;
+};
+
+// The weights' big and small TF32 terms in the order the ring streams them:
+// per layer, per K slice of ks channels, [term][n / 8][k / 4 in the slice]
+// [n % 8][k % 4] (wgmma's no-swizzle K-major core matrices), with the
+// k-positions of each group of 8 permuted as the A fragments are (position
+// p < 4 holds channel 2p, p >= 4 channel 2(p-4)+1); zero past the widths.
+__global__ void samlp_split_weights(const __grid_constant__ Split a, float* __restrict__ wsplit) {
+  const long long total = a.woff[a.n];
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    int l = 0;
+    while (e >= a.woff[l + 1]) ++l;
+    const int np = a.npad[l];
+    const long long r = e - a.woff[l];
+    const int slice = static_cast<int>(r / (2 * np * a.ks));
+    int q = static_cast<int>(r - static_cast<long long>(slice) * 2 * np * a.ks);
+    const int term = q / (np * a.ks);
+    q -= term * np * a.ks;
+    const int ng = q / (8 * a.ks);
+    q -= ng * 8 * a.ks;
+    const int kc = q / 32;
+    q -= kc * 32;
+    const int n = ng * 8 + q / 4;
+    const int kpos = slice * a.ks + kc * 4 + (q & 3);
+    const int p = kpos & 7;
+    const int k = (kpos & ~7) + (p < 4 ? 2 * p : 2 * (p - 4) + 1);
+    const float x = (n < a.wout[l] && k < a.win[l]) ? a.w[l][static_cast<size_t>(n) * a.win[l] + k] : 0.0f;
+    const float big = __uint_as_float(tf32_rna(x));
+    wsplit[e] = term == 0 ? big : __uint_as_float(tf32_rna(__fsub_rn(x, big)));
   }
 }
 
@@ -256,45 +675,75 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 extern "C" {
 
-// Launches the fused SA MLP + max-pool on `stream`. h_all (B, N, w0) f32,
-// idx (B, M, S) int32, sh0 (B, M, w0) f32, s0 (w0,) f32; for each of the
-// n_layers dense layers l, w[l] (widths[l], widths[l+1]) f32 row-major,
-// scale[l] and shift[l] (widths[l+1],) f32; out (B, M, widths[n_layers]) f32.
-// All are contiguous device buffers. `tile` (centres per block) and `ld`
-// (the row stride of the shared activation buffers, a multiple of 4 and at
-// least every width but the last, rounded up to 4) are chosen by the caller
-// (ops/cuda/samlp.py samlp_plan). Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for arguments out of range).
+// Launches the weight split and the fused SA MLP + max-pool on `stream`.
+// h_all (B, N, w0) f32, idx (B, M, S) int32, sh0 (B, M, w0) f32, s0 (w0,)
+// f32; for each of the n_layers dense layers l, wt[l] (widths[l+1],
+// widths[l]) f32 row-major (nn.Linear's weight), scale[l] and shift[l]
+// (widths[l+1],) f32; out (B, M, widths[n_layers]) f32. The launch plan
+// (ops/cuda/samlp.py samlp_plan): npad[l] (32, 64, 128 or 256) and kpad[l]
+// (a multiple of 32, kpad[l+1] == npad[l]) per layer, T centres a tile
+// (S <= 64) or R tiles a centre (S > 64), ks (16 or 32) channels a weight
+// slice, `stages` ring stages, `grid` blocks. wsplit is scratch of
+// sum(2 * kpad[l] * npad[l]) floats. Returns the cudaError_t of the
+// launches (cudaErrorInvalidValue for arguments out of range).
 int votenet_samlp(const float* h_all, const int* idx, const float* sh0, const float* s0,
-                  const void* const* w, const void* const* scale, const void* const* shift,
-                  const int* widths, int n_layers, int B, int N, int M, int S, int tile,
-                  int ld, float* out, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || B < 1 || N < 1 || M < 1 || S < 1 ||
-      tile < 1 || ld < 4 || ld % 4 != 0)
+                  const void* const* wt, const void* const* scale, const void* const* shift,
+                  const int* widths, const int* npad, const int* kpad, int n_layers, int B, int N, int M,
+                  int S, int T, int R, int ks, int stages, int grid, float* wsplit, float* out,
+                  void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || B < 1 || N < 1 || M < 1 || S < 1 || T < 1 || R < 1 ||
+      (ks != 16 && ks != 32) || stages < 2 || stages > kMaxStages || grid < 1)
+    return cudaErrorInvalidValue;
+  if ((S <= kRows && (R != 1 || T * S > kRows)) || (S > kRows && (T != 1 || R * kRows < S)))
     return cudaErrorInvalidValue;
   Chain chain;
-  chain.n = n_layers;
+  Split split;
+  chain.n = split.n = n_layers;
+  split.ks = ks;
+  long long off = 0;
+  int kb_max = 0, np_max = 0, n_aff = kpad[0];
   for (int l = 0; l <= n_layers; ++l) {
-    if (widths[l] < 1) return cudaErrorInvalidValue;
-    if (l < n_layers && widths[l] > ld) return cudaErrorInvalidValue;
+    if (widths[l] < 1 || widths[l] > 256) return cudaErrorInvalidValue;
     chain.width[l] = widths[l];
   }
   for (int l = 0; l < n_layers; ++l) {
-    chain.w[l] = static_cast<const float*>(w[l]);
+    const int np = npad[l], kp = kpad[l];
+    if ((np != 32 && np != 64 && np != 128 && np != 256) || np < widths[l + 1] || kp % 32 != 0 ||
+        kp < widths[l] || (l > 0 && kp != npad[l - 1]))
+      return cudaErrorInvalidValue;
     chain.scale[l] = static_cast<const float*>(scale[l]);
     chain.shift[l] = static_cast<const float*>(shift[l]);
+    chain.npad[l] = split.npad[l] = np;
+    chain.kpad[l] = kp;
+    chain.woff[l] = split.woff[l] = off;
+    split.w[l] = static_cast<const float*>(wt[l]);
+    split.win[l] = widths[l];
+    split.wout[l] = widths[l + 1];
+    off += 2LL * kp * np;
+    kb_max = kp / 8 > kb_max ? kp / 8 : kb_max;
+    np_max = np > np_max ? np : np_max;
+    n_aff += 2 * np;
   }
-  const size_t smem =
-      (2 * static_cast<size_t>(kRows) * ld + kK * kCols + static_cast<size_t>(tile) * widths[n_layers]) *
-      sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        samlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((M + tile - 1) / tile, B);
-  samlp_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      h_all, idx, sh0, s0, chain, N, M, S, tile, ld, out);
+  split.woff[n_layers] = off;
+  const int stage_bytes = np_max * ks * 8;
+  const int pool_ld = npad[n_layers - 1];
+  const size_t smem = static_cast<size_t>(stages) * stage_bytes +
+                      static_cast<size_t>(kConsumerWGs) * kb_max * 128 * 16 +
+                      static_cast<size_t>(kConsumerWGs) * T * pool_ld * 4 + static_cast<size_t>(n_aff) * 4 +
+                      2 * kMaxStages * 8;
+  const cudaError_t attr = cudaFuncSetAttribute(samlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int split_blocks = static_cast<int>((off + 255) / 256 < 1024 ? (off + 255) / 256 : 1024);
+  samlp_split_weights<<<split_blocks, 256, 0, s>>>(split, wsplit);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int items_per_row = S <= kRows ? (M + T - 1) / T : M;
+  const int items = B * items_per_row;
+  samlp_kernel<<<grid, kThreads, smem, s>>>(h_all, idx, sh0, s0, wsplit, chain, N, M, S, T, R, items_per_row,
+                                           items, ks, stages, stage_bytes, kb_max, pool_ld, out);
   return cudaGetLastError();
 }
 

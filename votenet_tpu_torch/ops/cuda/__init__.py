@@ -15,6 +15,7 @@ tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,10 +30,11 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 # -fmad=false: no contraction of a*b+c into an FMA anywhere in the kernels
-# (the distance sums are also written with __fmul_rn/__fadd_rn, the samlp
-# dot products with __fmaf_rn); see the notes in csrc/fps.cu,
-# csrc/ballquery.cu and csrc/samlp.cu. -Xptxas=-v puts each kernel's
-# registers, shared memory and spills into the build log.
+# (the distance sums and samlp's affine steps are also written with
+# __fmul_rn/__fadd_rn; samlp's matmuls run on wgmma, which the flag does not
+# touch); see the notes in csrc/fps.cu, csrc/ballquery.cu and csrc/samlp.cu.
+# -Xptxas=-v puts each kernel's registers, shared memory and spills into the
+# build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -98,20 +100,27 @@ def library() -> ctypes.CDLL:
             lib.votenet_fps_max_clusters.argtypes = [i32, i32]
             lib.votenet_fps_max_clusters.restype = i32
             lib.votenet_ball_query.argtypes = [
-                ptr, ptr, i32, i32, i32, f32, i32, ptr, ptr, ptr
+                ptr, ptr, i32, i32, i32, f32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr
             ]
             lib.votenet_ball_query.restype = i32
             lib.votenet_scatter_add.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
             lib.votenet_scatter_add.restype = i32
             ptrs, ints = ctypes.POINTER(ptr), ctypes.POINTER(i32)
             lib.votenet_samlp.argtypes = [
-                ptr, ptr, ptr, ptr, ptrs, ptrs, ptrs, ints, i32, i32, i32, i32, i32, i32, i32, ptr, ptr
+                ptr, ptr, ptr, ptr, ptrs, ptrs, ptrs, ints, ints, ints,
+                i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
             ]
             lib.votenet_samlp.restype = i32
             lib.votenet_error_string.argtypes = [i32]
             lib.votenet_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check_launch(err: int, kernel: str) -> None:

@@ -1,11 +1,14 @@
 """Exact ball query: the CUDA kernel's wrapper and its plain version.
 
 Kernel: ``votenet_tpu_torch/csrc/ballquery.cu``. It replaces the Pallas
-kernel ``votenet_tpu/ops/pallas/ballquery.py:71 _bq_kernel`` with one warp
-per query that walks the points in index order 32 at a time and compacts the
-hits with a ballot, stopping once ``nsample`` are found. On the H100 it is
-bound by the distance tests it reads through L2 (B*M*N at worst); see the
-note at the top of the source.
+kernel ``votenet_tpu/ops/pallas/ballquery.py:71 _bq_kernel`` with one thread
+per query: a block of BQ_QUERIES queries of one batch row walks the row's
+points in shared-memory tiles of BQ_TILE points, each thread appending its
+hits in index order, and leaves once every ball is full. Where the grid
+would underfill the card, :func:`ballquery_route` cuts each row's points
+into segments, one block per (query block, segment), and a merge pass
+concatenates the segments' hits in order. On the H100 it is bound by the
+distance tests (B*M*N at worst); see the note at the top of the source.
 
 Semantics of both versions (``votenet_tpu/ops/grouping.py:143-251``
 ``_query_ball_point_dense`` in "exact" mode, then ``finalize_first_k``,
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from votenet_tpu_torch.ops.common import pairwise_sqdist
-from votenet_tpu_torch.ops.cuda import check_launch, library, require_cuda
+from votenet_tpu_torch.ops.cuda import check_launch, library, require_cuda, sm_count
 
 # query rows per chunk of the plain version: bounds its (chunk, N) temporaries
 _PLAIN_ROWS = 256
@@ -77,12 +80,40 @@ def query_ball_point_plain(radius: float, nsample: int, xyz1: torch.Tensor, xyz2
     return idx, cnt
 
 
-def query_ball_point_cuda(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
+# mirror csrc/ballquery.cu: queries (threads) of a block, points of a tile
+BQ_QUERIES, BQ_TILE = 128, 256
+# The route's rule: split a row's points while the grid has fewer than
+# BQ_BLOCKS_PER_SM blocks a streaming multiprocessor (64 warps, all it
+# holds), into at most BQ_MAX_SEGMENTS segments of at least one tile
+# (chip_smoke.py phase 3 times each main-path shape through the other route
+# beside the rule's).
+BQ_BLOCKS_PER_SM, BQ_MAX_SEGMENTS = 16, 16
+
+
+def ballquery_route(B: int, N: int, M: int, sms: int, segments: int | None = None) -> tuple[int, int]:
+    """(segments a row's points are cut into, points of a segment) of a
+    launch on a card of ``sms`` SMs: one segment where B * ceil(M /
+    BQ_QUERIES) blocks fill it; otherwise as many as bring the grid to
+    BQ_BLOCKS_PER_SM blocks an SM, at most BQ_MAX_SEGMENTS, each at least a
+    tile. Segments are whole tiles, so the count may come out below the one
+    asked for. ``segments`` forces the count (before that rounding)."""
+    if segments is None:
+        blocks = B * -(-M // BQ_QUERIES)
+        want = -(-sms * BQ_BLOCKS_PER_SM // blocks)
+        segments = max(1, min(want, BQ_MAX_SEGMENTS, N // BQ_TILE))
+    seg_pts = -(-(-(-N // segments)) // BQ_TILE) * BQ_TILE
+    return -(-N // seg_pts), seg_pts
+
+
+def query_ball_point_cuda(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                          segments: int | None = None):
     """Launch the ball-query kernel on contiguous f32 CUDA tensors: points
     (B, N, 3), queries (B, M, 3) -> idx (B, M, nsample) int32, cnt (B, M) int32.
 
-    Raises for a tensor that is not on a CUDA device; it never computes the
-    plain version. Adds one to ``query_ball_point_cuda.launches`` per launch.
+    ``segments`` forces the route (:func:`ballquery_route`); by default the
+    card's SM count picks it. Raises for a tensor that is not on a CUDA
+    device; it never computes the plain version. Adds one to
+    ``query_ball_point_cuda.launches`` per call (one or, split, two kernels).
     """
     require_cuda("query_ball_point_cuda", xyz1, 3, 3)
     require_cuda("query_ball_point_cuda", xyz2, 3, 3)
@@ -92,12 +123,20 @@ def query_ball_point_cuda(radius: float, nsample: int, xyz1: torch.Tensor, xyz2:
         raise ValueError("query_ball_point_cuda: points and queries must share batch and device")
     if nsample < 1 or B < 1 or N < 1 or M < 1:
         raise ValueError(f"query_ball_point_cuda: need nsample, B, N, M >= 1, got {nsample}, {B}, {N}, {M}")
+    if segments is not None and segments < 1:
+        raise ValueError(f"query_ball_point_cuda: segments must be >= 1, got {segments}")
     lib = library()
+    nseg, seg_pts = ballquery_route(B, N, M, sm_count(xyz1.device.index), segments)
     idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz1.device)
     cnt = torch.empty((B, M), dtype=torch.int32, device=xyz1.device)
+    seg_idx = seg_cnt = None
+    if nseg > 1:
+        seg_idx = torch.empty((B, M, nseg, nsample), dtype=torch.int32, device=xyz1.device)
+        seg_cnt = torch.empty((B, M, nseg), dtype=torch.int32, device=xyz1.device)
     with torch.cuda.device(xyz1.device):
         err = lib.votenet_ball_query(
-            xyz1.data_ptr(), xyz2.data_ptr(), B, N, M, radius_sq(radius), nsample,
+            xyz1.data_ptr(), xyz2.data_ptr(), B, N, M, radius_sq(radius), nsample, nseg, seg_pts,
+            None if seg_idx is None else seg_idx.data_ptr(), None if seg_cnt is None else seg_cnt.data_ptr(),
             idx.data_ptr(), cnt.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     check_launch(err, "ball_query")

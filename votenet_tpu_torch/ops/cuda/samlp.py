@@ -6,8 +6,13 @@ Kernel: ``votenet_tpu_torch/csrc/samlp.cu``. It replaces the Pallas kernel
 ``fused_sa_mlp_pool``, ``:100``). The TPU kernel takes the gathered
 ``h0 = group_point(h_all, idx)``; this one takes the ungathered ``h_all`` and
 the ball-query indices and gathers as its first load, so the grouped
-(B, M, S, w0) tensor never reaches device memory. On the H100 it is bound by
-f32 multiply-adds; see the note at the top of the source.
+(B, M, S, w0) tensor never reaches device memory. Its matmuls run on the
+tensor cores (``wgmma``) in 3xTF32: each f32 operand split into a TF32 big
+and small term, three TF32 products per f32 product, f32-accurate. A prologue
+kernel of the same launch splits the weights, passed as (w_out, w_in)
+(``nn.Linear``'s layout, K-major as TF32 ``wgmma`` needs), into the slices
+the kernel streams; :func:`samlp_plan` lays out the launch. See the note at
+the top of the source.
 
 Semantics of both versions, with the eval batch norm and the dense biases
 folded by the caller (``models/pointnet2.py``, after
@@ -21,26 +26,101 @@ folded by the caller (``models/pointnet2.py``, after
 h_all (B, N, w0), idx (B, M, S) int in [0, N), sh0 (B, M, w0), s0 (w0,); each
 layer's W is (w_in, w_out), s and t (w_out,); out (B, M, w_last), all f32.
 The multiplies and adds of the affine steps round as the plain version's do;
-the matmuls sum in another order (the kernel in ascending k with one rounding
-per multiply-add), so the two agree to ~1e-6 of the output's scale, not
-bitwise.
+the matmuls sum in another order and in 3xTF32 (the dropped small*small
+term is ~2^-22 of a product), so the two agree to ~1e-6 of the output's
+scale, not bitwise. :func:`tf32_split` and :func:`chain_3xtf32` emulate the
+kernel's arithmetic in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from votenet_tpu_torch.ops.cuda import check_launch, library, require_cuda
+from votenet_tpu_torch.ops.cuda import check_launch, library, require_cuda, sm_count
 
 Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-# mirror csrc/samlp.cu: rows per chunk, staged weight rows x columns, layers
-ROWS, STAGE_K, STAGE_COLS, MAX_LAYERS = 64, 32, 128, 8
-# dynamic shared memory a block may use on Hopper (227 KB)
+# mirror csrc/samlp.cu: rows of a wgmma tile, layers, ring stages, the
+# shared memory a block may use on Hopper (227 KB), and the wgmma N a
+# layer's output is padded to
+ROWS, MAX_LAYERS, MAX_STAGES = 64, 8, 4
 SMEM_LIMIT = 232448
+N_PADS = (32, 64, 128, 256)
+CONSUMER_WGS = 2  # consumer warpgroups of a block
+
+
+class SamlpPlan(NamedTuple):
+    """A launch of the fused kernel: T centres a 64-row tile (S <= 64) or R
+    tiles a centre (S > 64); each layer's wgmma N (``npad``) and K
+    (``kpad``); ``ks`` channels of K a weight slice and ``stages`` slices in
+    the ring; the block's dynamic shared memory and the split weights'
+    floats."""
+
+    T: int
+    R: int
+    npad: Tuple[int, ...]
+    kpad: Tuple[int, ...]
+    ks: int
+    stages: int
+    smem: int
+    wsplit: int
+
+
+def samlp_plan(S: int, widths: Sequence[int]) -> SamlpPlan:
+    """The launch plan of ``csrc/samlp.cu`` for S ball slots and the chain's
+    widths (w0, then each layer's output). Raises ValueError where a width
+    exceeds 256 or the block's shared memory would not hold two stages."""
+    if S < 1 or len(widths) < 2 or min(widths) < 1 or max(widths) > N_PADS[-1]:
+        raise ValueError(f"samlp: need S >= 1 and widths in [1, {N_PADS[-1]}], got S={S}, widths {list(widths)}")
+    T, R = (ROWS // S, 1) if S <= ROWS else (1, -(-S // ROWS))
+    npad = tuple(next(p for p in N_PADS if p >= w) for w in widths[1:])
+    kpad = (-(-widths[0] // 32) * 32,) + npad[:-1]
+    affine = kpad[0] + 2 * sum(npad)  # s0, then each layer's scale and shift, in floats
+    fixed = (CONSUMER_WGS * (max(kpad) // 8) * 128 * 16 + CONSUMER_WGS * T * npad[-1] * 4 + affine * 4
+             + 2 * MAX_STAGES * 8)
+    for ks in (32, 16):  # the wider slice while two stages fit
+        stage = max(npad) * ks * 8
+        stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+        if stages >= 2:
+            wsplit = sum(2 * k * n for k, n in zip(kpad, npad))
+            return SamlpPlan(T, R, npad, kpad, ks, stages, fixed + stages * stage, wsplit)
+    raise ValueError(f"samlp: widths {list(widths)} at S={S} need more shared memory than a block has ({SMEM_LIMIT})")
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) TF32 terms of f32 ``x`` as the kernel makes them
+    (``cvt.rna.tf32.f32``: the low 13 mantissa bits rounded off, to nearest,
+    ties away from zero): big = tf32(x), small = tf32(x - big)."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    big = rna(x.float())
+    return big, rna(x.float() - big)
+
+
+def chain_3xtf32(h_all, idx, sh0, s0, layers: Sequence[Layer], terms: int = 3) -> torch.Tensor:
+    """The plain version with each matmul taken as the kernel takes it, in
+    TF32 terms summed in f64 (the tensor core's f32 accumulation aside):
+    ``terms=3`` small*big + big*small + big*big (3xTF32), ``terms=1`` big*big
+    alone (1xTF32, ~1e-3 relative)."""
+    B, N, C = h_all.shape
+    _, M, S = idx.shape
+    flat = (idx.long() + (torch.arange(B, device=idx.device) * N)[:, None, None]).reshape(-1)
+    h0 = h_all.reshape(B * N, C).index_select(0, flat).reshape(B, M, S, C)
+    x = torch.relu(h0 * s0 + sh0[:, :, None, :])
+    for W, s, t in layers:
+        xb, xs = tf32_split(x)
+        wb, ws = tf32_split(W)
+        prod = xb.double() @ wb.double()
+        if terms == 3:
+            prod = prod + xs.double() @ wb.double() + xb.double() @ ws.double()
+        x = torch.relu(prod.float() * s + t)
+    return torch.amax(x, dim=2)
 
 
 def fused_sa_mlp_pool_plain(
@@ -57,21 +137,14 @@ def fused_sa_mlp_pool_plain(
     return torch.amax(x, dim=2)
 
 
-def samlp_plan(S: int, widths: Sequence[int]) -> Tuple[int, int, int]:
-    """(tile, ld, smem bytes) of a launch: centres per block, the row stride
-    of the shared activation buffers, and the block's dynamic shared memory."""
-    tile = max(1, ROWS // S)
-    ld = max(-(-w // 4) * 4 for w in widths[:-1])
-    smem = (2 * ROWS * ld + STAGE_K * STAGE_COLS + tile * widths[-1]) * 4
-    return tile, ld, smem
-
-
 def fused_sa_mlp_pool_cuda(
     h_all: torch.Tensor, idx: torch.Tensor, sh0: torch.Tensor, s0: torch.Tensor, layers: Sequence[Layer]
 ) -> torch.Tensor:
     """Launch the fused kernel: contiguous f32 CUDA tensors h_all (B, N, w0),
-    sh0 (B, M, w0), s0 (w0,), each layer's W (w_in, w_out), s and t
-    (w_out,), and int32 idx (B, M, S) -> (B, M, w_last) f32.
+    sh0 (B, M, w0), s0 (w0,), each layer's s and t (w_out,), and int32 idx
+    (B, M, S); each layer's W (w_in, w_out) f32 of any strides (the kernel
+    reads W.t(), which is contiguous where W is a transposed view of
+    ``nn.Linear.weight``) -> (B, M, w_last) f32. Every width at most 256.
 
     Raises for a tensor that is not on a CUDA device; it never computes the
     plain version. Adds one to ``fused_sa_mlp_pool_cuda.launches`` per launch.
@@ -96,7 +169,9 @@ def fused_sa_mlp_pool_cuda(
         raise ValueError(f"fused_sa_mlp_pool_cuda: 1 to {MAX_LAYERS} layers after layer 0, got {len(layers)}")
     widths = [w0]
     for i, (W, s, t) in enumerate(layers):
-        require_cuda(f"fused_sa_mlp_pool_cuda W{i + 1}", W, 2)
+        if not isinstance(W, torch.Tensor) or W.device.type != "cuda" or W.dtype != torch.float32 or W.dim() != 2:
+            raise ValueError(f"fused_sa_mlp_pool_cuda: W{i + 1} must be a 2-D float32 CUDA tensor, "
+                             f"got {getattr(W, 'dtype', type(W))} {getattr(W, 'device', '')}")
         if W.shape[0] != widths[-1]:
             raise ValueError(f"fused_sa_mlp_pool_cuda: W{i + 1} is {tuple(W.shape)}, its input width must be {widths[-1]}")
         require_cuda(f"fused_sa_mlp_pool_cuda s{i + 1}", s, 1, W.shape[1])
@@ -105,22 +180,24 @@ def fused_sa_mlp_pool_cuda(
     for name, tt in [("sh0", sh0), ("s0", s0)] + [(f"layer {i + 1}", w) for i, lay in enumerate(layers) for w in lay]:
         if tt.device != h_all.device:
             raise RuntimeError(f"fused_sa_mlp_pool_cuda: {name} is on {tt.device}, h_all on {h_all.device}")
-    tile, ld, smem = samlp_plan(S, widths)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_sa_mlp_pool_cuda: widths {widths} at S={S} need {smem} bytes of shared memory, "
-                         f"more than a block has ({SMEM_LIMIT})")
+    plan = samlp_plan(S, widths)
     lib = library()
     n = len(layers)
-    ptrs = ctypes.c_void_p * n
-    out = torch.empty((B, M, widths[-1]), dtype=torch.float32, device=h_all.device)
+    ptrs, ints = ctypes.c_void_p * n, ctypes.c_int * n
+    # (w_out, w_in), K-major: a transposed view of nn.Linear's weight is free
+    wts = [W.t().contiguous() for W, _, _ in layers]
     with torch.cuda.device(h_all.device):
+        items = B * (-(-M // plan.T) if S <= ROWS else M)
+        out = torch.empty((B, M, widths[-1]), dtype=torch.float32, device=h_all.device)
+        wsplit = torch.empty((plan.wsplit,), dtype=torch.float32, device=h_all.device)
         err = lib.votenet_samlp(
             h_all.data_ptr(), idx.data_ptr(), sh0.data_ptr(), s0.data_ptr(),
-            ptrs(*[W.data_ptr() for W, _, _ in layers]),
+            ptrs(*[w.data_ptr() for w in wts]),
             ptrs(*[s.data_ptr() for _, s, _ in layers]),
             ptrs(*[t.data_ptr() for _, _, t in layers]),
-            (ctypes.c_int * (n + 1))(*widths), n, B, N, M, S, tile, ld, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            (ctypes.c_int * (n + 1))(*widths), ints(*plan.npad), ints(*plan.kpad), n, B, N, M, S,
+            plan.T, plan.R, plan.ks, plan.stages, min(-(-items // CONSUMER_WGS), sm_count(h_all.device.index)),
+            wsplit.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     check_launch(err, "fused_sa_mlp_pool")
     fused_sa_mlp_pool_cuda.launches += 1

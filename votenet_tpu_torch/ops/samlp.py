@@ -31,6 +31,6 @@ def fused_sa_mlp_pool(
     if kernel_route(h_all, "fused_sa_mlp_pool") == "cuda":
         return fused_sa_mlp_pool_cuda(
             _f32(h_all), idx.to(torch.int32).contiguous(), _f32(sh0), _f32(s0),
-            [(_f32(W), _f32(s), _f32(t)) for W, s, t in layers],
+            [(W.float(), _f32(s), _f32(t)) for W, s, t in layers],
         )
     return fused_sa_mlp_pool_plain(h_all, idx, sh0, s0, layers)
