@@ -4,12 +4,13 @@ paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --profile  # also: torch.profiler over 3 training steps and one eval pass, each mode
-    python3 chip_smoke.py --kernel-times  # phases 1-3 and 9 alone (no final line)
+    python3 chip_smoke.py --kernel-times  # phases 1-3, 9 and 16-18's kernels alone (no final line)
 
 ``--kernel-times`` also runs from a copy of this file placed at the root of
 another checkout of the port (an earlier commit's archive), so that both
 commits' kernels are timed by the same code in one call: phase 3 then skips
-the ball query's route rows where that checkout has one route.
+the ball query's route rows where that checkout has one route, and phases
+16-18 where it lacks the variant.
 
 Phases, each checked; any failure exits non-zero without the final line:
 
@@ -105,13 +106,34 @@ Phases, each checked; any failure exits non-zero without the final line:
    mixed: sa2-sa4's bf16 cotangents take the exact variant, 3, and the f32
    proposal layer the fast one), ms a step beside phase 7's; then phase 11
    at ``--preset=throughput``: 24 fast scatters and no exact one.
+16. samlp's bf16-operand variant (``precision="bf16"``) at phase 9's five
+   calls, B=1 and B=8: within SAMLP_BF16_TOL of its plain version on the
+   card and, at B=1, on the CPU, with the 3xTF32 kernel's output outside it;
+   device us beside the 3xTF32 kernel's; the bound is 2 operations a
+   multiply-add at bf16's tensor-core peak. Then phase 10 under
+   ``set_samlp_precision("bf16")`` (reset to "f32" after): each samlp-on
+   forward launches the bf16 variant 5 times and the 3xTF32 kernel never;
+   mAP beside phase 10's.
+17. The ball query's emit variant (``query_ball_point_emit_xyz``, the
+   grouped coordinates too) at the prototype's two shapes and the five
+   main-path shapes, B=1 and 8, through both routes: idx, cnt and gxyz
+   bit-equal to the ball query + ``group_point`` and to the CPU plain
+   version; device us beside the ball query + gather's, the gather alone as
+   the library column.
+18. The noscalar FPS variant (``fps_rowwise_noscalar``) at the prototype's
+   shapes (1, 2 and 8 x 20480 -> 2048) and the five main-path shapes at
+   B=8: indices bit-equal to the production kernel's and the plain
+   version's; device us beside the production kernel's at the rule's
+   cluster size, and both at every cluster size at sa1's shape.
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums over the B=8 shapes
 of a forward (FPS, ball query, samlp) or of a training step (scatter);
 ``launches`` is the training path's count, ``launches_fit`` phase 11's
-(phase 15's for the fast variant), ``launches_paths`` phases 14-15's.
+(phase 15's for the fast variant), ``launches_paths`` phases 14-16's; the
+variants' ``launches`` are their phase's (16's eval, 17's and 18's checks)
+and ``production_ms`` the production kernel's sum beside them.
 Kernel times are device times:
 ``cuda_ms`` queues its timed calls behind a sleep kernel, so the wrappers'
 host time between launches does not count (a call whose kernel is shorter
@@ -129,7 +151,8 @@ outside the tensor cores). samlp: its matmuls run on the tensor cores in
 3xTF32, 3 x 2 operations per multiply-add at 495 TFLOP/s (TF32); beside it
 (``bound_f32_ms``) the f32 CUDA-core figure of an f32 kernel, 2 per
 multiply-add plus 3 per element of each affine + ReLU and 1 per pooled
-element at 67 TFLOP/s.
+element at 67 TFLOP/s; its bf16 variant 2 per multiply-add at 989 TFLOP/s
+(bf16). The emit variant: the ball query's, plus 12 bytes written a slot.
 """
 
 from __future__ import annotations
@@ -172,9 +195,18 @@ SCATTER_WIDTHS = {"sa2": 128, "sa3": 256, "sa4": 256, "proposal": 259}
 # rounding per multiply-add, cuBLAS or the CPU BLAS in blocks), ~1e-7-1e-6
 # of the output's scale over 128-256 terms. Allowed: 1e-5 of that scale.
 SAMLP_TOL = 1e-5
+# samlp's bf16-operand variant against its plain version (phase 16): the
+# products of bf16 operands are exact and only their sums' order differs,
+# but an activation one f32 ulp apart can round to the neighbouring bf16
+# value before the next layer, 2^-8 of it; on the CPU that moved the chain
+# up to 6.2e-4 of the output's scale, where bf16 against f32 operands moves
+# it 3.3e-3 to 4.4e-3 (tests/test_torch_variants.py). Allowed: 1.5e-3 of
+# that scale, which the 3xTF32 kernel's output must exceed.
+SAMLP_BF16_TOL = 1.5e-3
 SA_LAYERS = ("sa1", "sa2", "sa3", "sa4", "proposal")
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 CKPT = Path(__file__).resolve().parent / ".scratch" / "r4_heldout" / "checkpoint_0000000081.msgpack"
 EVAL_SCENES = 16
@@ -231,14 +263,21 @@ def ballquery_bound(xyz, q, nsample, idx, cnt):
     return bound_ms(9.0 * scanned, (B * N + B * M) * 12.0 + B * M * (nsample + 1) * 4.0)
 
 
+def emit_bound(xyz, q, nsample, idx, cnt):
+    """The ball query's bound with the grouped coordinates' bytes written."""
+    ops_ms, bytes_ms = ballquery_bound(xyz, q, nsample, idx, cnt)
+    return ops_ms, bytes_ms + idx.numel() * 12.0 / PEAK_BYTES * 1e3
+
+
 def scatter_bound(g, idx, N):
     B, K, C = g.shape
     valid = float(((idx >= 0) & (idx < N)).sum())
     return bound_ms(valid * C, (B * K * C + B * K + B * N * C) * 4.0)
 
 
-def samlp_bound(h_all, idx, sh0, s0, layers):
-    """((3xTF32 tensor-core ms, bytes ms), f32 CUDA-core ms)."""
+def samlp_bound(h_all, idx, sh0, s0, layers, precision="f32"):
+    """((tensor-core ms, bytes ms), f32 CUDA-core ms); the tensor cores at 3 x
+    2 operations a multiply-add in TF32 (3xTF32, "f32") or 2 in bf16."""
     B, N, w0 = h_all.shape
     _, M, S = idx.shape
     rows = B * M * S
@@ -248,7 +287,8 @@ def samlp_bound(h_all, idx, sh0, s0, layers):
     params = sum(w.numel() + s.numel() + t.numel() for w, s, t in layers) + s0.numel()
     nbytes = (h_all.numel() + sh0.numel() + params + B * M * widths[-1]) * 4.0 + idx.numel() * 4.0
     _, bytes_ms = bound_ms(0.0, nbytes)
-    return (3.0 * 2.0 * macs / PEAK_TF32_FLOPS * 1e3, bytes_ms), f32_ops / PEAK_F32_FLOPS * 1e3
+    tc_ms = (3.0 * 2.0 * macs / PEAK_TF32_FLOPS if precision == "f32" else 2.0 * macs / PEAK_BF16_FLOPS) * 1e3
+    return (tc_ms, bytes_ms), f32_ops / PEAK_F32_FLOPS * 1e3
 
 
 def scale_err(got, want) -> tuple[float, float]:
@@ -749,11 +789,12 @@ def capture_samlp_args(cfg, state_dict, points):
     model.cuda()
     captured = []
 
-    def capture(h_all, idx, sh0, s0, layers):
+    def capture(h_all, idx, sh0, s0, layers, precision="f32"):
         c = [h_all.contiguous(), idx.to(torch.int32).contiguous(), sh0.contiguous(), s0.contiguous(),
              [tuple(t.contiguous() for t in layer) for layer in layers]]
         captured.append(c)
-        return fused_sa_mlp_pool_plain(*c)
+        # an earlier checkout's plain version (--kernel-times) takes no precision
+        return fused_sa_mlp_pool_plain(*c, **({"precision": precision} if precision != "f32" else {}))
 
     orig, ops_pkg.fused_sa_mlp_pool = ops_pkg.fused_sa_mlp_pool, capture
     try:
@@ -808,7 +849,7 @@ def eval_counters():
     from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda
 
     return {**{k: v for k, v in train_counters().items() if not k.startswith("scatter")},
-            "samlp": fused_sa_mlp_pool_cuda}
+            "samlp": fused_sa_mlp_pool_cuda, "samlp_bf16": fused_sa_mlp_pool_cuda.bf16}
 
 
 def same_detections(a, b):
@@ -824,14 +865,16 @@ def same_detections(a, b):
     return worst <= REL_TOL, f"worst float gap {worst:.3g} of scale <= {REL_TOL}"
 
 
-def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, label="phase 10", beside=None):
+def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, label="phase 10", beside=None,
+               samlp_counter="samlp"):
     """Evaluator over 16 scenes on the card, samlp off then on, each forward
     launching fps 5, ballquery 5 and samlp 0 (off) or ``samlp_per_forward``
-    (on: the fused kernel runs the f32 SA layers only). Each samlp mode's
-    {iou: mAP} goes into ``maps`` where given, and is printed beside
-    ``beside``'s. In f32 (every layer fused) also: samlp on and off give the
-    same detections, and two scenes through the GPU and the CPU path.
-    Returns each samlp mode's launches."""
+    (on: the fused kernel runs the f32 SA layers only) on the counter
+    ``samlp_counter`` ("samlp_bf16": the bf16-operand variant), 0 on the
+    other. Each samlp mode's {iou: mAP} goes into ``maps`` where given, and
+    is printed beside ``beside``'s. In f32 (every layer fused, 3xTF32) also:
+    samlp on and off give the same detections, and two scenes through the
+    GPU and the CPU path. Returns each samlp mode's launches."""
     import torch
 
     from votenet_tpu_torch.data.synthetic import synthetic_gt_all, synthetic_scenes
@@ -870,7 +913,8 @@ def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, l
         torch.cuda.synchronize()
         seconds = [time.perf_counter() - t0]
         launches = {k: c.launches for k, c in counters.items()}
-        want = {"fps": 5, "ballquery": 5, "samlp": samlp_per_forward if mode == "on" else 0}
+        want = {"fps": 5, "ballquery": 5, "samlp": 0, "samlp_bf16": 0}
+        want[samlp_counter] = samlp_per_forward if mode == "on" else 0
         for i, d in enumerate(per_forward):
             if d != want:
                 raise AssertionError(f"samlp={mode}: forward {i} launched {d}, not {want}")
@@ -896,7 +940,7 @@ def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, l
             profile_device(lambda: ev.predictions_for_scenes(predict, cache),
                            f"eval, {label.strip()}, samlp={mode}, {EVAL_SCENES} scenes at B=8")
         del model
-    if samlp_per_forward != 5:  # a bf16 mode: its GPU-vs-CPU check is phase 14's
+    if samlp_per_forward != 5 or samlp_counter != "samlp":  # a bf16 mode: its GPU-vs-CPU check is phase 14's or 16's
         return finish(checks, "evaluation checks", {mode: r[2] for mode, r in runs.items()})
 
     equal, msg = same_detections(runs["on"][0], runs["off"][0])
@@ -1074,6 +1118,202 @@ def phase_precision_train(scenes, bare_step_ms, profile=False):
     return launches
 
 
+def phase_samlp_bf16(cfg, scenes, state_dict, report, production_ms):
+    """Phase 16's kernels: samlp's bf16-operand variant against its plain
+    version at phase 9's five calls, B=1 and 8: within SAMLP_BF16_TOL of the
+    card's plain version and, at B=1, of the CPU's; the 3xTF32 kernel's
+    output outside it. Device us beside the 3xTF32 kernel's in this process
+    (summed at B=8 into ``production_ms``)."""
+    import torch
+
+    from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain
+
+    print("phase 16: samlp bf16-operand variant vs plain (trained checkpoint's arguments; CUDA events, warm L2)")
+    print(TABLE_HEAD)
+    for B in (1, 8):
+        points = torch.from_numpy(np.stack([s["points"] for s in scenes[:B]])).cuda()
+        with torch.inference_mode():
+            calls = capture_samlp_args(cfg, state_dict, points)
+            for layer, args in zip(SA_LAYERS, calls):
+                h_all, idx, _, _, layers = args
+                widths = [h_all.shape[-1]] + [w.shape[1] for w, _, _ in layers]
+                got = fused_sa_mlp_pool_cuda(*args, precision="bf16")
+                want = fused_sa_mlp_pool_plain(*args, precision="bf16")
+                tf32 = fused_sa_mlp_pool_cuda(*args)
+                err = float((got - want).abs().max())
+                tf32_err = float((tf32 - want).abs().max())
+                tol = SAMLP_BF16_TOL * float(want.abs().max())
+                ok = err <= tol < tf32_err
+                line = (f"    vs the card's plain version: max diff {err:.3g} <= {tol:.3g}, the 3xTF32 kernel's "
+                        f"{tf32_err:.3g} above it")
+                if B == 1:
+                    cpu_args = [t.cpu() for t in args[:4]] + [[tuple(t.cpu() for t in lay) for lay in layers]]
+                    want_cpu = fused_sa_mlp_pool_plain(*cpu_args, precision="bf16")
+                    cpu_err = float((got.cpu() - want_cpu).abs().max())
+                    cpu_tol = SAMLP_BF16_TOL * float(want_cpu.abs().max())
+                    ok = ok and cpu_err <= cpu_tol
+                    line += f"; vs the CPU plain version: {cpu_err:.3g} <= {cpu_tol:.3g}"
+                k_ms = cuda_ms(lambda: fused_sa_mlp_pool_cuda(*args, precision="bf16"), 10)
+                f_ms = cuda_ms(lambda: fused_sa_mlp_pool_cuda(*args), 10)
+                p_ms = cuda_ms(lambda: fused_sa_mlp_pool_plain(*args, precision="bf16"), 5)
+                shape = f"M={idx.shape[1]} S={idx.shape[2]} w={'/'.join(map(str, widths))}"
+                bound, _ = samlp_bound(*args, precision="bf16")
+                report("samlp_bf16", layer, B, shape, ok, err, k_ms, p_ms, bound)
+                if B == 8:
+                    production_ms["samlp_bf16"] += f_ms
+                print(line + f"; the 3xTF32 kernel {f_ms * 1e3:.1f} us in this process")
+
+
+def phase_eval_samlp_bf16(cfg, state_dict, f32_maps):
+    """Phase 16's eval: phase 10 under ``set_samlp_precision("bf16")``, each
+    samlp-on forward launching the bf16 variant 5 times and the 3xTF32
+    kernel never; mAP beside phase 10's. The precision is reset to "f32"."""
+    from votenet_tpu_torch.ops.dispatch import set_samlp_precision
+
+    set_samlp_precision("bf16")
+    try:
+        return phase_eval(cfg, state_dict, label="phase 16 eval (samlp_precision bf16)", beside=f32_maps,
+                          samlp_counter="samlp_bf16")
+    finally:
+        set_samlp_precision("f32")
+
+
+def proto_cloud(rng, B, N):
+    """The emit prototype's cloud (benchmarks/bq_emit_xyz_proto.py main):
+    half uniform over the room, half a cluster of 1 m."""
+    return np.concatenate([
+        rng.uniform(-4, 4, (B, N // 2, 3)),
+        rng.uniform(-0.5, 0.5, (B, N - N // 2, 3)) + rng.uniform(-3, 3, (B, 1, 3)),
+    ], axis=1).astype(np.float32)
+
+
+# the prototypes' shapes on the card (their mains): the emit prototype's N,
+# M, radius, S; the noscalar FPS prototype's B, N, npoint
+EMIT_PROTO_SHAPES = {"proto-sa1": (20480, 2048, 0.2, 64), "proto-sa2": (2048, 1024, 0.4, 64)}
+FPS_PROTO_SHAPES = ((1, 20480, 2048), (2, 20480, 2048), (8, 20480, 2048))
+
+
+def phase_bq_emit(cfg, scenes, report, production_ms):
+    """Phase 17: the ball query's emit variant at the prototype's two shapes
+    (its cloud, queries its first M points) and the five main-path shapes,
+    B=1 and 8, each through the rule's route and the other: idx, cnt and
+    gxyz bit-equal to query_ball_point_cuda + ops.group_point and to the CPU
+    plain version. Then device us of the emit kernel beside the ball query +
+    gather's in this process (summed at B=8 over the main-path shapes into
+    ``production_ms``); the gather alone is the library column. Returns the
+    emit launches of the checks."""
+    import torch
+
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.ops.cuda.ballquery import (
+        ballquery_route, query_ball_point_cuda, query_ball_point_emit_xyz_cuda, query_ball_point_emit_xyz_plain)
+
+    print("phase 17: ball query emit-xyz variant vs the ball query + group_point and the CPU plain version")
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []  # (layer, B, (radius, S, xyz, q), in the main-path sum)
+    rng = np.random.RandomState(SEED)
+    for B in (1, 8):
+        for name, (N, M, radius, S) in EMIT_PROTO_SHAPES.items():
+            xyz = torch.from_numpy(proto_cloud(rng, B, N)).cuda()
+            rows.append((name, B, (radius, S, xyz, xyz[:, :M].contiguous()), False))
+        points = torch.from_numpy(np.stack([s["points"] for s in scenes[:B]])).cuda()
+        rows += [(layer, B, (radius, S, xyz, q), True) for layer, radius, S, xyz, q in layer_inputs(points, cfg)[1]]
+    query_ball_point_emit_xyz_cuda.launches = 0
+    checked = []
+    for layer, B, (radius, S, xyz, q), _ in rows:
+        want = [a.cuda() for a in query_ball_point_emit_xyz_plain(radius, S, xyz.cpu(), q.cpu())]
+        seg = ballquery_route(B, xyz.shape[1], q.shape[1], sm_count)[0]
+        ok, err, routes = True, 0.0, []
+        for segments in (None, 1 if seg > 1 else 4):
+            got = query_ball_point_emit_xyz_cuda(radius, S, xyz, q, segments=segments)
+            idx, cnt = query_ball_point_cuda(radius, S, xyz, q, segments=segments)
+            ok = ok and all(torch.equal(a, b) for a, b in zip(got, (idx, cnt, ops.group_point(xyz, idx))))
+            ok = ok and all(torch.equal(a, b) for a, b in zip(got, want))
+            err = max([err] + [float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)])
+            routes.append(ballquery_route(B, xyz.shape[1], q.shape[1], sm_count, segments)[0])
+        checked.append((ok, err, routes, want))
+    launches = query_ball_point_emit_xyz_cuda.launches
+    print(f"  {launches} emit launches over {len(rows)} shapes x 2 routes; "
+          f"{'every one bit-equal' if all(c[0] for c in checked) else 'SOME DIFFER'}")
+    print(TABLE_HEAD)
+    for (layer, B, (radius, S, xyz, q), main), (ok, err, routes, want) in zip(rows, checked):
+        k_ms = cuda_ms(lambda: query_ball_point_emit_xyz_cuda(radius, S, xyz, q), 20)
+        base_ms = cuda_ms(lambda: ops.group_point(xyz, query_ball_point_cuda(radius, S, xyz, q)[0]), 20)
+        l_ms = cuda_ms(lambda: ops.group_point(xyz, want[0]), 20)
+        p_ms = cuda_ms(lambda: query_ball_point_emit_xyz_plain(radius, S, xyz, q), 2)
+        N, M = xyz.shape[1], q.shape[1]
+        report("ballquery_emit_xyz", layer, B, f"N={N} M={M} r={radius} seg={routes[0]}", ok, err, k_ms, p_ms,
+               emit_bound(xyz, q, S, want[0], want[1]), l_ms, total=main)
+        if B == 8 and main:
+            production_ms["ballquery_emit_xyz"] += base_ms
+        print(f"    bit-equal through seg={routes[0]} and seg={routes[1]}: {ok}; the ball query + group_point "
+              f"{base_ms * 1e3:.1f} us in this process")
+    if launches == 0:
+        raise AssertionError("phase 17 launched no emit kernel")
+    return launches
+
+
+def phase_fps_noscalar(cfg, scenes, report, production_ms):
+    """Phase 18: the noscalar FPS variant at the prototype's shapes (1, 2 and
+    8 x 20480 -> 2048, its uniform clouds) and the five main-path shapes at
+    B=8: indices bit-equal to the production kernel's and the plain
+    version's, at the cluster size the production rule picks. Then device
+    us beside the production kernel's in this process (summed over the
+    main-path shapes into ``production_ms``), and us a step of both at
+    every cluster size at sa1's shape. Returns the variant's launches of the
+    checks."""
+    import torch
+
+    from votenet_tpu_torch.ops.cuda import fps as fps_mod
+    from votenet_tpu_torch.ops.cuda.fps import (
+        farthest_point_sample_cuda, farthest_point_sample_plain, fps_rowwise_noscalar_cuda)
+
+    print("phase 18: FPS noscalar variant vs the production kernel and the plain version")
+    rng = np.random.RandomState(SEED)
+    rows = [(f"proto-B{B}", npoint, torch.from_numpy(rng.uniform(-4, 4, (B, N, 3)).astype(np.float32)).cuda(), False)
+            for B, N, npoint in FPS_PROTO_SHAPES]
+    points = torch.from_numpy(np.stack([s["points"] for s in scenes[:8]])).cuda()
+    fps_cases = layer_inputs(points, cfg)[0]
+    rows += [(layer, npoint, xyz, True) for layer, npoint, xyz in fps_cases]
+    fps_rowwise_noscalar_cuda.launches = 0
+    checked = []
+    for _, npoint, xyz, _ in rows:
+        got = fps_rowwise_noscalar_cuda(npoint, xyz)
+        want = farthest_point_sample_plain(npoint, xyz)
+        checked.append((torch.equal(got, farthest_point_sample_cuda(npoint, xyz)) and torch.equal(got, want),
+                        int((got - want).abs().max())))
+    launches = fps_rowwise_noscalar_cuda.launches
+    print(f"  {launches} noscalar launches over {len(rows)} shapes; "
+          f"{'every one bit-equal' if all(c[0] for c in checked) else 'SOME DIFFER'}")
+    print(TABLE_HEAD)
+    for (layer, npoint, xyz, main), (ok, err) in zip(rows, checked):
+        B, N = xyz.shape[0], xyz.shape[1]
+        k_ms = cuda_ms(lambda: fps_rowwise_noscalar_cuda(npoint, xyz), 10)
+        prod_ms = cuda_ms(lambda: farthest_point_sample_cuda(npoint, xyz), 10)
+        p_ms = cuda_ms(lambda: farthest_point_sample_plain(npoint, xyz), 1)
+        cs, _ = fps_mod.fps_route(xyz)
+        report("fps_noscalar", layer, B, f"{N}->{npoint} cs={cs}", ok, err, k_ms, p_ms, fps_bound(B, N, npoint),
+               total=main)
+        if main:
+            production_ms["fps_noscalar"] += prod_ms
+        print(f"    the production kernel {prod_ms * 1e3:.1f} us in this process; us a step: noscalar "
+              f"{k_ms * 1e3 / max(npoint - 1, 1):.3f}, production {prod_ms * 1e3 / max(npoint - 1, 1):.3f}")
+    layer, npoint, xyz = fps_cases[0]
+    steps = []
+    for cs in fps_mod.FPS_CLUSTER_SIZES:
+        if cs * fps_mod.FPS_THREADS * fps_mod.FPS_POINTS_PER_THREAD[-1] < xyz.shape[1]:
+            steps.append(f"{cs}: - (the variant needs the register route)")
+            continue
+        ns = cuda_ms(lambda: fps_rowwise_noscalar_cuda(npoint, xyz, cluster=cs), 3) * 1e3 / (npoint - 1)
+        pr = cuda_ms(lambda: farthest_point_sample_cuda(npoint, xyz, cluster=cs), 3) * 1e3 / (npoint - 1)
+        steps.append(f"{cs}: {ns:.3f} / {pr:.3f}")
+    print(f"  fps {layer} B=8 us a step by CTAs a row, noscalar / production: " + ", ".join(steps)
+          + f" (the rule: {fps_mod.fps_route(xyz)[0]})")
+    if launches == 0:
+        raise AssertionError("phase 18 launched no noscalar kernel")
+    return launches
+
+
 MINI_TRAIN_IDS = (5051, 5067)  # 16 training scenes
 MINI_VAL_IDS = (1, 9)  # 8 validation scenes
 
@@ -1186,7 +1426,7 @@ def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label=
         for line in text.splitlines():
             print(f"    {line}")
     want = {"fps": 5 * steps + 5 * fwd, "ballquery": 5 * steps + 5 * fwd, "scatter": per_step["scatter"] * steps,
-            "scatter_fast_bf16": per_step["scatter_fast_bf16"] * steps, "samlp": 5 * fwd}
+            "scatter_fast_bf16": per_step["scatter_fast_bf16"] * steps, "samlp": 5 * fwd, "samlp_bf16": 0}
     records = stats[0] + stats[1]
     checks = {
         "resumed from epoch 2": "resumed from epoch 2" in outs[1][0],
@@ -1312,14 +1552,16 @@ def main() -> int:
     scenes = synthetic_scenes(SEED, cfg, 8)
     failed = []
     f32_bound = [0.0]  # samlp's f32 CUDA-core bound over the B=8 shapes
+    variants = ("samlp_bf16", "ballquery_emit_xyz", "fps_noscalar")
     stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0,
-                 "bound_ms": 0.0} for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16")}
+                 "bound_ms": 0.0} for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16") + variants}
+    production_ms = dict.fromkeys(variants, 0.0)  # phases 16-18: the production kernels' sums beside
 
-    def report(kernel, layer, B, shape, equal, err, k_ms, p_ms, bound, l_ms=None):
+    def report(kernel, layer, B, shape, equal, err, k_ms, p_ms, bound, l_ms=None, total=True):
         st = stats[kernel]
         st["err"] = max(st["err"], err)
         ops_ms, bytes_ms = bound
-        if B == 8:  # per-forward (or per-step) sums at the B=8 batch
+        if B == 8 and total:  # per-forward (or per-step) sums at the B=8 batch
             st["ms"] += k_ms
             st["plain_ms"] += p_ms
             st["ops_ms"] += ops_ms
@@ -1343,12 +1585,23 @@ def main() -> int:
             return None
 
     run("kernels", lambda: phase_kernels(cfg, scenes, report))
-    if "--kernel-times" in sys.argv[1:]:  # phases 1-3 and 9 only: kernel times, to set beside another checkout's
+    if "--kernel-times" in sys.argv[1:]:  # phases 1-3, 9 and 16-18's kernels: to set beside another checkout's
+        from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
+        from votenet_tpu_torch.ops.cuda import fps as fps_mod
+        from votenet_tpu_torch.ops.cuda import samlp as samlp_mod
+
         state_dict = run("read checkpoint", trained_state_dict)
         if state_dict is not None:
             run("samlp kernel", lambda: phase_samlp(cfg, scenes, state_dict, report, f32_bound))
+            if hasattr(samlp_mod.fused_sa_mlp_pool_cuda, "bf16"):  # a checkout with the variants
+                run("samlp bf16 kernel", lambda: phase_samlp_bf16(cfg, scenes, state_dict, report, production_ms))
+        if hasattr(bq_mod, "query_ball_point_emit_xyz_cuda"):
+            run("ball query emit-xyz", lambda: phase_bq_emit(cfg, scenes, report, production_ms))
+        if hasattr(fps_mod, "fps_rowwise_noscalar_cuda"):
+            run("fps noscalar", lambda: phase_fps_noscalar(cfg, scenes, report, production_ms))
         print(json.dumps({"kernel_times": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
-                                           for k, v in stats.items() if k != "scatter"}, "failed": failed}))
+                                           for k, v in stats.items() if k != "scatter"},
+                          "production_ms": production_ms, "failed": failed}))
         print(card)
         return 1 if failed else 0
     predictor = run("predictor", lambda: VoteNetPredictor(
@@ -1382,6 +1635,14 @@ def main() -> int:
         scenes, bare_step_ms, profile="--profile" in sys.argv[1:])) or {})
     paths["fit_throughput"] = run("fit, throughput preset", lambda: phase_fit(
         bare_step_ms, preset="throughput", label="phase 15 (run_train --preset=throughput)"))
+    # phases 16-18: the kernel variants, each on its own path, counts from 0
+    if state_dict is not None:
+        run("samlp bf16 kernel", lambda: phase_samlp_bf16(cfg, scenes, state_dict, report, production_ms))
+        if f32_maps:
+            paths.update({f"eval_samlp_bf16_{mode}": counts for mode, counts in (run(
+                "eval, samlp bf16", lambda: phase_eval_samlp_bf16(cfg, state_dict, f32_maps)) or {}).items()})
+    emit_launches = run("ball query emit-xyz", lambda: phase_bq_emit(cfg, scenes, report, production_ms))
+    noscalar_launches = run("fps noscalar", lambda: phase_fps_noscalar(cfg, scenes, report, production_ms))
 
     if failed:
         print(f"chip_smoke: FAILED: {failed}", file=sys.stderr)
@@ -1445,6 +1706,30 @@ def main() -> int:
             "launches": eval_launches["on"]["samlp"], "launches_fit": fit_launches["samlp"],
             "launches_paths": path_launches("samlp"), **measured("samlp"), "bound_f32_ms": f32_bound[0], "tolerance": f"{SAMLP_TOL} of scale",
             "ms_is": "sum over the 5 eval-forward shapes at B=8",
+        },
+        # the variants: launches on each phase's own path (phase 16's eval,
+        # samlp on; phases 17-18's checks); production_ms is the production
+        # kernel's sum over the same shapes in this process (phase 17: the
+        # ball query + group_point, whose gather alone is library_ms)
+        {
+            "name": "samlp_bf16", "route": "cuda", "source": "votenet_tpu_torch/csrc/samlp.cu",
+            "replaces": "votenet_tpu/ops/pallas/samlp.py:78", "variant": 'precision="bf16" (samlp.py:87-89)',
+            "launches": paths["eval_samlp_bf16_on"]["samlp_bf16"], **measured("samlp_bf16"),
+            "production_ms": production_ms["samlp_bf16"], "tolerance": f"{SAMLP_BF16_TOL} of scale",
+            "ms_is": "sum over the 5 eval-forward shapes at B=8",
+        },
+        {
+            "name": "ballquery_emit_xyz", "route": "cuda", "source": "votenet_tpu_torch/csrc/ballquery.cu",
+            "replaces": "benchmarks/bq_emit_xyz_proto.py:44", "variant": "also writes group_point(xyz, idx)",
+            "launches": emit_launches, **measured("ballquery_emit_xyz"),
+            "production_ms": production_ms["ballquery_emit_xyz"], "tolerance": 0,
+            "ms_is": "sum over the 5 main-path shapes at B=8",
+        },
+        {
+            "name": "fps_noscalar", "route": "cuda", "source": "votenet_tpu_torch/csrc/fps.cu",
+            "replaces": "benchmarks/fps_noscalar_proto.py:47", "variant": "(value, index) candidates, masked-sum coordinates",
+            "launches": noscalar_launches, **measured("fps_noscalar"), "production_ms": production_ms["fps_noscalar"],
+            "tolerance": 0, "ms_is": "sum over the 5 main-path shapes at B=8",
         },
     ]
     print(json.dumps({"kernels": kernels}))

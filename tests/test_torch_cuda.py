@@ -628,3 +628,191 @@ def test_device_timeit_agrees_with_chip_smoke(cuda):
     ms = device_timeit(fn, iters=10) * 1e3
     b = chip_smoke.cuda_ms(fn, 10)
     assert 0.9 * min(a, b) <= ms <= 1.1 * max(a, b), (a, ms, b)
+
+
+# ---------------------------------------------------------------- variants
+
+# the bf16 samlp variant against its plain version, of the output's scale:
+# tests/test_torch_variants.py's tolerance, for the same reason (an
+# activation one f32 ulp apart rounds to the neighbouring bf16 value)
+BF16_TOL = 1.5e-3
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("case", list(SAMLP_SHAPES))
+def test_samlp_bf16_kernel_matches_plain(cuda, case, B):
+    """The bf16-operand variant within BF16_TOL of its plain version on the
+    card and on the CPU, at the f32 kernel's shapes (ks 64 and 32 slices,
+    S in {5, 8, 16, 24, 64, 100}, odd widths); its launches count apart."""
+    from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain
+
+    N, M, S, widths = SAMLP_SHAPES[case]
+    args = chain_inputs(B * M + S, B, N, M, S, widths)
+    cpu = [torch.from_numpy(a) for a in args[:4]] + [[tuple(torch.from_numpy(x) for x in lay) for lay in args[4]]]
+    card = [a.to(cuda) for a in cpu[:4]] + [[tuple(x.to(cuda) for x in lay) for lay in cpu[4]]]
+    before = (fused_sa_mlp_pool_cuda.launches, fused_sa_mlp_pool_cuda.bf16.launches)
+    got = fused_sa_mlp_pool_cuda(*card, precision="bf16")
+    torch.cuda.synchronize()
+    assert (fused_sa_mlp_pool_cuda.launches, fused_sa_mlp_pool_cuda.bf16.launches) == (before[0], before[1] + 1)
+    for want in (fused_sa_mlp_pool_plain(*card, precision="bf16").cpu(), fused_sa_mlp_pool_plain(*cpu, precision="bf16")):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=BF16_TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", ["sa1", "sa2", "proposal"])
+def test_samlp_bf16_kernel_is_not_3xtf32(cuda, case):
+    """At live widths the bf16 variant lies within BF16_TOL of the bf16 plain
+    version and the 3xTF32 kernel outside it; the bf16 variant lies outside
+    the f32 kernel's 1e-5 of the f32 plain version."""
+    from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain
+
+    N, M, S, widths = SAMLP_SHAPES[case]
+    args = chain_inputs(M + S + 1, 2, N, M, S, widths)
+    card = [torch.from_numpy(a).to(cuda) for a in args[:4]] + [[tuple(torch.from_numpy(x).to(cuda) for x in lay)
+                                                               for lay in args[4]]]
+    bf16 = fused_sa_mlp_pool_cuda(*card, precision="bf16")
+    tf32 = fused_sa_mlp_pool_cuda(*card)
+    want, want_f32 = fused_sa_mlp_pool_plain(*card, precision="bf16"), fused_sa_mlp_pool_plain(*card)
+    torch.cuda.synchronize()
+    tol = BF16_TOL * float(want.abs().max())
+    assert float((bf16 - want).abs().max()) <= tol < float((tf32 - want).abs().max())
+    assert float((bf16 - want_f32).abs().max()) > 1e-5 * float(want_f32.abs().max())
+
+
+def emit_reference(xyz, q, radius, S):
+    """(idx, cnt, gxyz) of the CPU plain version, on the card."""
+    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_emit_xyz_plain
+
+    return [a.to(xyz.device) for a in query_ball_point_emit_xyz_plain(radius, S, xyz.cpu(), q.cpu())]
+
+
+@pytest.mark.parametrize(
+    "B,N,M,radius,S,kind",
+    [(1, 20480, 2048, 0.2, 64, "scene"), (8, 2048, 1024, 0.4, 64, "scene"), (2, 1024, 256, 0.3, 64, "normal"),
+     (2, 300, 50, 1.5, 16, "grid"), (1, 100, 7, 0.01, 8, "normal")],
+)
+@pytest.mark.parametrize("segments", [None, 1, 3])
+def test_ball_query_emit_kernel_matches_query_and_gather(cuda, B, N, M, radius, S, kind, segments):
+    """idx, cnt and gxyz bit-equal to the production kernel + group_point on
+    the card and to the CPU plain version, on both routes (the rule's, one
+    segment, three); an empty ball gets point 0's coordinates."""
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda, query_ball_point_emit_xyz_cuda
+
+    xyz = torch.from_numpy(cloud(B * N + 1, B, N, kind)).to(cuda)
+    q = xyz[:, :M].clone()
+    q[0, -1] = 1000.0  # empty ball
+    before = (query_ball_point_cuda.launches, query_ball_point_emit_xyz_cuda.launches)
+    idx, cnt, gxyz = query_ball_point_emit_xyz_cuda(radius, S, xyz, q, segments=segments)
+    torch.cuda.synchronize()
+    assert (query_ball_point_cuda.launches, query_ball_point_emit_xyz_cuda.launches) == (before[0], before[1] + 1)
+    want_idx, want_cnt = query_ball_point_cuda(radius, S, xyz, q, segments=segments)
+    assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+    assert torch.equal(gxyz, ops.group_point(xyz, want_idx))
+    assert all(torch.equal(a, b) for a, b in zip((idx, cnt, gxyz), emit_reference(xyz, q, radius, S)))
+    assert int(cnt[0, -1]) == 0 and torch.equal(gxyz[0, -1], xyz[0, 0].expand(S, 3))
+
+
+@pytest.mark.parametrize("case", list(BALL_EDGES))
+def test_ball_query_emit_kernel_edges(cuda, case):
+    """The crafted balls of test_ball_query_kernel_edges (hits ending at a
+    tile's or a segment's end, spread over segments, N off the tile, nsample
+    above N, empty), each through both routes: bit-equal to the CPU plain
+    version."""
+    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_emit_xyz_cuda
+
+    N, hits, S, segments = BALL_EDGES[case]
+    xyz = torch.from_numpy(crafted_balls(N, hits)).to(cuda)
+    q = torch.zeros((1, 3, 3), device=cuda)
+    q[0, 1] = 2.5
+    q[0, 2] = 100.0
+    want = emit_reference(xyz, q, 0.5, S)
+    for seg in {segments, 1, 3}:
+        got = query_ball_point_emit_xyz_cuda(0.5, S, xyz, q, segments=seg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), seg
+
+
+def test_ball_query_emit_kernel_keeps_the_bits(cuda):
+    """Copies, not arithmetic: -0.0, subnormal and large coordinates come back
+    bit for bit (compared as int32), on both routes."""
+    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_emit_xyz_cuda
+
+    xyz = torch.from_numpy(crafted_balls(600, [0, 3, 300, 599])).to(cuda)
+    xyz[0, 3] = torch.tensor([-0.0, 1e-40, -0.0])
+    xyz[0, 300] = torch.tensor([0.1, -0.0, 3e-39])
+    xyz[0, 550] = torch.tensor([3e38, 3e38, 3e38])
+    q = torch.zeros((1, 2, 3), device=cuda)
+    q[0, 1] = 50.0
+    want = emit_reference(xyz, q, 0.5, 8)
+    for seg in (1, 2):
+        got = query_ball_point_emit_xyz_cuda(0.5, 8, xyz, q, segments=seg)
+        torch.cuda.synchronize()
+        assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)), seg
+
+
+@pytest.mark.parametrize(
+    "B,N,npoint,kind",
+    [(1, 20480, 2048, "scene"), (2, 20480, 2048, "scene"), (8, 20480, 2048, "scene"), (8, 2048, 1024, "scene"),
+     (3, 1111, 97, "normal"), (2, 2048, 300, "grid"), (1, 64, 1, "normal"), (2, 70000, 128, "normal"),
+     (2, 20000, 200, "normal"), (1, 100, 100, "normal"), (2, 300, 300, "grid"), (16, 512, 256, "normal")],
+)
+def test_fps_noscalar_kernel_matches_production(cuda, B, N, npoint, kind):
+    """The noscalar variant's indices equal the production kernel's and the
+    plain version's at the production rule's route: the prototype's shapes
+    (1, 2 and 8 x 20480 -> 2048), 16 CTAs a row at 70000 points, ragged N,
+    one CTA, npoint 1 and N, ties, any B; its launches count apart."""
+    from votenet_tpu_torch.ops.cuda.fps import (
+        farthest_point_sample_cuda, farthest_point_sample_plain, fps_rowwise_noscalar_cuda)
+
+    xyz = torch.from_numpy(cloud(B + N + 1, B, N, kind)).to(cuda)
+    before = (farthest_point_sample_cuda.launches, fps_rowwise_noscalar_cuda.launches)
+    got = fps_rowwise_noscalar_cuda(npoint, xyz)
+    torch.cuda.synchronize()
+    assert (farthest_point_sample_cuda.launches, fps_rowwise_noscalar_cuda.launches) == (before[0], before[1] + 1)
+    assert torch.equal(got, farthest_point_sample_cuda(npoint, xyz))
+    assert torch.equal(got, farthest_point_sample_plain(npoint, xyz))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("N,kind", [(20480, "scene"), (5000, "normal"), (2048, "grid")])
+def test_fps_noscalar_kernel_every_cluster_size(cuda, cluster, N, kind):
+    """Every cluster size, forced; 20480 points at one CTA would need the
+    global-scratch route, which the variant refuses."""
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_plain, fps_rowwise_noscalar_cuda
+
+    xyz = torch.from_numpy(cloud(cluster + N, 2, N, kind)).to(cuda)
+    if cluster * 32 * 256 < N:
+        with pytest.raises(ValueError, match="registers"):
+            fps_rowwise_noscalar_cuda(256, xyz, cluster=cluster)
+        return
+    got = fps_rowwise_noscalar_cuda(256, xyz, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, farthest_point_sample_plain(256, xyz))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_fps_noscalar_kernel_ties_across_cta_boundaries(cuda, cluster):
+    """As test_fps_kernel_ties_across_cta_boundaries: every step ties across
+    the cluster's CTAs and the lowest index wins; the pick's coordinates
+    then come from the CTA that owns it."""
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_plain, fps_rowwise_noscalar_cuda
+
+    base = np.random.RandomState(cluster + 100).randn(37, 3).astype(np.float32)
+    N = 4096
+    xyz = np.zeros((1, N, 3), np.float32)
+    S = -(-N // cluster)
+    for r in range(cluster):
+        pos = r * S + np.random.RandomState(r).permutation(S)[:37]
+        xyz[0, pos] = base
+        xyz[0, r * S:(r + 1) * S][np.all(xyz[0, r * S:(r + 1) * S] == 0, axis=-1)] = base[0]
+    xyz = torch.from_numpy(xyz).to(cuda)
+    got = fps_rowwise_noscalar_cuda(64, xyz, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, farthest_point_sample_plain(64, xyz))
+
+
+def test_fps_noscalar_refuses_the_scratch_route(cuda):
+    from votenet_tpu_torch.ops.cuda.fps import fps_rowwise_noscalar_cuda
+
+    with pytest.raises(ValueError, match="registers"):
+        fps_rowwise_noscalar_cuda(8, torch.zeros((1, 140000, 3), device=cuda))

@@ -157,3 +157,36 @@ def test_3xtf32_within_tolerance_of_f32_and_jax(B, M, S, widths):
     assert float((three - plain).abs().max()) <= tol
     assert float(np.abs(three.numpy() - jax_out).max()) <= tol
     assert float((one - plain).abs().max()) > tol
+
+
+@pytest.mark.parametrize("cfg_name", list(CONFIGS))
+def test_samlp_plan_bf16_fits_every_shape(cfg_name):
+    """The bf16 variant's plan at every SA layer: one 2-byte term a weight
+    (the scratch a quarter of 3xTF32's), slices of 64 channels where every
+    layer's K takes them (four k16 steps), within the shared memory, with
+    the f32 plan's tile, N and K."""
+    for layer, _, _, _, S, widths in sa_shapes(CONFIGS[cfg_name]):
+        plan = samlp_mod.samlp_plan(S, widths, "bf16")
+        f32 = samlp_mod.samlp_plan(S, widths)
+        assert (plan.T, plan.R, plan.npad, plan.kpad) == (f32.T, f32.R, f32.npad, f32.kpad), layer
+        assert plan.ks == (64 if all(k % 64 == 0 for k in plan.kpad) else 32), layer
+        assert all(k % plan.ks == 0 for k in plan.kpad), layer
+        assert plan.smem <= samlp_mod.SMEM_LIMIT and 2 <= plan.stages <= samlp_mod.MAX_STAGES, layer
+        assert plan.wsplit * 4 == sum(2 * k * n for k, n in zip(plan.kpad, plan.npad)) == f32.wsplit
+        assert plan.smem - plan.stages * max(plan.npad) * plan.ks * 2 == f32.smem - f32.stages * max(f32.npad) * f32.ks * 8
+
+
+@pytest.mark.parametrize("S,widths,ks,stages", [(64, [64, 64, 128], 64, 4), (64, [128, 128, 256], 64, 4),
+                                                (8, [16, 16, 32], 32, 4), (7, [6, 9, 13], 32, 4),
+                                                (100, [128, 256, 64], 64, 2), (24, [40, 32, 64], 32, 4)])
+def test_samlp_plan_bf16_slices(S, widths, ks, stages):
+    """sa2-sa4's 256-wide layer holds four 64-channel bf16 stages where
+    3xTF32 holds two 32-channel ones; a K of 32 (a 32-wide layer, or w0 <= 32)
+    takes 32-channel slices."""
+    plan = samlp_mod.samlp_plan(S, widths, "bf16")
+    assert (plan.ks, plan.stages) == (ks, stages)
+
+
+def test_samlp_plan_refuses_other_precisions():
+    with pytest.raises(ValueError, match="precision"):
+        samlp_mod.samlp_plan(64, [64, 64, 128], "tf32")

@@ -52,6 +52,20 @@
 //   the two differ by one ulp at radius 0.2, 0.4 and 0.8.
 // - Tile padding. Slots past a tile's last point hold +inf coordinates:
 //   their d2 is +inf (or NaN), never < r2.
+//
+// Emit variant (EMIT, ops/cuda/ballquery.py query_ball_point_emit_xyz_cuda):
+// replaces the prototype benchmarks/bq_emit_xyz_proto.py:44
+// `_bq_emit_kernel`, the same query that also writes the grouped
+// coordinates gxyz (B, M, nsample, 3) f32, equal bit for bit to
+// group_point(xyz, idx), so the gather that follows each ball query is not
+// needed. On the unsplit route the kernel writes a hit's x, y, z from the
+// shared-memory tile as it appends the hit, and pads with the first hit's
+// (kept in registers) or, for an empty ball, with point 0's. On the split
+// route the merge pass writes them as it concatenates the segments, copied
+// by index from xyz (an L2 hit: the row was just read). Every value is a
+// copy of an input float, so the result is exact by construction. The
+// prototype's cost on the TPU, a one-hot contraction per coordinate, has no
+// counterpart here: the copy costs 12 bytes a slot of stores.
 
 #include <cuda_runtime.h>
 
@@ -87,14 +101,17 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // grid = (ceil(M / kQueries), nseg, B), block = kQueries.
 // xyz (B, N, 3), new_xyz (B, M, 3) f32. nseg == 1: out_idx is idx
-// (B, M, nsample) and out_cnt is cnt (B, M), padded here; nseg > 1: out_idx
-// is the scratch (B, M, nseg, nsample) and out_cnt (B, M, nseg) the hits of
-// each segment (at most nsample), merged by bq_merge_kernel.
+// (B, M, nsample) and out_cnt is cnt (B, M), padded here, and with EMIT
+// gxyz (B, M, nsample, 3) too; nseg > 1 (EMIT false): out_idx is the
+// scratch (B, M, nseg, nsample) and out_cnt (B, M, nseg) the hits of each
+// segment (at most nsample), merged by bq_merge_kernel.
+template <bool EMIT>
 __global__ void __launch_bounds__(kQueries)
     ballquery_kernel(const float* __restrict__ xyz,
                      const float* __restrict__ new_xyz, int N, int M,
                      int seg_pts, int nseg, float r2, int nsample,
-                     int* __restrict__ out_idx, int* __restrict__ out_cnt) {
+                     int* __restrict__ out_idx, int* __restrict__ out_cnt,
+                     float* __restrict__ gxyz) {
   __shared__ __align__(16) float tile[2][kTile * 3];
 
   const int tid = threadIdx.x;
@@ -134,6 +151,8 @@ __global__ void __launch_bounds__(kQueries)
 
   int found = active ? 0 : nsample;  // an idle thread counts as full
   int first = 0;
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f;  // EMIT: the first hit's coordinates
+  float* g = EMIT ? gxyz + q * nsample * 3 : nullptr;
   load(0);
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
@@ -166,6 +185,17 @@ __global__ void __launch_bounds__(kQueries)
           const int k = k0 + j * kGroup + __ffs(hits) - 1;
           hits &= hits - 1u;
           if (found == 0) first = k;
+          if constexpr (EMIT) {  // the hit's coordinates, from the tile
+            const float* c = tile[t & 1] + 3 * (k - k0);
+            g[3 * found] = c[0];
+            g[3 * found + 1] = c[1];
+            g[3 * found + 2] = c[2];
+            if (found == 0) {
+              fx = c[0];
+              fy = c[1];
+              fz = c[2];
+            }
+          }
           out[found++] = k;
         }
         if (found == nsample) break;
@@ -181,6 +211,18 @@ __global__ void __launch_bounds__(kQueries)
   if (nseg == 1) {
     const int fill = found > 0 ? first : 0;
     for (int s = found; s < nsample; ++s) out[s] = fill;
+    if constexpr (EMIT) {
+      if (found == 0) {  // an empty ball: point 0
+        fx = p[0];
+        fy = p[1];
+        fz = p[2];
+      }
+      for (int s = found; s < nsample; ++s) {
+        g[3 * s] = fx;
+        g[3 * s + 1] = fy;
+        g[3 * s + 2] = fz;
+      }
+    }
     out_cnt[q] = found;
   } else {
     out_cnt[q * nseg + seg] = found;
@@ -188,26 +230,47 @@ __global__ void __launch_bounds__(kQueries)
 }
 
 // One warp per query: the segments' hits in segment order, up to nsample,
-// then finalize_first_k's padding. grid = ceil(B*M / 8), block = 256.
+// then finalize_first_k's padding; with EMIT also each slot's coordinates
+// into gxyz (B, M, nsample, 3), copied from xyz (B, N, 3) by index.
+// grid = ceil(B*M / 8), block = 256.
+template <bool EMIT>
 __global__ void bq_merge_kernel(const int* __restrict__ seg_idx,
                                 const int* __restrict__ seg_cnt, int total,
                                 int nseg, int nsample, int* __restrict__ idx,
-                                int* __restrict__ cnt) {
+                                int* __restrict__ cnt, const float* __restrict__ xyz,
+                                int N, int M, float* __restrict__ gxyz) {
   const int q = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (q >= total) return;  // uniform across the warp
   int* out = idx + static_cast<size_t>(q) * nsample;
+  const float* p = EMIT ? xyz + static_cast<size_t>(q / M) * N * 3 : nullptr;
+  float* g = EMIT ? gxyz + static_cast<size_t>(q) * nsample * 3 : nullptr;
   int c = 0;
   for (int s = 0; s < nseg && c < nsample; ++s) {
     const size_t qs = static_cast<size_t>(q) * nseg + s;
     const int n = min(seg_cnt[qs], nsample - c);
     const int* src = seg_idx + qs * nsample;
-    for (int i = lane; i < n; i += 32) out[c + i] = src[i];
+    for (int i = lane; i < n; i += 32) {
+      const int k = src[i];
+      out[c + i] = k;
+      if constexpr (EMIT) {
+        g[3 * (c + i)] = p[3 * k];
+        g[3 * (c + i) + 1] = p[3 * k + 1];
+        g[3 * (c + i) + 2] = p[3 * k + 2];
+      }
+    }
     c += n;
   }
   __syncwarp();
   const int fill = c > 0 ? out[0] : 0;
-  for (int s = c + lane; s < nsample; s += 32) out[s] = fill;
+  for (int s = c + lane; s < nsample; s += 32) {
+    out[s] = fill;
+    if constexpr (EMIT) {
+      g[3 * s] = p[3 * fill];
+      g[3 * s + 1] = p[3 * fill + 1];
+      g[3 * s + 2] = p[3 * fill + 2];
+    }
+  }
   if (lane == 0) cnt[q] = c;
 }
 
@@ -218,29 +281,42 @@ extern "C" {
 // Launches the ball query on `stream`; returns the cudaError_t of the
 // launches. nseg == 1: one kernel writes idx and cnt. nseg > 1: seg_idx
 // (B*M*nseg*nsample int32) and seg_cnt (B*M*nseg int32) are scratch, and a
-// merge kernel writes idx and cnt. seg_pts is a multiple of the tile.
+// merge kernel writes idx and cnt. seg_pts is a multiple of the tile. A
+// non-null gxyz (B*M*nsample*3 f32) runs the emit variant, which also
+// writes the grouped coordinates there.
 int votenet_ball_query(const float* xyz, const float* new_xyz, int B, int N,
                        int M, float r2, int nsample, int nseg, int seg_pts,
                        int* seg_idx, int* seg_cnt, int* idx, int* cnt,
-                       void* stream) {
+                       float* gxyz, void* stream) {
   if (B < 1 || N < 1 || M < 1 || nsample < 1 || nseg < 1 || seg_pts < 1 ||
       seg_pts % kTile != 0 || (nseg - 1) * seg_pts >= N ||
       static_cast<long long>(nseg) * seg_pts < N || B > 65535 || nseg > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((M + kQueries - 1) / kQueries, nseg, B);
+  const bool emit = gxyz != nullptr;
   if (nseg == 1) {
-    ballquery_kernel<<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
-                                               r2, nsample, idx, cnt);
+    if (emit) {
+      ballquery_kernel<true><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
+                                                       r2, nsample, idx, cnt, gxyz);
+    } else {
+      ballquery_kernel<false><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
+                                                        r2, nsample, idx, cnt, nullptr);
+    }
     return cudaGetLastError();
   }
-  ballquery_kernel<<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, nseg,
-                                             r2, nsample, seg_idx, seg_cnt);
+  ballquery_kernel<false><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, nseg,
+                                                    r2, nsample, seg_idx, seg_cnt, nullptr);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int total = B * M;
-  bq_merge_kernel<<<(total + 7) / 8, 256, 0, s>>>(seg_idx, seg_cnt, total, nseg,
-                                                  nsample, idx, cnt);
+  if (emit) {
+    bq_merge_kernel<true><<<(total + 7) / 8, 256, 0, s>>>(seg_idx, seg_cnt, total, nseg,
+                                                          nsample, idx, cnt, xyz, N, M, gxyz);
+  } else {
+    bq_merge_kernel<false><<<(total + 7) / 8, 256, 0, s>>>(seg_idx, seg_cnt, total, nseg,
+                                                           nsample, idx, cnt, nullptr, N, M, nullptr);
+  }
   return cudaGetLastError();
 }
 

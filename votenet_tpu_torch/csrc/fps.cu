@@ -57,6 +57,23 @@
 //   reduction (warp, CTA, cluster) prefers the lower index on equal values.
 //   Points past the row's end carry a minimum of -1 and threads without a
 //   point carry (-1, INT_MAX): neither beats a real point (minimum >= 0).
+//
+// Noscalar variant (NOSCALAR, ops/cuda/fps.py fps_rowwise_noscalar_cuda):
+// replaces the prototype benchmarks/fps_noscalar_proto.py:47
+// `_fps_rowwise_noscalar_kernel`, which takes the pick's coordinates from
+// masked sums instead of a round trip through scalar memory. Here the
+// question is the exchange: a candidate is (value, index), 8 bytes and one
+// st.async, where the production candidate carries x, y, z too (20 bytes,
+// two st.async on the latency chain of every step). Once every warp has
+// reduced the step's candidates to the pick, the warp that owns the pick
+// takes its coordinates by three masked sums over its points' registers
+// (the bits of each coordinate where the index is the pick, 0 elsewhere,
+// summed by redux.sync: one nonzero term, so exact, -0.0 kept) and sends
+// them to every CTA of the cluster, 16 bytes on a second mbarrier a step;
+// every warp waits for them. So a step has two exchanges in turn where the
+// production kernel has one. With one CTA the second exchange is a second
+// __syncthreads. Register variants only (PPT > 0): the coordinates are never
+// read again from device memory.
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -135,6 +152,32 @@ __device__ __forceinline__ void send(unsigned slot, unsigned bar, const Cand& c)
 
 constexpr unsigned kCandBytes = 20;  // what send() moves
 
+// The noscalar variant's candidate.
+struct __align__(8) Pick {
+  float v;
+  int i;
+};
+
+constexpr unsigned kPickBytes = 8;   // what send_pick() moves
+constexpr unsigned kCoordBytes = 16;  // what send_xyz() moves
+
+// Store (v, i) into the remote slot `slot` and count its 8 bytes on the
+// remote mbarrier `bar`.
+__device__ __forceinline__ void send_pick(unsigned slot, unsigned bar, float v, int i) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];" ::"r"(slot),
+               "r"(__float_as_uint(v)), "r"(static_cast<unsigned>(i)), "r"(bar)
+               : "memory");
+}
+
+// Store the bits of (x, y, z) and a pad into the remote slot `slot` and
+// count its 16 bytes on the remote mbarrier `bar`.
+__device__ __forceinline__ void send_xyz(unsigned slot, unsigned bar, unsigned x, unsigned y, unsigned z) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];" ::"r"(
+                   slot),
+               "r"(x), "r"(y), "r"(z), "r"(0u), "r"(bar)
+               : "memory");
+}
+
 // (v, i) beats (bv, bi): larger value, or the same value at a lower index.
 __device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
@@ -161,12 +204,17 @@ __device__ __forceinline__ void owner_xyz(const Cand& mine, int wi, float* x, fl
 
 // grid = B * cs CTAs in clusters of cs, block = kThreads.
 // xyz (B, N, 3) f32, out (B, npoint) i32, scratch (B, N) f32 for PPT == 0.
-template <int PPT>
+// NOSCALAR (PPT > 0 only): the noscalar variant.
+template <int PPT, bool NOSCALAR>
 __global__ void __launch_bounds__(kThreads)
     fps_cluster_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ out,
                        float* __restrict__ scratch) {
+  static_assert(!NOSCALAR || PPT > 0, "the noscalar variant keeps its points in registers");
   __shared__ Cand cand[2][kMaxCluster * kWarps];  // slot rank * kWarps + warp
+  __shared__ Pick pk[2][kMaxCluster * kWarps];    // NOSCALAR: the step's candidates, as cand
+  __shared__ uint4 coord[2];                      // NOSCALAR: the bits of the pick's x, y, z
   __shared__ __align__(8) unsigned long long bar[2];
+  __shared__ __align__(8) unsigned long long cbar[2];  // NOSCALAR: coord's mbarriers
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -175,8 +223,9 @@ __global__ void __launch_bounds__(kThreads)
   const float* p = xyz + static_cast<size_t>(b) * N * 3;
   const int S = (N + cs - 1) / cs;
   const int lo = min(N, rank * S), hi = min(N, lo + S);
-  const unsigned step_bytes = kCandBytes * kWarps * cs;
+  const unsigned step_bytes = (NOSCALAR ? kPickBytes : kCandBytes) * kWarps * cs;
   const unsigned bar_addr[2] = {smem_addr(&bar[0]), smem_addr(&bar[1])};
+  const unsigned cbar_addr[2] = {smem_addr(&cbar[0]), smem_addr(&cbar[1])};
 
   constexpr int kRegs = PPT > 0 ? PPT : 1;
   float px[kRegs], py[kRegs], pz[kRegs], pm[kRegs];
@@ -197,9 +246,17 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0 && cs > 1) {
     bar_init(bar_addr[0], 1);
     bar_init(bar_addr[1], 1);
+    if constexpr (NOSCALAR) {
+      bar_init(cbar_addr[0], 1);
+      bar_init(cbar_addr[1], 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     if (npoint > 1) bar_arm(bar_addr[1], step_bytes);  // step 1
     if (npoint > 2) bar_arm(bar_addr[0], step_bytes);  // step 2
+    if constexpr (NOSCALAR) {
+      if (npoint > 1) bar_arm(cbar_addr[1], kCoordBytes);
+      if (npoint > 2) bar_arm(cbar_addr[0], kCoordBytes);
+    }
   }
   float cx = p[0], cy = p[1], cz = p[2];
   if (rank == 0 && tid == 0) out[static_cast<size_t>(b) * npoint] = 0;
@@ -207,14 +264,82 @@ __global__ void __launch_bounds__(kThreads)
 
   // this warp's slot and the step's mbarrier in CTA `lane` (lanes < cs)
   const unsigned peer = static_cast<unsigned>(lane < cs ? lane : 0);
-  const unsigned slot_off = static_cast<unsigned>((rank * kWarps + warp) * sizeof(Cand));
-  const unsigned remote_cand[2] = {map_rank(smem_addr(&cand[0][0]), peer) + slot_off,
-                                   map_rank(smem_addr(&cand[1][0]), peer) + slot_off};
+  const unsigned slot_off = static_cast<unsigned>((rank * kWarps + warp) * (NOSCALAR ? sizeof(Pick) : sizeof(Cand)));
+  const void* const slots_at[2] = {NOSCALAR ? static_cast<const void*>(pk[0]) : static_cast<const void*>(cand[0]),
+                                   NOSCALAR ? static_cast<const void*>(pk[1]) : static_cast<const void*>(cand[1])};
+  const unsigned remote_cand[2] = {map_rank(smem_addr(slots_at[0]), peer) + slot_off,
+                                   map_rank(smem_addr(slots_at[1]), peer) + slot_off};
   const unsigned remote_bar[2] = {map_rank(bar_addr[0], peer), map_rank(bar_addr[1], peer)};
+  // NOSCALAR: the pick's coordinates and their mbarrier in CTA `lane`
+  unsigned remote_coord[2] = {0u, 0u}, remote_cbar[2] = {0u, 0u};
+  if constexpr (NOSCALAR) {
+    for (int i = 0; i < 2; ++i) {
+      remote_coord[i] = map_rank(smem_addr(&coord[i]), peer);
+      remote_cbar[i] = map_rank(cbar_addr[i], peer);
+    }
+  }
   const int slots = cs * kWarps;
 
   for (int j = 1; j < npoint; ++j) {
     const int par = j & 1;
+    if constexpr (NOSCALAR) {
+      Pick best = {-1.0f, INT_MAX};
+#pragma unroll
+      for (int q = 0; q < kRegs; ++q) {
+        const float m = fminf(pm[q], sqdist(px[q], py[q], pz[q], cx, cy, cz));
+        pm[q] = m;
+        if (m > best.v) best = {m, lo + tid + q * kThreads};
+      }
+      warp_argmax(best.v, best.i);
+      if (cs == 1) {
+        if (lane == 0) pk[par][warp] = best;
+        __syncthreads();
+      } else {
+        if (lane < cs) send_pick(remote_cand[par], remote_bar[par], best.v, best.i);
+        bar_wait(bar_addr[par], ((j - 1) >> 1) & 1);
+        if (tid == 0 && j + 2 < npoint) bar_arm(bar_addr[par], step_bytes);
+      }
+      Pick mine = {-1.0f, INT_MAX};
+      for (int s = lane; s < slots; s += 32) {
+        const Pick c = pk[par][s];
+        if (beats(c.v, c.i, mine.v, mine.i)) mine = c;
+      }
+      warp_argmax(mine.v, mine.i);
+      const int pick = mine.i;
+      // the warp that owns the pick: its coordinates by masked sums over
+      // the points' registers, sent to every CTA
+      const int rel = pick - lo;
+      if (rel >= 0 && rel < hi - lo && (rel % kThreads) / 32 == warp) {
+        unsigned bx = 0u, by = 0u, bz = 0u;
+#pragma unroll
+        for (int q = 0; q < kRegs; ++q) {
+          const bool at = lo + tid + q * kThreads == pick;
+          bx += at ? __float_as_uint(px[q]) : 0u;
+          by += at ? __float_as_uint(py[q]) : 0u;
+          bz += at ? __float_as_uint(pz[q]) : 0u;
+        }
+        bx = __reduce_add_sync(0xffffffffu, bx);
+        by = __reduce_add_sync(0xffffffffu, by);
+        bz = __reduce_add_sync(0xffffffffu, bz);
+        if (cs == 1) {
+          if (lane == 0) coord[par] = make_uint4(bx, by, bz, 0u);
+        } else if (lane < cs) {
+          send_xyz(remote_coord[par], remote_cbar[par], bx, by, bz);
+        }
+      }
+      if (cs == 1) {
+        __syncthreads();
+      } else {
+        bar_wait(cbar_addr[par], ((j - 1) >> 1) & 1);
+        if (tid == 0 && j + 2 < npoint) bar_arm(cbar_addr[par], kCoordBytes);
+      }
+      const uint4 c = coord[par];
+      cx = __uint_as_float(c.x);
+      cy = __uint_as_float(c.y);
+      cz = __uint_as_float(c.z);
+      if (rank == 0 && tid == 0) out[static_cast<size_t>(b) * npoint + j] = pick;
+      continue;
+    }
     Cand best = {-1.0f, INT_MAX, 0.0f, 0.0f, 0.0f};
     if constexpr (PPT > 0) {
 #pragma unroll
@@ -256,12 +381,12 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();  // no CTA leaves while a peer's sends to it may be in flight
 }
 
-template <int PPT>
+template <int PPT, bool NOSCALAR = false>
 cudaError_t launch(const float* xyz, int B, int N, int npoint, int cs, int* out,
                    float* scratch, cudaStream_t stream) {
   if (cs > 8) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fps_cluster_kernel<PPT>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        fps_cluster_kernel<PPT, NOSCALAR>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t config = {};
@@ -276,14 +401,14 @@ cudaError_t launch(const float* xyz, int B, int N, int npoint, int cs, int* out,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, fps_cluster_kernel<PPT>, xyz, N, npoint, out, scratch);
+  return cudaLaunchKernelEx(&config, fps_cluster_kernel<PPT, NOSCALAR>, xyz, N, npoint, out, scratch);
 }
 
 template <int PPT>
 int max_clusters(int cs) {
   if (cs > 8) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fps_cluster_kernel<PPT>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        fps_cluster_kernel<PPT, false>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return -static_cast<int>(err);
   }
   cudaLaunchConfig_t config = {};
@@ -297,7 +422,7 @@ int max_clusters(int cs) {
   config.attrs = attr;
   config.numAttrs = 1;
   int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fps_cluster_kernel<PPT>, &config);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fps_cluster_kernel<PPT, false>, &config);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -318,13 +443,28 @@ extern "C" {
 // thread keeping `ppt` points in registers (1, 2, 4, 5, 8, 10, 16, 20 or 32, with
 // 256 * ppt * cs >= N), or ppt = 0: coordinates from device memory and the
 // running minimum in `scratch`, a (B, N) f32 device buffer (else null).
-// Returns the cudaError_t of the launch.
-int votenet_fps(const float* xyz, int B, int N, int npoint, int cs, int ppt, int* out,
+// noscalar != 0 launches the noscalar variant (ppt > 0 only). Returns the
+// cudaError_t of the launch.
+int votenet_fps(const float* xyz, int B, int N, int npoint, int cs, int ppt, int noscalar, int* out,
                 float* scratch, void* stream) {
   if (!valid_args(cs, ppt) || (ppt == 0 && scratch == nullptr) ||
-      (ppt > 0 && static_cast<long long>(kThreads) * ppt * cs < N))
+      (ppt > 0 && static_cast<long long>(kThreads) * ppt * cs < N) || (noscalar != 0 && noscalar != 1) ||
+      (noscalar && ppt == 0))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (noscalar) {
+    switch (ppt) {
+      case 1: return launch<1, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      case 2: return launch<2, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      case 4: return launch<4, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      case 5: return launch<5, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      case 8: return launch<8, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      case 10: return launch<10, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      case 16: return launch<16, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      case 20: return launch<20, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      default: return launch<kMaxPpt, true>(xyz, B, N, npoint, cs, out, scratch, s);
+    }
+  }
   switch (ppt) {
     case 0: return launch<0>(xyz, B, N, npoint, cs, out, scratch, s);
     case 1: return launch<1>(xyz, B, N, npoint, cs, out, scratch, s);

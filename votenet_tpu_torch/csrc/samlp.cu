@@ -34,6 +34,20 @@
 // result where one TF32 product (~1e-3) would not. The affine steps and the
 // ReLU stay f32 with __fmul_rn/__fadd_rn (-fmad=false does not touch wgmma).
 //
+// bf16 operands (samlp_kernel<true>): the TPU kernel's precision="bf16"
+// (samlp.py:87-94): before each dense layer the f32 activations and the
+// weights are rounded to bf16 (round to nearest even, as astype(bfloat16):
+// cvt.rn.bf16x2.f32 on the A fragments, __float2bfloat16_rn in the weight
+// prologue) and multiplied with f32 accumulation, one k16 bf16 wgmma where
+// 3xTF32 takes three k8 TF32 ones; its operations bound is a sixth of
+// 3xTF32's (twice TF32's rate, a third of the products). Layer 0's affine +
+// ReLU, every epilogue and the pooling stay f32, as in the TPU kernel. The
+// accumulator fragment of columns 8j + 2t, 8j + 2t + 1 is already wgmma's
+// bf16 A fragment of k-positions 2t, 2t + 1 (j even) or 2t + 8, 2t + 9 (j
+// odd) of a k16 step, so the bf16 weights keep the natural k order; the
+// parked f32 fragments are the same as 3xTF32's and are rounded as they are
+// loaded.
+//
 // Design. A block is one producer warpgroup and two consumer warpgroups,
 // persistent over the grid's work; setmaxnreg moves registers from the
 // producer (40 a thread) to the consumers (232), whose accumulators take up
@@ -82,6 +96,7 @@
 // a multiple of kKS; every width may be at most 256. Offsets into h_all,
 // idx, sh0 and out are 64-bit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -102,7 +117,7 @@ constexpr int kMaxStages = 4;                // weight-ring stages, at most
 struct Chain {
   const float* scale[kMaxLayers];  // (width[l+1],)
   const float* shift[kMaxLayers];  // (width[l+1],)
-  long long woff[kMaxLayers];      // layer l's first slice in the split weights (floats)
+  long long woff[kMaxLayers];      // layer l's first slice in the split weights (bytes)
   int width[kMaxLayers + 1];       // w0, then each layer's output width
   int npad[kMaxLayers];            // layer l's wgmma N: 32, 64, 128 or 256
   int kpad[kMaxLayers];            // layer l's K, a multiple of the slice's ks
@@ -122,6 +137,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t u;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u;
+}
+
+// two values rounded to bf16 (nearest, ties to even), lo in the low half
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  uint32_t u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(u) : "f"(hi), "f"(lo));
   return u;
 }
 
@@ -184,90 +206,112 @@ __device__ __forceinline__ uint64_t bdesc(uint32_t addr, uint32_t sbo) {
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// D (64 x N, f32) += A (64 x 8, TF32 from registers) * B (8 x N, TF32 in
-// shared memory, K-major). A's fragment: a[0] (row g, k t), a[1] (row g+8,
-// k t), a[2] (row g, k t+4), a[3] (row g+8, k t+4) of the warp's 16 rows.
-template <int N>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+// The accumulator registers of a wgmma of width N (N / 2 a thread): the
+// "%i" list of the instruction and the "+f" operands.
+#define SAMLP_R32 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define SAMLP_R64 SAMLP_R32 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define SAMLP_R128 SAMLP_R64 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define SAMLP_R256 SAMLP_R128 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define SAMLP_D32 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define SAMLP_D64 SAMLP_D32, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define SAMLP_D128 SAMLP_D64, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SAMLP_D256 SAMLP_D128, "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+// D (64 x N, f32) += A (64 x K) * B (K x N, in shared memory, K-major), A
+// from registers: TF32 with K = 8 (BF16 false) or bf16 with K = 16 (BF16
+// true). A's fragment of the warp's 16 rows, TF32: a[0] (row g, k t), a[1]
+// (row g+8, k t), a[2] (row g, k t+4), a[3] (row g+8, k t+4); bf16, two
+// values a register, the lower k in the low half: a[0] (row g, k 2t and
+// 2t+1), a[1] (row g+8, the same), a[2] (row g, k 2t+8 and 2t+9), a[3] (row
+// g+8, the same). The bf16 form's last immediate, 0, says B is K-major.
+template <int N, bool BF16>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
 
 template <>
-__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma<32, false>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" SAMLP_R32 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : SAMLP_D32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma<32, true>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" SAMLP_R32 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : SAMLP_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64, false>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" SAMLP_R64 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SAMLP_D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma<64, true>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SAMLP_R64 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : SAMLP_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128, false>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" SAMLP_R128 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : SAMLP_D128
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_tf32<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma<128, true>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SAMLP_R128 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : SAMLP_D128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<256, false>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {" SAMLP_R256 "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : SAMLP_D256
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<256, true>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" SAMLP_R256 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : SAMLP_D256
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -294,13 +338,16 @@ struct Ctx {
 __device__ __forceinline__ void fold(int* p, float v) { atomicMax(p, __float_as_int(v)); }
 
 // One dense layer of a tile: acc = A @ W over the K slices of the ring (KB
-// k8 steps a slice), then the epilogue: parked as the next layer's A
-// fragments, or pooled (last). aff: the layer's scale (N floats, zero past
-// its width) then shift, in shared memory.
-template <int N, int KB>
+// wgmma K steps a slice: k8 in 3xTF32, k16 in bf16), then the epilogue:
+// parked as the next layer's A fragments, or pooled (last). aff: the layer's
+// scale (N floats, zero past its width) then shift, in shared memory.
+template <int N, int KB, bool BF16>
 __device__ __forceinline__ void dense_layer(const Ctx& cx, int kpad, const float* aff, bool last,
                                             const Rows& rows, int& stage, int& phase) {
+  // a K step is two core matrices (256 bytes) in either type, so a slice's
+  // 8-row groups lie KB * 256 bytes apart
   constexpr uint32_t kSbo = KB * 2 * 128;  // bytes from one 8-row core-matrix group to the next
+  constexpr int kStep = BF16 ? 16 : 8;     // channels of K a wgmma takes
   const int lane = cx.t & 31;
   const int g = lane >> 2;
   const int tig = lane & 3;
@@ -308,28 +355,42 @@ __device__ __forceinline__ void dense_layer(const Ctx& cx, int kpad, const float
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
 
-  for (int k0 = 0; k0 < kpad; k0 += 8 * KB) {
-    uint32_t big[KB][4], small[KB][4];
+  for (int k0 = 0; k0 < kpad; k0 += kStep * KB) {
+    uint32_t big[KB][4];  // bf16: the rounded operand
+    [[maybe_unused]] uint32_t small[BF16 ? 1 : KB][4];
 #pragma unroll
     for (int kk = 0; kk < KB; ++kk) {
-      const float4 f = cx.afrag[(k0 / 8 + kk) * 128 + cx.t];
-      const float x[4] = {f.x, f.y, f.z, f.w};
+      if constexpr (BF16) {  // k8 steps 2kk and 2kk + 1: (row g, row g+8) x (channel c, c + 1)
+        const float4 f0 = cx.afrag[(k0 / 8 + 2 * kk) * 128 + cx.t];
+        const float4 f1 = cx.afrag[(k0 / 8 + 2 * kk + 1) * 128 + cx.t];
+        big[kk][0] = bf16x2_rn(f0.x, f0.z);
+        big[kk][1] = bf16x2_rn(f0.y, f0.w);
+        big[kk][2] = bf16x2_rn(f1.x, f1.z);
+        big[kk][3] = bf16x2_rn(f1.y, f1.w);
+      } else {
+        const float4 f = cx.afrag[(k0 / 8 + kk) * 128 + cx.t];
+        const float x[4] = {f.x, f.y, f.z, f.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        big[kk][i] = tf32_rna(x[i]);
-        small[kk][i] = tf32_rna(__fsub_rn(x[i], __uint_as_float(big[kk][i])));
+        for (int i = 0; i < 4; ++i) {
+          big[kk][i] = tf32_rna(x[i]);
+          small[kk][i] = tf32_rna(__fsub_rn(x[i], __uint_as_float(big[kk][i])));
+        }
       }
     }
     mbar_wait(&cx.full[stage], phase);
     const uint32_t base = smem_u32(cx.ring + stage * cx.stage_bytes);
-    const uint32_t sbase = base + N * KB * 8 * 4;  // the small term follows the big one
+    const uint32_t sbase = base + N * KB * 8 * 4;  // 3xTF32: the small term follows the big one
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {  // the small products first, then big * big
-      wgmma_tf32<N>(acc, small[kk], bdesc(base + kk * 256, kSbo));
-      wgmma_tf32<N>(acc, big[kk], bdesc(sbase + kk * 256, kSbo));
-      wgmma_tf32<N>(acc, big[kk], bdesc(base + kk * 256, kSbo));
+    for (int kk = 0; kk < KB; ++kk) {
+      if constexpr (BF16) {
+        wgmma<N, true>(acc, big[kk], bdesc(base + kk * 256, kSbo));
+      } else {  // the small products first, then big * big
+        wgmma<N, false>(acc, small[kk], bdesc(base + kk * 256, kSbo));
+        wgmma<N, false>(acc, big[kk], bdesc(sbase + kk * 256, kSbo));
+        wgmma<N, false>(acc, big[kk], bdesc(base + kk * 256, kSbo));
+      }
     }
     wgmma_commit();
     fence_regs(acc);
@@ -444,10 +505,13 @@ constexpr int kGatherSteps = 8;  // k8 steps of layer 0 whose loads are in fligh
 // then each layer's scale and shift padded to npad), the ring's mbarriers.
 // An item is one tile of T centres (S <= 64) or the R tiles of one centre
 // (S > 64); consumer w of a block takes item 2p + w of each pair p the
-// block walks.
+// block walks. BF16: the operands of dense layers 1.. rounded to bf16, one
+// bf16 term a weight in the ring (ks 32 or 64); else 3xTF32, two TF32 terms
+// (ks 16 or 32).
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads, 1)
     samlp_kernel(const float* __restrict__ h_all, const int* __restrict__ idx, const float* __restrict__ sh0,
-                 const float* __restrict__ s0, const float* __restrict__ wsplit,
+                 const float* __restrict__ s0, const uint8_t* __restrict__ wsplit,
                  const __grid_constant__ Chain chain, int N, int M, int S, int T, int R, int items_per_row,
                  int items, int ks, int stages, int stage_bytes, int kb_max, int pool_ld,
                  float* __restrict__ out) {
@@ -494,9 +558,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
         for (int j = 0; j < R; ++j) {
           for (int l = 0; l < chain.n; ++l) {
-            const int bytes = chain.npad[l] * ks * 8;
-            const float* src = wsplit + chain.woff[l];
-            for (int k0 = 0; k0 < chain.kpad[l]; k0 += ks, src += bytes / 4) {
+            const int bytes = chain.npad[l] * ks * (BF16 ? 2 : 8);
+            const uint8_t* src = wsplit + chain.woff[l];
+            for (int k0 = 0; k0 < chain.kpad[l]; k0 += ks, src += bytes) {
               mbar_wait(&empty[stage], phase ^ 1);
               mbar_expect_tx(&full[stage], bytes);
               bulk_load(ring + stage * stage_bytes, src, bytes, &full[stage]);
@@ -599,8 +663,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int l = 0; l < chain.n; ++l) {
         const bool last = l == chain.n - 1;
         const int np = chain.npad[l];
-#define SAMLP_LAYER(NP, KB) dense_layer<NP, KB>(cx, chain.kpad[l], aff, last, rows, stage, phase)
-        if (ks == 32) {
+#define SAMLP_LAYER(NP, KB) dense_layer<NP, KB, BF16>(cx, chain.kpad[l], aff, last, rows, stage, phase)
+        if (ks == (BF16 ? 64 : 32)) {  // four wgmma K steps a slice, else two
           switch (np) {
             case 32: SAMLP_LAYER(32, 4); break;
             case 64: SAMLP_LAYER(64, 4); break;
@@ -635,7 +699,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 struct Split {
   const float* w[kMaxLayers];  // layer l's weight, (w_out, w_in) row-major
-  long long woff[kMaxLayers + 1];
+  long long woff[kMaxLayers + 1];  // layer l's first element in the split weights
   int win[kMaxLayers], wout[kMaxLayers], npad[kMaxLayers];
   int n, ks;
 };
@@ -671,6 +735,31 @@ __global__ void samlp_split_weights(const __grid_constant__ Split a, float* __re
   }
 }
 
+// The bf16 variant's weights, one term rounded to bf16 (nearest, ties to
+// even), in the ring's order: per layer, per K slice of ks channels,
+// [n / 8][k / 8 in the slice][n % 8][k % 8], the natural k order; zero past
+// the widths.
+__global__ void samlp_round_weights(const __grid_constant__ Split a, __nv_bfloat16* __restrict__ wsplit) {
+  const long long total = a.woff[a.n];
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    int l = 0;
+    while (e >= a.woff[l + 1]) ++l;
+    const int np = a.npad[l];
+    const long long r = e - a.woff[l];
+    const int slice = static_cast<int>(r / (np * a.ks));
+    int q = static_cast<int>(r - static_cast<long long>(slice) * np * a.ks);
+    const int ng = q / (8 * a.ks);
+    q -= ng * 8 * a.ks;
+    const int kc = q / 64;
+    q -= kc * 64;
+    const int n = ng * 8 + q / 8;
+    const int k = slice * a.ks + kc * 8 + (q & 7);
+    const float x = (n < a.wout[l] && k < a.win[l]) ? a.w[l][static_cast<size_t>(n) * a.win[l] + k] : 0.0f;
+    wsplit[e] = __float2bfloat16_rn(x);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -682,17 +771,20 @@ extern "C" {
 // (widths[l+1],) f32; out (B, M, widths[n_layers]) f32. The launch plan
 // (ops/cuda/samlp.py samlp_plan): npad[l] (32, 64, 128 or 256) and kpad[l]
 // (a multiple of 32, kpad[l+1] == npad[l]) per layer, T centres a tile
-// (S <= 64) or R tiles a centre (S > 64), ks (16 or 32) channels a weight
-// slice, `stages` ring stages, `grid` blocks. wsplit is scratch of
-// sum(2 * kpad[l] * npad[l]) floats. Returns the cudaError_t of the
-// launches (cudaErrorInvalidValue for arguments out of range).
+// (S <= 64) or R tiles a centre (S > 64), ks channels a weight slice (16
+// or 32; bf16: 32 or 64, dividing every kpad), `stages` ring stages, `grid`
+// blocks. bf16 != 0 runs the bf16-operand variant. wsplit is scratch of
+// sum(kpad[l] * npad[l]) x 8 bytes (3xTF32: two f32 terms) or x 2 (bf16).
+// Returns the cudaError_t of the launches (cudaErrorInvalidValue for
+// arguments out of range).
 int votenet_samlp(const float* h_all, const int* idx, const float* sh0, const float* s0,
                   const void* const* wt, const void* const* scale, const void* const* shift,
                   const int* widths, const int* npad, const int* kpad, int n_layers, int B, int N, int M,
-                  int S, int T, int R, int ks, int stages, int grid, float* wsplit, float* out,
+                  int S, int T, int R, int ks, int stages, int grid, int bf16, void* wsplit, float* out,
                   void* stream) {
+  const bool ks_ok = bf16 ? (ks == 32 || ks == 64) : (ks == 16 || ks == 32);
   if (n_layers < 1 || n_layers > kMaxLayers || B < 1 || N < 1 || M < 1 || S < 1 || T < 1 || R < 1 ||
-      (ks != 16 && ks != 32) || stages < 2 || stages > kMaxStages || grid < 1)
+      (bf16 != 0 && bf16 != 1) || !ks_ok || stages < 2 || stages > kMaxStages || grid < 1)
     return cudaErrorInvalidValue;
   if ((S <= kRows && (R != 1 || T * S > kRows)) || (S > kRows && (T != 1 || R * kRows < S)))
     return cudaErrorInvalidValue;
@@ -709,41 +801,52 @@ int votenet_samlp(const float* h_all, const int* idx, const float* sh0, const fl
   for (int l = 0; l < n_layers; ++l) {
     const int np = npad[l], kp = kpad[l];
     if ((np != 32 && np != 64 && np != 128 && np != 256) || np < widths[l + 1] || kp % 32 != 0 ||
-        kp < widths[l] || (l > 0 && kp != npad[l - 1]))
+        kp % ks != 0 || kp < widths[l] || (l > 0 && kp != npad[l - 1]))
       return cudaErrorInvalidValue;
     chain.scale[l] = static_cast<const float*>(scale[l]);
     chain.shift[l] = static_cast<const float*>(shift[l]);
     chain.npad[l] = split.npad[l] = np;
     chain.kpad[l] = kp;
-    chain.woff[l] = split.woff[l] = off;
+    split.woff[l] = off;
+    chain.woff[l] = off * (bf16 ? 2 : 4);
     split.w[l] = static_cast<const float*>(wt[l]);
     split.win[l] = widths[l];
     split.wout[l] = widths[l + 1];
-    off += 2LL * kp * np;
+    off += (bf16 ? 1LL : 2LL) * kp * np;
     kb_max = kp / 8 > kb_max ? kp / 8 : kb_max;
     np_max = np > np_max ? np : np_max;
     n_aff += 2 * np;
   }
   split.woff[n_layers] = off;
-  const int stage_bytes = np_max * ks * 8;
+  const int stage_bytes = np_max * ks * (bf16 ? 2 : 8);
   const int pool_ld = npad[n_layers - 1];
   const size_t smem = static_cast<size_t>(stages) * stage_bytes +
                       static_cast<size_t>(kConsumerWGs) * kb_max * 128 * 16 +
                       static_cast<size_t>(kConsumerWGs) * T * pool_ld * 4 + static_cast<size_t>(n_aff) * 4 +
                       2 * kMaxStages * 8;
-  const cudaError_t attr = cudaFuncSetAttribute(samlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                static_cast<int>(smem));
+  const cudaError_t attr = cudaFuncSetAttribute(bf16 ? samlp_kernel<true> : samlp_kernel<false>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int split_blocks = static_cast<int>((off + 255) / 256 < 1024 ? (off + 255) / 256 : 1024);
-  samlp_split_weights<<<split_blocks, 256, 0, s>>>(split, wsplit);
+  if (bf16) {
+    samlp_round_weights<<<split_blocks, 256, 0, s>>>(split, static_cast<__nv_bfloat16*>(wsplit));
+  } else {
+    samlp_split_weights<<<split_blocks, 256, 0, s>>>(split, static_cast<float*>(wsplit));
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int items_per_row = S <= kRows ? (M + T - 1) / T : M;
   const int items = B * items_per_row;
-  samlp_kernel<<<grid, kThreads, smem, s>>>(h_all, idx, sh0, s0, wsplit, chain, N, M, S, T, R, items_per_row,
-                                           items, ks, stages, stage_bytes, kb_max, pool_ld, out);
+  const uint8_t* w = static_cast<const uint8_t*>(wsplit);
+  if (bf16) {
+    samlp_kernel<true><<<grid, kThreads, smem, s>>>(h_all, idx, sh0, s0, w, chain, N, M, S, T, R, items_per_row,
+                                                    items, ks, stages, stage_bytes, kb_max, pool_ld, out);
+  } else {
+    samlp_kernel<false><<<grid, kThreads, smem, s>>>(h_all, idx, sh0, s0, w, chain, N, M, S, T, R, items_per_row,
+                                                     items, ks, stages, stage_bytes, kb_max, pool_ld, out);
+  }
   return cudaGetLastError();
 }
 

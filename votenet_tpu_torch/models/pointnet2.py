@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from votenet_tpu_torch import ops
+from votenet_tpu_torch.ops.dispatch import samlp_precision
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: the weight of the old running value
@@ -217,8 +218,10 @@ class PointNetSAModule(nn.Module):
     ``samlp=True`` runs the eval forward's MLP and max-pool as one fused op,
     ``ops.fused_sa_mlp_pool`` (the kernel of ``csrc/samlp.cu`` on a CUDA
     tensor), on eval batch norm folded into per-channel scales and shifts:
-    the JAX module's ``_fused_eval_mlp_pool`` under ``Config.samlp="on"``.
-    Training ignores it, as in the JAX package, and so does an MLP of one
+    the JAX module's ``_fused_eval_mlp_pool`` under ``Config.samlp="on"``,
+    its matmul operands in ``ops.dispatch.samlp_precision()`` ("f32" or
+    "bf16"), read at every forward as the JAX module reads it. Training
+    ignores it, as in the JAX package, and so does an MLP of one
     layer (the fused chain starts at a second layer) or of another dtype than
     f32 (the JAX gate, ``pointnet2.py:304-313``).
 
@@ -302,7 +305,9 @@ class PointNetSAModule(nn.Module):
         the fold of ``votenet_tpu/models/pointnet2.py:325-347``: dense0 over
         the N unique points (``h_all``), its centre correction and bias and
         bn0 in the shift ``sh0``, each later layer's bias inside its batch
-        norm's shift. Returns the pooled (B, npoint, mlp[-1]) features."""
+        norm's shift; the matmuls' operand precision is
+        ``samlp_precision()``, read at every call (JAX's ``:349``). Returns
+        the pooled (B, npoint, mlp[-1]) features."""
         mlp = self.mlp
 
         def bn_fold(i):
@@ -320,7 +325,7 @@ class PointNetSAModule(nn.Module):
             dense = getattr(mlp, f"dense{i}")
             si, ti = bn_fold(i)
             layers.append((dense.weight.t(), si, dense.bias * si + ti))
-        return ops.fused_sa_mlp_pool(h_all, idx, sh0, s0, layers)
+        return ops.fused_sa_mlp_pool(h_all, idx, sh0, s0, layers, samlp_precision())
 
 
 class PointNetFPModule(nn.Module):

@@ -4,19 +4,28 @@ FPS, the ball query, the group_point backward (``scatter_add``) and the
 fused eval SA-layer MLP + max-pool (``fused_sa_mlp_pool``) run a
 hand-written CUDA kernel for a CUDA tensor and their plain PyTorch version
 for a CPU tensor; the choice follows the tensor's device alone
-(``ops.common.kernel_route``).
+(``ops.common.kernel_route``). So do two variants no model path calls, the
+ports of the JAX package's benchmark prototypes: the ball query that also
+returns the grouped coordinates (``query_ball_point_emit_xyz``) and FPS
+with an 8-byte candidate exchange (``fps_rowwise_noscalar``).
 """
 
 from votenet_tpu_torch.ops.common import pairwise_sqdist
-from votenet_tpu_torch.ops.grouping import finalize_first_k, group_point, query_ball_point, scatter_add
+from votenet_tpu_torch.ops.grouping import (
+    finalize_first_k,
+    group_point,
+    query_ball_point,
+    query_ball_point_emit_xyz,
+    scatter_add,
+)
 from votenet_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from votenet_tpu_torch.ops.iou3d import box3d_iou_matrix
 from votenet_tpu_torch.ops.nms3d import nms3d
 from votenet_tpu_torch.ops.samlp import fused_sa_mlp_pool
-from votenet_tpu_torch.ops.sampling import farthest_point_sample, gather_point
+from votenet_tpu_torch.ops.sampling import farthest_point_sample, fps_rowwise_noscalar, gather_point
 
 __all__ = [
-    "pairwise_sqdist", "farthest_point_sample", "gather_point",
-    "query_ball_point", "finalize_first_k", "group_point", "scatter_add",
+    "pairwise_sqdist", "farthest_point_sample", "fps_rowwise_noscalar", "gather_point",
+    "query_ball_point", "query_ball_point_emit_xyz", "finalize_first_k", "group_point", "scatter_add",
     "three_nn", "three_interpolate", "box3d_iou_matrix", "nms3d", "fused_sa_mlp_pool",
 ]

@@ -95,12 +95,12 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.votenet_fps.argtypes = [ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+            lib.votenet_fps.argtypes = [ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
             lib.votenet_fps.restype = i32
             lib.votenet_fps_max_clusters.argtypes = [i32, i32]
             lib.votenet_fps_max_clusters.restype = i32
             lib.votenet_ball_query.argtypes = [
-                ptr, ptr, i32, i32, i32, f32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr
+                ptr, ptr, i32, i32, i32, f32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr
             ]
             lib.votenet_ball_query.restype = i32
             lib.votenet_scatter_add.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
@@ -108,7 +108,7 @@ def library() -> ctypes.CDLL:
             ptrs, ints = ctypes.POINTER(ptr), ctypes.POINTER(i32)
             lib.votenet_samlp.argtypes = [
                 ptr, ptr, ptr, ptr, ptrs, ptrs, ptrs, ints, ints, ints,
-                i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+                i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
             ]
             lib.votenet_samlp.restype = i32
             lib.votenet_error_string.argtypes = [i32]

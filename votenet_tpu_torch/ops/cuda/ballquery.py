@@ -21,6 +21,12 @@ hit, an empty ball is all 0; cnt is the hit count saturated at ``nsample``.
 as the JAX XLA twin does (``grouping.py:194``). The JAX Pallas kernel
 rounds the double square instead (``ballquery.py:217``), one ulp lower at
 radii 0.2, 0.4 and 0.8; the port follows the twin, everywhere.
+
+The emit variant (:func:`query_ball_point_emit_xyz_cuda`, after the prototype
+``benchmarks/bq_emit_xyz_proto.py:44 _bq_emit_kernel``) also returns the
+grouped coordinates gxyz (B, M, nsample, 3) f32, bit-equal to
+``group_point(xyz1, idx)``: the kernel copies them from its point tiles as
+it appends the hits, or the merge pass copies them by index.
 """
 
 from __future__ import annotations
@@ -105,6 +111,40 @@ def ballquery_route(B: int, N: int, M: int, sms: int, segments: int | None = Non
     return -(-N // seg_pts), seg_pts
 
 
+def _launch(name: str, radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
+            segments: int | None, emit: bool):
+    """Check the arguments and launch ``votenet_ball_query``: (idx, cnt),
+    and with ``emit`` the grouped coordinates after them."""
+    require_cuda(name, xyz1, 3, 3)
+    require_cuda(name, xyz2, 3, 3)
+    B, N, _ = xyz1.shape
+    M = xyz2.shape[1]
+    if xyz2.shape[0] != B or xyz2.device != xyz1.device:
+        raise ValueError(f"{name}: points and queries must share batch and device")
+    if nsample < 1 or B < 1 or N < 1 or M < 1:
+        raise ValueError(f"{name}: need nsample, B, N, M >= 1, got {nsample}, {B}, {N}, {M}")
+    if segments is not None and segments < 1:
+        raise ValueError(f"{name}: segments must be >= 1, got {segments}")
+    lib = library()
+    nseg, seg_pts = ballquery_route(B, N, M, sm_count(xyz1.device.index), segments)
+    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz1.device)
+    cnt = torch.empty((B, M), dtype=torch.int32, device=xyz1.device)
+    gxyz = torch.empty((B, M, nsample, 3), dtype=torch.float32, device=xyz1.device) if emit else None
+    seg_idx = seg_cnt = None
+    if nseg > 1:
+        seg_idx = torch.empty((B, M, nseg, nsample), dtype=torch.int32, device=xyz1.device)
+        seg_cnt = torch.empty((B, M, nseg), dtype=torch.int32, device=xyz1.device)
+    with torch.cuda.device(xyz1.device):
+        err = lib.votenet_ball_query(
+            xyz1.data_ptr(), xyz2.data_ptr(), B, N, M, radius_sq(radius), nsample, nseg, seg_pts,
+            None if seg_idx is None else seg_idx.data_ptr(), None if seg_cnt is None else seg_cnt.data_ptr(),
+            idx.data_ptr(), cnt.data_ptr(), None if gxyz is None else gxyz.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(err, name)
+    return (idx, cnt, gxyz) if emit else (idx, cnt)
+
+
 def query_ball_point_cuda(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
                           segments: int | None = None):
     """Launch the ball-query kernel on contiguous f32 CUDA tensors: points
@@ -115,33 +155,41 @@ def query_ball_point_cuda(radius: float, nsample: int, xyz1: torch.Tensor, xyz2:
     device; it never computes the plain version. Adds one to
     ``query_ball_point_cuda.launches`` per call (one or, split, two kernels).
     """
-    require_cuda("query_ball_point_cuda", xyz1, 3, 3)
-    require_cuda("query_ball_point_cuda", xyz2, 3, 3)
-    B, N, _ = xyz1.shape
-    M = xyz2.shape[1]
-    if xyz2.shape[0] != B or xyz2.device != xyz1.device:
-        raise ValueError("query_ball_point_cuda: points and queries must share batch and device")
-    if nsample < 1 or B < 1 or N < 1 or M < 1:
-        raise ValueError(f"query_ball_point_cuda: need nsample, B, N, M >= 1, got {nsample}, {B}, {N}, {M}")
-    if segments is not None and segments < 1:
-        raise ValueError(f"query_ball_point_cuda: segments must be >= 1, got {segments}")
-    lib = library()
-    nseg, seg_pts = ballquery_route(B, N, M, sm_count(xyz1.device.index), segments)
-    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz1.device)
-    cnt = torch.empty((B, M), dtype=torch.int32, device=xyz1.device)
-    seg_idx = seg_cnt = None
-    if nseg > 1:
-        seg_idx = torch.empty((B, M, nseg, nsample), dtype=torch.int32, device=xyz1.device)
-        seg_cnt = torch.empty((B, M, nseg), dtype=torch.int32, device=xyz1.device)
-    with torch.cuda.device(xyz1.device):
-        err = lib.votenet_ball_query(
-            xyz1.data_ptr(), xyz2.data_ptr(), B, N, M, radius_sq(radius), nsample, nseg, seg_pts,
-            None if seg_idx is None else seg_idx.data_ptr(), None if seg_cnt is None else seg_cnt.data_ptr(),
-            idx.data_ptr(), cnt.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch(err, "ball_query")
+    out = _launch("query_ball_point_cuda", radius, nsample, xyz1, xyz2, segments, emit=False)
     query_ball_point_cuda.launches += 1
-    return idx, cnt
+    return out
 
 
 query_ball_point_cuda.launches = 0
+
+
+def query_ball_point_emit_xyz_plain(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """Plain version of the emit variant: :func:`query_ball_point_plain`,
+    then the gather of the grouped coordinates -> idx (B, M, nsample) int32,
+    cnt (B, M) int32, gxyz (B, M, nsample, 3) f32."""
+    xyz1 = xyz1.float()
+    idx, cnt = query_ball_point_plain(radius, nsample, xyz1, xyz2)
+    B, N, _ = xyz1.shape
+    flat = (idx.long() + (torch.arange(B, device=idx.device) * N)[:, None, None]).reshape(-1)
+    gxyz = xyz1.reshape(B * N, 3).index_select(0, flat).reshape(idx.shape + (3,))
+    return idx, cnt, gxyz
+
+
+def query_ball_point_emit_xyz_cuda(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                                   segments: int | None = None):
+    """Launch the ball-query kernel's emit variant on contiguous f32 CUDA
+    tensors: points (B, N, 3), queries (B, M, 3) -> idx (B, M, nsample)
+    int32, cnt (B, M) int32 and gxyz (B, M, nsample, 3) f32, bit-equal to
+    :func:`query_ball_point_cuda` and ``group_point(xyz1, idx)``.
+
+    ``segments`` forces the route, as for :func:`query_ball_point_cuda`.
+    Raises for a tensor that is not on a CUDA device; it never computes the
+    plain version. Adds one to ``query_ball_point_emit_xyz_cuda.launches``
+    per call.
+    """
+    out = _launch("query_ball_point_emit_xyz_cuda", radius, nsample, xyz1, xyz2, segments, emit=True)
+    query_ball_point_emit_xyz_cuda.launches += 1
+    return out
+
+
+query_ball_point_emit_xyz_cuda.launches = 0

@@ -14,6 +14,12 @@ Semantics of both versions (``votenet_tpu/ops/sampling.py:76-101``
 ``farthest_point_sample_xla``): slot 0 is index 0; each step picks the argmax
 of the running minimum squared distance (initialised to 1e38) with the lowest
 index on ties; d2 is ``(dx*dx + dy*dy) + dz*dz`` in f32, never fused.
+
+The noscalar variant (:func:`fps_rowwise_noscalar_cuda`, after the prototype
+``benchmarks/fps_noscalar_proto.py:47 _fps_rowwise_noscalar_kernel``) gives
+the same indices: its candidates carry (value, index) only, and the pick's
+coordinates come from masked sums in the warp that owns it, sent to every
+CTA in a second exchange a step.
 """
 
 from __future__ import annotations
@@ -104,6 +110,32 @@ def fps_route(xyz: torch.Tensor, cluster: int | None = None) -> tuple[int, int]:
     return cs, fps_points_per_thread(N, cs)
 
 
+def _launch(name: str, npoint: int, xyz: torch.Tensor, cluster: int | None, noscalar: bool) -> torch.Tensor:
+    """Check the arguments and launch ``votenet_fps`` on the route
+    :func:`fps_route` gives."""
+    require_cuda(name, xyz, 3, 3)
+    B, N, _ = xyz.shape
+    if npoint < 1 or B < 1 or N < 1:
+        raise ValueError(f"{name}: need npoint, B, N >= 1, got {npoint}, {B}, {N}")
+    if cluster is not None and cluster not in FPS_CLUSTER_SIZES:
+        raise ValueError(f"{name}: cluster must be one of {FPS_CLUSTER_SIZES}, got {cluster}")
+    lib = library()
+    with torch.cuda.device(xyz.device):
+        cs, ppt = fps_route(xyz, cluster)
+        if noscalar and ppt == 0:
+            raise ValueError(f"{name}: keeps its points in registers, at most "
+                             f"{FPS_THREADS * FPS_POINTS_PER_THREAD[-1] * cs} a row at {cs} CTAs; got N={N}")
+        out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+        scratch = torch.empty((B, N), dtype=torch.float32, device=xyz.device) if ppt == 0 else None
+        err = lib.votenet_fps(
+            xyz.data_ptr(), B, N, npoint, cs, ppt, int(noscalar), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(err, name)
+    return out
+
+
 def farthest_point_sample_cuda(npoint: int, xyz: torch.Tensor, cluster: int | None = None) -> torch.Tensor:
     """Launch the FPS kernel: contiguous (B, N, 3) f32 CUDA -> (B, npoint) int32.
 
@@ -112,25 +144,26 @@ def farthest_point_sample_cuda(npoint: int, xyz: torch.Tensor, cluster: int | No
     not on a CUDA device; it never computes the plain version. Adds one to
     ``farthest_point_sample_cuda.launches`` per launch.
     """
-    require_cuda("farthest_point_sample_cuda", xyz, 3, 3)
-    B, N, _ = xyz.shape
-    if npoint < 1 or B < 1 or N < 1:
-        raise ValueError(f"farthest_point_sample_cuda: need npoint, B, N >= 1, got {npoint}, {B}, {N}")
-    if cluster is not None and cluster not in FPS_CLUSTER_SIZES:
-        raise ValueError(f"farthest_point_sample_cuda: cluster must be one of {FPS_CLUSTER_SIZES}, got {cluster}")
-    lib = library()
-    with torch.cuda.device(xyz.device):
-        cs, ppt = fps_route(xyz, cluster)
-        out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-        scratch = torch.empty((B, N), dtype=torch.float32, device=xyz.device) if ppt == 0 else None
-        err = lib.votenet_fps(
-            xyz.data_ptr(), B, N, npoint, cs, ppt, out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch(err, "fps")
+    out = _launch("farthest_point_sample_cuda", npoint, xyz, cluster, noscalar=False)
     farthest_point_sample_cuda.launches += 1
     return out
 
 
 farthest_point_sample_cuda.launches = 0
+
+
+def fps_rowwise_noscalar_cuda(npoint: int, xyz: torch.Tensor, cluster: int | None = None) -> torch.Tensor:
+    """Launch the FPS kernel's noscalar variant: contiguous (B, N, 3) f32
+    CUDA -> (B, npoint) int32, the indices of
+    :func:`farthest_point_sample_cuda`, on the route it takes (``cluster``
+    forces the CTAs a row is split over). Any B; N up to the register
+    variants' reach (131072 at 16 CTAs), else ValueError. Raises for a
+    tensor that is not on a CUDA device; it never computes the plain
+    version. Adds one to ``fps_rowwise_noscalar_cuda.launches`` per launch.
+    """
+    out = _launch("fps_rowwise_noscalar_cuda", npoint, xyz, cluster, noscalar=True)
+    fps_rowwise_noscalar_cuda.launches += 1
+    return out
+
+
+fps_rowwise_noscalar_cuda.launches = 0

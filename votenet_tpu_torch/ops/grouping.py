@@ -20,11 +20,13 @@ from votenet_tpu_torch.ops.common import kernel_route
 from votenet_tpu_torch.ops.cuda.ballquery import (
     finalize_first_k,
     query_ball_point_cuda,
+    query_ball_point_emit_xyz_cuda,
+    query_ball_point_emit_xyz_plain,
     query_ball_point_plain,
 )
 from votenet_tpu_torch.ops.cuda.scatter import scatter_add_cuda, scatter_add_plain
 
-__all__ = ["query_ball_point", "finalize_first_k", "group_point", "scatter_add"]
+__all__ = ["query_ball_point", "query_ball_point_emit_xyz", "finalize_first_k", "group_point", "scatter_add"]
 
 
 def query_ball_point(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
@@ -40,6 +42,21 @@ def query_ball_point(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torc
     if kernel_route(xyz1, "query_ball_point") == "cuda":
         return query_ball_point_cuda(radius, nsample, xyz1.contiguous(), xyz2.contiguous())
     return query_ball_point_plain(radius, nsample, xyz1, xyz2)
+
+
+def query_ball_point_emit_xyz(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """The ball query that also returns the grouped coordinates (the
+    prototype ``benchmarks/bq_emit_xyz_proto.py:174``): idx (B, M, nsample)
+    int32, cnt (B, M) int32 as :func:`query_ball_point`, and gxyz (B, M,
+    nsample, 3) f32 equal to ``group_point(xyz1, idx)``. A CPU tensor runs
+    the plain version, a CUDA tensor the emit variant of
+    ``csrc/ballquery.cu``; any other device raises. No gradient: the inputs
+    are detached, as the prototype stops them."""
+    xyz1 = xyz1.detach().float()
+    xyz2 = xyz2.detach().float()
+    if kernel_route(xyz1, "query_ball_point_emit_xyz") == "cuda":
+        return query_ball_point_emit_xyz_cuda(radius, nsample, xyz1.contiguous(), xyz2.contiguous())
+    return query_ball_point_emit_xyz_plain(radius, nsample, xyz1, xyz2)
 
 
 def scatter_add(g: torch.Tensor, idx: torch.Tensor, num_rows: int, mode: str = "exact") -> torch.Tensor:

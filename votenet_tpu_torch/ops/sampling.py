@@ -8,6 +8,7 @@ from votenet_tpu_torch.ops.common import kernel_route
 from votenet_tpu_torch.ops.cuda.fps import (
     farthest_point_sample_cuda,
     farthest_point_sample_plain,
+    fps_rowwise_noscalar_cuda,
 )
 
 
@@ -21,6 +22,17 @@ def farthest_point_sample(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
     xyz = xyz.detach().float()
     if kernel_route(xyz, "farthest_point_sample") == "cuda":
         return farthest_point_sample_cuda(npoint, xyz.contiguous())
+    return farthest_point_sample_plain(npoint, xyz)
+
+
+def fps_rowwise_noscalar(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
+    """FPS as :func:`farthest_point_sample`, through the noscalar variant
+    (the prototype ``benchmarks/fps_noscalar_proto.py:97``): the same
+    indices. A CPU tensor runs the plain version, a CUDA tensor the variant
+    of ``csrc/fps.cu``; any other device raises. No gradient."""
+    xyz = xyz.detach().float()
+    if kernel_route(xyz, "fps_rowwise_noscalar") == "cuda":
+        return fps_rowwise_noscalar_cuda(npoint, xyz.contiguous())
     return farthest_point_sample_plain(npoint, xyz)
 
 
