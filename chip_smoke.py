@@ -4,14 +4,14 @@ paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --profile  # also: torch.profiler over 3 training steps and one eval pass, each mode
-    python3 chip_smoke.py --kernel-times  # phases 1-3, 9 and 16-18's kernels alone (no final line)
+    python3 chip_smoke.py --kernel-times  # phases 1-3, 9, 16-18, 23 and 22's kernels alone (no final line)
     python3 chip_smoke.py --multi-device  # phases 1-2 and 19-21 alone (no final line)
 
 ``--kernel-times`` also runs from a copy of this file placed at the root of
 another checkout of the port (an earlier commit's archive), so that both
 commits' kernels are timed by the same code in one call: phase 3 then skips
 the ball query's route rows where that checkout has one route, and phases
-16-18 where it lacks the variant.
+16-18, 22 and 23 where it lacks the kernel.
 
 Phases, each checked; any failure exits non-zero without the final line:
 
@@ -154,6 +154,38 @@ Phases, each checked; any failure exits non-zero without the final line:
    train-mode forward of the whole model with sa1 sharded, its end points
    within REL_TOL of scale of the single-device forward's (FPS 4 launches:
    sa1's is the loop; the ball query 5).
+22. NMS: the greedy kernel (``csrc/nms3d.cu``) on the decoded boxes of
+   phase 4's seed-0 model and of phase 10's trained checkpoint, B=1 and 8:
+   its keep mask equal to the plain loop's on the card and to the CPU loop's
+   on the card's IoU, and on the CPU's IoU to the CPU's ``ops.nms3d`` (the
+   IoU pairs the two devices put on either side of the threshold counted);
+   ``ops.nms3d`` on the card under the sync debug mode "error"; device us of
+   the kernel and the loop. Then decode + NMS apart at B=1 and 8: decode and
+   the IoU matrix (device ms), ``predict_boxes`` through either route, the
+   packed fetch and the host decode (host ms); phase 10's eval pass (samlp
+   on) and ``detect()`` by route, in turns. Serving (phase 4) and eval
+   (phase 10) launch the kernel once a forward.
+23. The ball query's fast_bf16 variant (``bq_precision="fast_bf16"``: the
+   TPU semantics of the JAX package's matmul-expansion hit test) at the five
+   main-path shapes, B=1 and 8, through both routes: bit-equal to its plain
+   version on the card and, at B=1, on the CPU; the slots and counts that
+   differ from the exact query; device us beside the exact kernel's. Then
+   one B=8 serving forward, phase 10's eval (samlp off and on) and
+   ``run_eval --bq_precision=fast_bf16`` under the mode: 5 launches of the
+   variant a forward, none of the exact kernel.
+24. remat: one full-width B=8 step with and without remat from the same
+   weights under deterministic algorithms: losses, gradients and running
+   statistics bit-equal; a remat step launches FPS and the ball query 9
+   times (sa1-sa4 again in the backward); both steps' ms in turns; peak
+   device memory of both at B=8, 32 and 64 (where the plain step runs out
+   of memory, remat's alone); then phase 11 with ``--remat=true
+   --bq_precision=fast_bf16``.
+25. The reference API's other paths, once each on the card against the
+   CPU: ``PointNetSAModule``'s poolings, ``group_all``, ``knn``,
+   ``use_xyz=False``, ``use_bn=False``, a layer without features, and
+   ``PointNetSAModuleMSG``, in eval and train mode (indices equal, floats
+   and statistics within REL_TOL of scale); ``knn_point``, ``select_top_k``,
+   ``query_ball_point_topk`` and ``prob_sample`` bit-equal.
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
@@ -162,7 +194,12 @@ of a forward (FPS, ball query, samlp) or of a training step (scatter);
 ``launches`` is the training path's count, ``launches_fit`` phase 11's
 (phase 15's for the fast variant), ``launches_paths`` phases 14-16's; the
 variants' ``launches`` are their phase's (16's eval, 17's and 18's checks)
-and ``production_ms`` the production kernel's sum beside them.
+and ``production_ms`` the production kernel's sum beside them. The port's
+own kernels follow: ``nms3d`` (``launches`` phase 4's serving path, 6
+forwards; ``ms`` the greedy of one B=8 forward of the trained checkpoint,
+``plain_ms`` the plain loop's on the card) and ``ballquery_fast_bf16``
+(``launches`` phase 23's serving forward; ``production_ms`` the exact
+kernel's).
 Kernel times are device times:
 ``cuda_ms`` queues its timed calls behind a sleep kernel, so the wrappers'
 host time between launches does not count (a call whose kernel is shorter
@@ -182,6 +219,10 @@ outside the tensor cores). samlp: its matmuls run on the tensor cores in
 multiply-add plus 3 per element of each affine + ReLU and 1 per pooled
 element at 67 TFLOP/s; its bf16 variant 2 per multiply-add at 989 TFLOP/s
 (bf16). The emit variant: the ball query's, plus 12 bytes written a slot.
+The fast_bf16 ball query: the exact one's (9 operations a test). The NMS
+greedy: the IoU rows of the run's candidates read (a non-candidate's row
+is not needed), 4 + 1 bytes of order and candidate in and 1 of keep out a
+box; one threshold test an IoU read.
 """
 
 from __future__ import annotations
@@ -456,26 +497,25 @@ def phase_serve(cfg, scenes, predictor, label="phase 4"):
     """3 batch requests at B=8 and 3 detect() calls at B=1, counting launches."""
     import torch
 
-    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda
-    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda
-
     batch = np.stack([s["points"] for s in scenes[:8]])
     P, NC = cfg.proposal_num, cfg.num_class
     predictor(batch)  # warm-up: cuBLAS handles, allocator
     predictor.detect(scenes[0]["points"])
     torch.cuda.synchronize()
+    counters = {k: c for k, c in eval_counters().items() if k in ("fps", "ballquery", "ballquery_fast_bf16", "nms")}
+    bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
+    per_forward = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "nms": 1} | {bq: 5}
 
     def counts():
-        return farthest_point_sample_cuda.launches, query_ball_point_cuda.launches
+        return {k: c.launches for k, c in counters.items()}
 
     def check_five(before):
-        after = counts()
-        if (after[0] - before[0], after[1] - before[1]) != (5, 5):
-            raise AssertionError(f"a forward launched (fps, ballquery) {after[0] - before[0]}, "
-                                 f"{after[1] - before[1]} times, not 5 each")
+        got = {k: v - before[k] for k, v in counts().items()}
+        if got != per_forward:
+            raise AssertionError(f"a forward launched {got}, not {per_forward}")
 
-    farthest_point_sample_cuda.launches = 0
-    query_ball_point_cuda.launches = 0
+    for c in counters.values():
+        c.launches = 0
     batch_s, single_s = [], []
     for _ in range(3):
         before = counts()
@@ -501,8 +541,8 @@ def phase_serve(cfg, scenes, predictor, label="phase 4"):
         for name, corners, score in dets:
             if corners.shape != (8, 3) or not np.isfinite(corners).all() or not np.isfinite(score):
                 raise AssertionError(f"bad detection {name} {corners.shape} {score}")
-    launches = dict(zip(("fps", "ballquery"), counts()))
-    print(f"{label}: served 3 x B=8 and 3 x B=1: launches {launches} over 6 forwards, 5 + 5 each")
+    launches = counts()
+    print(f"{label}: served 3 x B=8 and 3 x B=1: launches {launches} over 6 forwards, {per_forward} each")
     print(f"  B=8 request seconds {batch_s}; scenes/s {[8 / s for s in batch_s]}")
     print(f"  B=1 detect() seconds {single_s}; detections {n_kept}")
     return launches
@@ -638,19 +678,24 @@ def train_counters():
     from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda
     from votenet_tpu_torch.ops.cuda.scatter import scatter_add_cuda
 
-    return {"fps": farthest_point_sample_cuda, "ballquery": query_ball_point_cuda, "scatter": scatter_add_cuda,
+    return {"fps": farthest_point_sample_cuda, "ballquery": query_ball_point_cuda,
+            "ballquery_fast_bf16": query_ball_point_cuda.fast_bf16, "scatter": scatter_add_cuda,
             "scatter_fast_bf16": scatter_add_cuda.fast_bf16}
 
 
 def step_launches(cfg) -> dict:
     """The kernel launches of one full-width training step under ``cfg``:
-    FPS and the ball query 5 each; 4 scatters (sa2-sa4, proposal), each in
-    the Config's mode where its cotangent is f32, and exact where it is bf16
-    (mixed precision's sa2-sa4 feature gathers)."""
+    FPS and the ball query 5 each (9 under remat: sa1-sa4 run again in the
+    backward), the ball query on the Config's variant; 4 scatters (sa2-sa4,
+    proposal), each in the Config's mode where its cotangent is f32, and
+    exact where it is bf16 (mixed precision's sa2-sa4 feature gathers)."""
     mixed = cfg.mixed_precision and cfg.compute_dtype == "float32"
     fast = cfg.scatter_precision == "fast_bf16"
     n_f32 = 1 if mixed else 4
-    return {"fps": 5, "ballquery": 5, "scatter": 4 - n_f32 * fast, "scatter_fast_bf16": n_f32 * fast}
+    n_bq = 9 if cfg.remat else 5
+    bq_fast = cfg.bq_precision == "fast_bf16"
+    return {"fps": n_bq, "ballquery": 0 if bq_fast else n_bq, "ballquery_fast_bf16": n_bq if bq_fast else 0,
+            "scatter": 4 - n_f32 * fast, "scatter_fast_bf16": n_f32 * fast}
 
 
 def phase_train(cfg, scenes, profile=False, step_ms=None, label="phase 7"):
@@ -876,10 +921,11 @@ def phase_samlp(cfg, scenes, state_dict, report, f32_bound):
 
 
 def eval_counters():
+    from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
     from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda
 
     return {**{k: v for k, v in train_counters().items() if not k.startswith("scatter")},
-            "samlp": fused_sa_mlp_pool_cuda, "samlp_bf16": fused_sa_mlp_pool_cuda.bf16}
+            "samlp": fused_sa_mlp_pool_cuda, "samlp_bf16": fused_sa_mlp_pool_cuda.bf16, "nms": nms3d_greedy_cuda}
 
 
 def same_detections(a, b):
@@ -898,7 +944,8 @@ def same_detections(a, b):
 def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, label="phase 10", beside=None,
                samlp_counter="samlp"):
     """Evaluator over 16 scenes on the card, samlp off then on, each forward
-    launching fps 5, ballquery 5 and samlp 0 (off) or ``samlp_per_forward``
+    launching fps 5, the ball query 5 (on the Config's variant), nms 1 and
+    samlp 0 (off) or ``samlp_per_forward``
     (on: the fused kernel runs the f32 SA layers only) on the counter
     ``samlp_counter`` ("samlp_bf16": the bf16-operand variant), 0 on the
     other. Each samlp mode's {iou: mAP} goes into ``maps`` where given, and
@@ -943,7 +990,9 @@ def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, l
         torch.cuda.synchronize()
         seconds = [time.perf_counter() - t0]
         launches = {k: c.launches for k, c in counters.items()}
-        want = {"fps": 5, "ballquery": 5, "samlp": 0, "samlp_bf16": 0}
+        bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
+        want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "samlp": 0, "samlp_bf16": 0, "nms": 1}
+        want[bq] = 5
         want[samlp_counter] = samlp_per_forward if mode == "on" else 0
         for i, d in enumerate(per_forward):
             if d != want:
@@ -970,7 +1019,8 @@ def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, l
             profile_device(lambda: ev.predictions_for_scenes(predict, cache),
                            f"eval, {label.strip()}, samlp={mode}, {EVAL_SCENES} scenes at B=8")
         del model
-    if samlp_per_forward != 5 or samlp_counter != "samlp":  # a bf16 mode: its GPU-vs-CPU check is phase 14's or 16's
+    if samlp_per_forward != 5 or samlp_counter != "samlp" or cfg.bq_precision != "exact":
+        # a bf16 mode: its GPU-vs-CPU check is phase 14's or 16's; fast_bf16's ball query phase 23's
         return finish(checks, "evaluation checks", {mode: r[2] for mode, r in runs.items()})
 
     equal, msg = same_detections(runs["on"][0], runs["off"][0])
@@ -1411,16 +1461,19 @@ def fit_probes():
         evaluator_mod.decode_batch_predictions, ckpt_mod.save_checkpoint = decode, save
 
 
-def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label="phase 11"):
+def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label="phase 11", extra=()):
     """run_train on a generated miniature: 2 epochs with the eval at epoch 2,
-    then a resume that trains epoch 3; exact launch counts."""
+    then a resume that trains epoch 3; exact launch counts. ``extra``:
+    more flags (Config overrides) for both runs."""
     from votenet_tpu_torch import run_train
-    from votenet_tpu_torch.config import default_config, throughput_config, tiny_config
+    from votenet_tpu_torch.config import config_from_args, default_config, throughput_config, tiny_config
     from votenet_tpu_torch.data.mini_fixture import generate_mini_sunrgbd
     from votenet_tpu_torch.utils.checkpoint import all_checkpoint_steps, checkpoint_path, read_flax_msgpack
 
     counters = eval_counters() | {k: train_counters()[k] for k in ("scatter", "scatter_fast_bf16")}
-    per_step = step_launches({"tiny": tiny_config, "throughput": throughput_config, "full": default_config}[preset]())
+    run_cfg = config_from_args(list(extra), base={"tiny": tiny_config, "throughput": throughput_config,
+                                                  "full": default_config}[preset]())
+    per_step = step_launches(run_cfg)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
         root = Path(tmp)
         rng = np.random.RandomState(SEED)
@@ -1431,7 +1484,7 @@ def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label=
         args = [f"--data_root={root / 'mini'}", f"--cache_dir={root / 'cache'}", f"--log_dir={root / 'run'}",
                 f"--preset={preset}", "--batch_size=8", "--eval_every_k_epochs=2", "--samlp=on",
                 f"--device={device}", "--train_idx_range={},{}".format(*MINI_TRAIN_IDS),
-                "--val_idx_range={},{}".format(*MINI_VAL_IDS)]
+                "--val_idx_range={},{}".format(*MINI_VAL_IDS), *extra]
         outs, stats = [], []
         for c in counters.values():
             c.launches = 0
@@ -1455,8 +1508,11 @@ def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label=
         print(f"  {label}: {secs:.2f} s")
         for line in text.splitlines():
             print(f"    {line}")
-    want = {"fps": 5 * steps + 5 * fwd, "ballquery": 5 * steps + 5 * fwd, "scatter": per_step["scatter"] * steps,
-            "scatter_fast_bf16": per_step["scatter_fast_bf16"] * steps, "samlp": 5 * fwd, "samlp_bf16": 0}
+    bq = "ballquery_fast_bf16" if run_cfg.bq_precision == "fast_bf16" else "ballquery"
+    want = {k: per_step[k] * steps for k in ("fps", "ballquery", "ballquery_fast_bf16", "scatter",
+                                             "scatter_fast_bf16")}
+    want = want | {"fps": want["fps"] + 5 * fwd, bq: want[bq] + 5 * fwd, "samlp": 5 * fwd, "samlp_bf16": 0,
+                   "nms": fwd}
     records = stats[0] + stats[1]
     checks = {
         "resumed from epoch 2": "resumed from epoch 2" in outs[1][0],
@@ -1825,9 +1881,10 @@ def phase_two_ranks(cfg, scenes, preset="full", device="cuda"):
         gaps = {k: scale_err(res["sp_forward"][k], v) for k, v in ep.items()}
         checks[f"rank {r} sp forward end points within {REL_TOL} of scale (max gaps "
                f"{ {k: f'{e:.3g}' for k, (e, _) in gaps.items()} })"] = all(e <= tol for e, tol in gaps.values())
-        want_sp = {"fps": 4, "ballquery": 5, "scatter": 0, "scatter_fast_bf16": 0}  # sa1's FPS: a torch loop
+        want_sp = {"fps": 4, "ballquery": 5, "ballquery_fast_bf16": 0, "scatter": 0,
+                   "scatter_fast_bf16": 0}  # sa1's FPS: a torch loop
         checks[f"rank {r} sp forward launches {want_sp}"] = res["sp_forward_launches"] == want_sp
-        want_ops = {"fps": 0, "ballquery": 1, "scatter": 1, "scatter_fast_bf16": 0}
+        want_ops = {"fps": 0, "ballquery": 1, "ballquery_fast_bf16": 0, "scatter": 1, "scatter_fast_bf16": 0}
         checks[f"rank {r} sharded ops launches {want_ops}"] = res["sp_ops_launches"] == want_ops
     print(f"phase 21: sp=2 over gloo at B=2, sa1's shape ({cfg.point_num} -> {npoint} points, r={radius}, "
           f"K={nsample}), each rank a {cfg.point_num // 2}-point slab, against the single-device kernels")
@@ -1836,6 +1893,457 @@ def phase_two_ranks(cfg, scenes, preset="full", device="cuda"):
     finish(checks, "sp=2 against one device", None)
     return {"dp2_gloo_step": ranks[0]["dp_launches"], "sp2_ops": ranks[0]["sp_ops_launches"],
             "sp2_forward": ranks[0]["sp_forward_launches"]}
+
+
+# ---------------------------------------------------------------- phases 22-25
+
+
+def nms_bound(B, N, n_cand):
+    """The greedy's least time: the IoU rows of this run's ``n_cand``
+    candidates read once (a non-candidate suppresses nothing, so its row is
+    not needed), the order (int32), candidates and keep mask (a byte each)
+    once; one threshold test an IoU read."""
+    return bound_ms(float(n_cand * N), n_cand * N * 4.0 + B * N * 6.0)
+
+
+@contextlib.contextmanager
+def decode_nms_route(route):
+    """Within the block decode + NMS take ``route``: "kernel" (as shipped),
+    "loop" (``ops.nms3d`` runs the plain loop on a CUDA tensor, the route
+    before the kernel) or "copy" (the kernel, with the decode copying the
+    class mean sizes from the host at every call, as before): the routes
+    timed side by side in one process."""
+    import importlib
+
+    import torch
+
+    from votenet_tpu_torch.data.geometry import CLASS_MEAN_SIZE
+    from votenet_tpu_torch.ops.nms3d import nms3d_jacobi_plain
+
+    nms_mod = importlib.import_module("votenet_tpu_torch.ops.nms3d")
+    dec_mod = importlib.import_module("votenet_tpu_torch.models.decode")
+    saved = nms_mod.nms3d_greedy_cuda, dec_mod.class_mean_size
+    if route == "loop":
+        nms_mod.nms3d_greedy_cuda = nms3d_jacobi_plain
+    elif route == "copy":
+        dec_mod.class_mean_size = lambda device: torch.as_tensor(CLASS_MEAN_SIZE, device=device)
+    try:
+        yield
+    finally:
+        nms_mod.nms3d_greedy_cuda, dec_mod.class_mean_size = saved
+
+
+def host_ms(fn, reps):
+    """Host-clock ms of ``fn()`` through a device sync, each of ``reps``
+    calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_nms(cfg, scenes, state_dict, report, kernels_only=False):
+    """Phase 22: the NMS greedy kernel against the plain loop on the card and
+    the CPU's keep mask, on the decoded boxes of phase 4's seed-0 model and
+    of phase 10's trained checkpoint, B=1 and 8; no host sync inside
+    ``ops.nms3d`` on the card; then decode + NMS apart (decode, IoU, the
+    greedy each route, the packed fetch, the host decode), phase 10's eval
+    pass and ``detect()`` by route."""
+    import torch
+
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.data.synthetic import synthetic_gt_all, synthetic_scenes
+    from votenet_tpu_torch.eval import DeviceSceneCache, Evaluator, make_packed_predict_fn
+    from votenet_tpu_torch.eval.evaluator import decode_batch_predictions
+    from votenet_tpu_torch.models import VoteNet, predict_boxes
+    from votenet_tpu_torch.models.decode import decode_proposals
+    from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
+    from votenet_tpu_torch.ops.nms3d import nms3d_jacobi_plain
+    from votenet_tpu_torch.predictor import VoteNetPredictor
+
+    print("phase 22: NMS greedy kernel vs the plain loop on the card and the CPU's mask (CUDA events)")
+    print(TABLE_HEAD)
+    trained = VoteNet(cfg)
+    trained.load_state_dict(state_dict)
+    trained.cuda()
+    seeded = VoteNetPredictor(cfg, device="cuda", batch_size=8, generator=torch.Generator().manual_seed(SEED))
+    calibrate_head(seeded, scenes)
+    eval_scenes = synthetic_scenes(SEED, cfg, EVAL_SCENES)
+    checks = {}
+    thr = cfg.nms_iou
+    for name, model, sc in (("phase-4", seeded.model, scenes), ("phase-10", trained, eval_scenes)):
+        for B in (1, 8):
+            pts = torch.from_numpy(np.stack([s["points"] for s in sc[:B]])).cuda()
+            with torch.inference_mode():
+                d = decode_proposals(model(pts), cfg)
+                corners, scores, obj = d["bboxes"], d["nms_scores"], d["objectness"]
+                cand = obj[..., 1] > obj[..., 0]
+                iou = ops.box3d_iou_matrix(corners, corners)
+                order = torch.argsort(scores, dim=1, descending=True, stable=True)
+                got = nms3d_greedy_cuda(iou, order, cand, thr)
+                loop = nms3d_jacobi_plain(iou, order, cand, thr)
+                loop_cpu = nms3d_jacobi_plain(iou.cpu(), order.cpu(), cand.cpu(), thr)
+                # the CPU's own route: its IoU floats may differ from the card's by ulps
+                cpu = ops.nms3d(corners.cpu(), scores.cpu(), obj.cpu(), thr)
+                iou_cpu = ops.box3d_iou_matrix(corners.cpu(), corners.cpu())
+                on_cpu_iou = nms3d_greedy_cuda(iou_cpu.cuda(), order, cand, thr)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")  # any sync inside ops.nms3d raises
+                try:
+                    whole = ops.nms3d(corners, scores, obj, thr)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                equal = torch.equal(got, loop) and torch.equal(got.cpu(), loop_cpu) and torch.equal(whole, got)
+                k_ms = cuda_ms(lambda: nms3d_greedy_cuda(iou, order, cand, thr), 50)
+                p_ms = cuda_ms(lambda: nms3d_jacobi_plain(iou, order, cand, thr), 3)
+            n_cand, n_kept = int(cand.sum()), int(got.sum())
+            crossed = int(((iou.cpu() > thr) != (iou_cpu > thr)).sum())
+            checks[f"{name} B={B}: the kernel's keep == the loop's on the card == the CPU loop's on the card's "
+                   f"IoU == ops.nms3d on the card, {n_cand} candidates, {n_kept} kept"] = equal and 0 < n_kept <= n_cand
+            checks[f"{name} B={B}: the kernel on the CPU's IoU == the CPU's ops.nms3d (IoU pairs on either side "
+                   f"of the threshold between the devices: {crossed}; the CPU's mask differs from the card's in "
+                   f"{int((cpu != got.cpu()).sum())} boxes)"] = torch.equal(on_cpu_iou.cpu(), cpu)
+            report("nms3d", name, B, f"N={scores.shape[1]} cand={n_cand} kept={n_kept}", equal, 0, k_ms, p_ms,
+                   nms_bound(B, scores.shape[1], n_cand), total=name == "phase-10")
+    checks["ops.nms3d on the card: no host sync (sync debug mode 'error')"] = True
+    if kernels_only:
+        return finish(checks, "NMS kernel checks", None)
+
+    print("  decode + NMS apart, trained checkpoint (device ms by CUDA events; host ms through a sync)")
+    for B in (1, 8):
+        pts = torch.from_numpy(np.stack([s["points"] for s in eval_scenes[:B]])).cuda()
+        with torch.inference_mode():
+            ep = trained(pts)
+            d = decode_proposals(ep, cfg)
+            dec_ms = cuda_ms(lambda: decode_proposals(ep, cfg), 10)
+            iou_ms = cuda_ms(lambda: ops.box3d_iou_matrix(d["bboxes"], d["bboxes"]), 10)
+            both = {}
+            for route in ("kernel", "loop"):
+                with decode_nms_route(route):
+                    both[route] = host_ms(lambda: predict_boxes(ep, cfg), 10)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")  # decode + NMS enqueue without waiting for the card
+            try:
+                predict_boxes(ep, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            predict = make_packed_predict_fn(trained, cfg)
+            out = predict(pts)
+            torch.cuda.synchronize()
+            fetch, host = [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                cnt = out["cnt"].cpu().numpy()
+                rows = out["packed"][:, : max(int(cnt.max()), 1)].cpu().numpy()
+                fetch.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                decode_batch_predictions(list(range(B)), {"packed": rows, "cnt": cnt}, {})
+                host.append((time.perf_counter() - t0) * 1e3)
+        print(f"  B={B}: decode {dec_ms:.3f} ms, IoU matrix {iou_ms:.3f} ms (device); decode + NMS "
+              f"(predict_boxes, host clock) kernel route median {float(np.median(both['kernel'])):.3f} ms "
+              f"{[round(v, 3) for v in both['kernel']]}, loop route median {float(np.median(both['loop'])):.3f} "
+              f"ms {[round(v, 3) for v in both['loop']]}; packed fetch median {float(np.median(fetch)):.3f} ms, "
+              f"host decode median {float(np.median(host)):.3f} ms")
+    checks["predict_boxes on the card: no host sync (sync debug mode 'error')"] = True
+    # phase 10's eval pass (samlp on), whose host enqueues the next forward
+    # while the card runs this one unless NMS waits for the card
+    gt_all = synthetic_gt_all(eval_scenes)
+    cache = DeviceSceneCache([(int(s["data_idx"]), s["points"]) for s in eval_scenes], 8, "cuda")
+    on = VoteNet(cfg.replace(samlp="on"))
+    on.load_state_dict(state_dict)
+    predict = make_packed_predict_fn(on.cuda(), cfg)
+    ev = Evaluator(cfg, gt_all, batch_size=8)
+    ev.predictions_for_scenes(predict, cache)  # warm-up
+    passes = {}
+    for route in ("kernel", "loop", "loop", "kernel") * 2:
+        with decode_nms_route(route):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev.predictions_for_scenes(predict, cache)
+            torch.cuda.synchronize()
+            passes.setdefault(route, []).append(EVAL_SCENES / (time.perf_counter() - t0))
+    print(f"  eval pass, {EVAL_SCENES} scenes at B=8, samlp on, scenes/s by route in turns: " + "; ".join(
+        f"{r} median {float(np.median(v)):.2f} {[round(x, 2) for x in v]}" for r, v in passes.items()))
+    predictor = VoteNetPredictor(cfg, state_dict, device="cuda", batch_size=1)
+    detect = {}
+    for route in ("kernel", "loop", "copy", "copy", "loop", "kernel"):
+        with decode_nms_route(route):
+            predictor.detect(eval_scenes[0]["points"])  # warm-up
+            for i in range(5):
+                t0 = time.perf_counter()
+                predictor.detect(eval_scenes[i]["points"])
+                detect.setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
+    print("  detect() ms, B=1, trained checkpoint, routes in turns (kernel: as shipped; loop: the plain loop "
+          "on the card; copy: the kernel, the decode copying the mean sizes from the host each call): " + "; ".join(
+              f"{r} median {float(np.median(v)):.3f} {[round(x, 3) for x in v]}" for r, v in detect.items()))
+    return finish(checks, "NMS checks", None)
+
+
+def phase_bq_fast(cfg, scenes, report, production_ms, state_dict=None, f32_maps=None):
+    """Phase 23: the ball query's fast_bf16 variant at the five main-path
+    shapes, B=1 and 8, through both routes: bit-equal to its plain version on
+    the card and, at B=1, on the CPU; slots and counts that differ from the
+    exact query; device us beside the exact kernel's. With ``state_dict``
+    also one B=8 serving forward and phase 10's eval under
+    ``bq_precision="fast_bf16"``, and ``run_eval --bq_precision=fast_bf16``.
+    Returns each path's launches."""
+    import torch
+
+    from votenet_tpu_torch.ops.cuda.ballquery import ballquery_route, query_ball_point_cuda, query_ball_point_plain
+
+    print("phase 23: ball query fast_bf16 variant vs its plain version and the exact kernel (CUDA events, warm L2)")
+    print(TABLE_HEAD)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    checks = {}
+    for B in (1, 8):
+        points = torch.from_numpy(np.stack([s["points"] for s in scenes[:B]])).cuda()
+        _, bq_cases = layer_inputs(points, cfg)
+        for layer, radius, nsample, xyz, q in bq_cases:
+            N, M = xyz.shape[1], q.shape[1]
+            seg = ballquery_route(B, N, M, sm_count)[0]
+            want = query_ball_point_plain(radius, nsample, xyz, q, "fast_bf16")
+            equal = True
+            for segments in (None, 1 if seg > 1 else 4):
+                got = query_ball_point_cuda(radius, nsample, xyz, q, segments=segments, mode="fast_bf16")
+                equal = equal and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            if B == 1:
+                cpu = query_ball_point_plain(radius, nsample, xyz.cpu(), q.cpu(), "fast_bf16")
+                equal = equal and torch.equal(got[0].cpu(), cpu[0]) and torch.equal(got[1].cpu(), cpu[1])
+            exact = query_ball_point_cuda(radius, nsample, xyz, q)
+            k_ms = cuda_ms(lambda: query_ball_point_cuda(radius, nsample, xyz, q, mode="fast_bf16"), 20)
+            e_ms = cuda_ms(lambda: query_ball_point_cuda(radius, nsample, xyz, q), 20)
+            p_ms = cuda_ms(lambda: query_ball_point_plain(radius, nsample, xyz, q, "fast_bf16"), 2)
+            report("ballquery_fast_bf16", layer, B, f"N={N} M={M} r={radius} seg={seg}", equal, 0, k_ms, p_ms,
+                   ballquery_bound(xyz, q, nsample, *want))
+            if B == 8:
+                production_ms["ballquery_fast_bf16"] += e_ms
+            print(f"    both routes{' and the CPU' if B == 1 else ''}: {'bit-equal' if equal else 'DIFFER'}; "
+                  f"vs exact: {int((exact[0] != want[0]).sum())} of {want[0].numel()} slots, "
+                  f"{int((exact[1] != want[1]).sum())} of {want[1].numel()} counts differ; exact kernel "
+                  f"{e_ms * 1e3:.1f} us")
+    if state_dict is None:
+        return None
+    from votenet_tpu_torch import run_eval
+    from votenet_tpu_torch.predictor import VoteNetPredictor
+
+    fcfg = cfg.replace(bq_precision="fast_bf16")
+    counters = eval_counters()
+    predictor = VoteNetPredictor(fcfg, state_dict, device="cuda", batch_size=8)
+    batch = np.stack([s["points"] for s in scenes[:8]])
+    predictor(batch)  # warm-up
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out = {k: v.cpu() for k, v in predictor(batch).items()}
+    paths = {"serve_bq_fast_bf16": {k: c.launches for k, c in counters.items()}}
+    want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 5, "samlp": 0, "samlp_bf16": 0, "nms": 1}
+    checks[f"one B=8 serving forward launches {paths['serve_bq_fast_bf16']} == {want}"] = (
+        paths["serve_bq_fast_bf16"] == want)
+    checks["its outputs finite"] = all(torch.isfinite(out[k]).all() for k in ("bboxes", "class_scores"))
+    del predictor
+    paths.update({f"eval_bq_fast_bf16_samlp_{m}": c for m, c in phase_eval(
+        fcfg, state_dict, label="  phase 23 eval (bq_precision=fast_bf16)", beside=f32_maps).items()})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        shutil.copy(CKPT, Path(tmp) / CKPT.name)
+        for c in counters.values():
+            c.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run_eval.main([f"--log_dir={tmp}", "--synthetic=16", "--batch_size=8", "--samlp=on",
+                                "--bq_precision=fast_bf16"])
+        paths["run_eval_bq_fast_bf16"] = {k: c.launches for k, c in counters.items()}
+    text = buf.getvalue()
+    print("  run_eval --bq_precision=fast_bf16 --samlp=on --synthetic=16 --batch_size=8 (committed checkpoint):")
+    print("    " + " ".join(line.strip() for line in text.splitlines() if "mAP" in line or "checkpoint" in line))
+    checks[f"run_eval exit {rc}, launches {paths['run_eval_bq_fast_bf16']}"] = (
+        rc == 0 and paths["run_eval_bq_fast_bf16"]["ballquery_fast_bf16"] == 10
+        and paths["run_eval_bq_fast_bf16"]["ballquery"] == 0 and "epoch 81" in text)
+    return finish(checks, "fast_bf16 ball query checks", paths)
+
+
+def phase_remat(scenes, bare_step_ms, large_batches=(32, 64)):
+    """Phase 24: remat at full width. One B=8 step with and without remat
+    from the same weights under deterministic algorithms: losses, gradients
+    and statistics bit-equal; the remat step's launches (FPS and the ball
+    query 9, sa1-sa4's again in the backward); both steps' ms in turns and
+    their peak device memory at B=8 and each of ``large_batches`` (where the
+    plain step runs out of memory, remat's alone); then run_train with
+    ``--remat=true --bq_precision=fast_bf16``. Returns each path's launches."""
+    import torch
+
+    from votenet_tpu_torch.config import default_config
+    from votenet_tpu_torch.data.dataflow import batch_scenes
+    from votenet_tpu_torch.data.synthetic import synthetic_scenes
+    from votenet_tpu_torch.train import create_train_state, forward_backward, make_train_step
+
+    cfg = default_config()
+    cfgs = {False: cfg, True: cfg.replace(remat=True)}
+    batch = next(batch_scenes(iter(scenes[:8]), 8, cfg.max_gt_boxes))
+    states = {r: create_train_state(c, 512, torch.Generator().manual_seed(SEED), device="cuda")
+              for r, c in cfgs.items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {r: (forward_backward(states[r].model, batch, c), _grads(states[r].model), _stats(states[r].model))
+               for r, c in cfgs.items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (lp, gp, sp_), (lr, gr, sr) = out[False], out[True]
+    checks = {
+        "losses bit-equal": all(torch.equal(a, b) for a, b in zip(lp, lr)),
+        f"{len(gp)} gradient leaves bit-equal": all(torch.equal(gp[n], gr[n]) for n in gp),
+        f"{len(sp_)} running statistics bit-equal (moved once)": all(torch.equal(sp_[n], sr[n]) for n in sp_),
+    }
+    steps = {r: make_train_step(c) for r, c in cfgs.items()}
+    for r in steps:  # warm-up
+        steps[r](states[r], batch)
+    counters = train_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    steps[True](states[True], batch)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    checks[f"one remat step launches {launches} == {step_launches(cfgs[True])}"] = launches == step_launches(cfgs[True])
+    ms = {False: [], True: []}
+    for r in [False, True, True, False] * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps[r](states[r], batch)
+        torch.cuda.synchronize()
+        ms[r].append((time.perf_counter() - t0) * 1e3)
+    peaks = {}
+    big = {B: next(batch_scenes(iter(synthetic_scenes(SEED + 1, cfg, B)), B, cfg.max_gt_boxes))
+           for B in large_batches}
+    big[8] = batch
+    for B, b in sorted(big.items()):
+        for r in (False, True):
+            torch.cuda.synchronize()
+            gc.collect()  # what a failed step's traceback held
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                steps[r](states[r], b)
+            except torch.OutOfMemoryError:
+                if r:
+                    raise
+                peaks[(B, r)] = None  # the plain step does not fit the card
+                for p in states[r].model.parameters():
+                    p.grad = None
+                continue
+            finally:
+                torch.cuda.synchronize()
+            peaks[(B, r)] = (torch.cuda.max_memory_allocated() / 2**30, (time.perf_counter() - t0) * 1e3)
+    print("phase 24: remat, full width, one B=8 step with and without from the same weights (deterministic "
+          "algorithms for the comparison), then both timed in turns")
+    for r in (False, True):
+        print(f"  {'remat' if r else 'plain'} step ms: median {float(np.median(ms[r])):.3f}, "
+              f"all {[round(v, 3) for v in ms[r]]}")
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    for B in sorted(big):
+        (p1, t1_) = peaks[(B, True)]
+        if peaks[(B, False)] is None:
+            print(f"  B={B}: the plain step runs out of the card's {total:.2f} GiB; remat's peak {p1:.3f} GiB, "
+                  f"its step {t1_:.1f} ms")
+            continue
+        (p0, t0_) = peaks[(B, False)]
+        print(f"  B={B}: peak device memory plain {p0:.3f} GiB, remat {p1:.3f} GiB ({p1 / p0:.3f} of plain, "
+              f"{p0 - p1:.3f} GiB saved); that step's ms plain {t0_:.1f}, remat {t1_:.1f}")
+    checks[f"remat's peak below plain's at B={sorted(big)}, where plain fits"] = all(
+        peaks[(B, False)] is None or peaks[(B, True)][0] < peaks[(B, False)][0] for B in big)
+    paths = {"train_remat": launches}
+    paths["fit_remat_bq_fast_bf16"] = phase_fit(
+        bare_step_ms, extra=("--remat=true", "--bq_precision=fast_bf16"),
+        label="  phase 24 (run_train --remat=true --bq_precision=fast_bf16)")
+    return finish(checks, "remat checks", paths)
+
+
+def dead_path_cases():
+    """(name, build(generator) -> module, takes features) of phase 25."""
+    from votenet_tpu_torch.models.pointnet2 import PointNetSAModule, PointNetSAModuleMSG
+
+    def sa(**kw):
+        return lambda g, c: PointNetSAModule(512, 0.4, 32, c, (64, 64, 128), g, samlp=True, **kw)
+
+    return [
+        ("pooling=avg", sa(pooling="avg"), True),
+        ("pooling=weighted_avg", sa(pooling="weighted_avg"), True),
+        ("pooling=max_and_avg", sa(pooling="max_and_avg", mlp2=(128, 64)), True),
+        ("group_all", sa(group_all=True), True),
+        ("knn", sa(knn=True), True),
+        ("use_xyz=False", sa(use_xyz=False), True),
+        ("use_bn=False", sa(use_bn=False, mlp2=(128, 64)), True),
+        ("no features", sa(), False),
+        ("MSG", lambda g, c: PointNetSAModuleMSG(512, (0.2, 0.4), (16, 32), c, ((32, 64), (64, 128)), g), True),
+    ]
+
+
+def phase_dead_paths(scenes):
+    """Phase 25: the reference API's other paths once each on the card
+    against their CPU run: every SA option, the MSG module (eval and train
+    mode, B=2, 2048 points with 64 features), and knn_point, select_top_k,
+    query_ball_point_topk and prob_sample."""
+    import copy
+
+    import torch
+
+    from votenet_tpu_torch import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    xyz = np.stack([s["points"][rng.permutation(len(s["points"]))[:2048]] for s in scenes[:2]])
+    feats = rng.randn(2, 2048, 64).astype(np.float32)
+    cx, cf = torch.from_numpy(xyz), torch.from_numpy(feats)
+    gx, gf = cx.cuda(), cf.cuda()
+    checks = {}
+    print("phase 25: the reference API's other paths, the card against the CPU")
+    for name, build, with_feats in dead_path_cases():
+        cpu = build(torch.Generator().manual_seed(SEED), 64 if with_feats else 0)
+        gpu = copy.deepcopy(cpu).cuda()
+        for train in (False, True):
+            cpu.train(train)
+            gpu.train(train)
+            with torch.no_grad():
+                a = cpu(cx, cf if with_feats else None)
+                b = gpu(gx, gf if with_feats else None)
+            ok, worst = True, 0.0
+            for x, y in zip(a, b):
+                if x.dtype == torch.int32:
+                    ok = ok and torch.equal(x, y.cpu())
+                else:
+                    err, tol = scale_err(y, x)
+                    worst = max(worst, err / tol)
+            for (n1, s1), (_, s2) in zip(cpu.named_buffers(), gpu.named_buffers()):
+                err, tol = scale_err(s2, s1)
+                worst = max(worst, err / tol)
+            checks[f"{name} {'train' if train else 'eval'}: indices equal, floats and statistics within "
+                   f"REL_TOL of scale ({worst:.3g} of it)"] = ok and worst <= 1.0
+    lat = np.stack(np.meshgrid(np.arange(16), np.arange(16), np.arange(8), indexing="ij"), -1).reshape(-1, 3)
+    lx = torch.from_numpy(lat[rng.permutation(len(lat))][None].astype(np.float32) * np.float32(0.25))
+    lq = lx[:, :300] + 0.125
+    dist = torch.from_numpy(rng.randint(0, 9, (2, 64, 500)).astype(np.float32))
+    p = torch.from_numpy(rng.randint(0, 5, (2, 2000)).astype(np.float32))
+    r = torch.from_numpy((rng.uniform(0, 1, (2, 300)) * p.sum(-1, keepdims=True).numpy()).astype(np.float32))
+    op_cases = {
+        "knn_point, tied distances": lambda d: ops.knn_point(16, lx.to(d), lq.to(d)),
+        "select_top_k": lambda d: ops.select_top_k(8, dist.to(d)),
+        "query_ball_point_topk": lambda d: ops.query_ball_point_topk(0.4, 32, cx.to(d), cx[:, :256].to(d)),
+        "prob_sample, integer probabilities": lambda d: (ops.prob_sample(p.to(d), r.to(d)),),
+    }
+    for name, fn in op_cases.items():
+        a, b = fn("cpu"), fn("cuda")
+        checks[f"{name}: bit-equal"] = all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
+    topk = ops.query_ball_point_topk(0.4, 32, gx, gx[:, :256].contiguous())
+    kern = ops.query_ball_point(0.4, 32, gx, gx[:, :256].contiguous())
+    checks["query_ball_point_topk == the ball query kernel"] = all(torch.equal(x, y) for x, y in zip(topk, kern))
+    return finish(checks, "dead-path checks", None)
 
 
 def main() -> int:
@@ -1866,9 +2374,10 @@ def main() -> int:
     scenes = synthetic_scenes(SEED, cfg, 8)
     failed = []
     f32_bound = [0.0]  # samlp's f32 CUDA-core bound over the B=8 shapes
-    variants = ("samlp_bf16", "ballquery_emit_xyz", "fps_noscalar")
+    variants = ("samlp_bf16", "ballquery_emit_xyz", "fps_noscalar", "ballquery_fast_bf16")
     stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0,
-                 "bound_ms": 0.0} for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16") + variants}
+                 "bound_ms": 0.0}
+             for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d") + variants}
     production_ms = dict.fromkeys(variants, 0.0)  # phases 16-18: the production kernels' sums beside
 
     def report(kernel, layer, B, shape, equal, err, k_ms, p_ms, bound, l_ms=None, total=True):
@@ -1918,6 +2427,10 @@ def main() -> int:
             run("ball query emit-xyz", lambda: phase_bq_emit(cfg, scenes, report, production_ms))
         if hasattr(fps_mod, "fps_rowwise_noscalar_cuda"):
             run("fps noscalar", lambda: phase_fps_noscalar(cfg, scenes, report, production_ms))
+        if hasattr(bq_mod.query_ball_point_cuda, "fast_bf16"):
+            run("ball query fast_bf16", lambda: phase_bq_fast(cfg, scenes, report, production_ms))
+        if state_dict is not None and os.path.exists(Path(bq_mod.__file__).with_name("nms3d.py")):
+            run("nms kernel", lambda: phase_nms(cfg, scenes, state_dict, report, kernels_only=True))
         print(json.dumps({"kernel_times": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
                                            for k, v in stats.items() if k != "scatter"},
                           "production_ms": production_ms, "failed": failed}))
@@ -1965,6 +2478,13 @@ def main() -> int:
     # phases 19-21: multi-device training, each path's counts from 0 (phases 20-21: rank 0's)
     paths["dp_world1_nccl_step"] = run("distributed path, one NCCL rank", lambda: phase_dp_world1(cfg, scenes))
     paths.update(run("two ranks on one card", lambda: phase_two_ranks(cfg, scenes)) or {})
+    # phases 22-25: the NMS kernel, the fast_bf16 ball query, remat, the dead paths
+    if state_dict is not None:
+        run("nms kernel", lambda: phase_nms(cfg, scenes, state_dict, report))
+    paths.update(run("ball query fast_bf16", lambda: phase_bq_fast(
+        cfg, scenes, report, production_ms, state_dict=state_dict, f32_maps=f32_maps)) or {})
+    paths.update(run("remat", lambda: phase_remat(scenes, bare_step_ms)) or {})
+    run("dead paths", lambda: phase_dead_paths(scenes))
 
     if failed:
         print(f"chip_smoke: FAILED: {failed}", file=sys.stderr)
@@ -2054,6 +2574,27 @@ def main() -> int:
             "replaces": "benchmarks/fps_noscalar_proto.py:47", "variant": "(value, index) candidates, masked-sum coordinates",
             "launches": noscalar_launches, **measured("fps_noscalar"), "production_ms": production_ms["fps_noscalar"],
             "tolerance": 0, "ms_is": "sum over the 5 main-path shapes at B=8",
+        },
+    ]
+    kernels += [
+        # the port's own kernels, for paths the JAX package runs without a
+        # Pallas kernel: launches on the serving path (phase 4: 6 forwards,
+        # one NMS each) and phase 23's serving forward under the mode
+        {
+            "name": "nms3d", "route": "cuda", "source": "votenet_tpu_torch/csrc/nms3d.cu",
+            "replaces": "votenet_tpu/ops/nms3d.py:40 _jacobi_greedy (lax.while_loop, no Pallas kernel)",
+            "launches": launches["nms"], "launches_eval": eval_launches["on"]["nms"],
+            "launches_paths": path_launches("nms"), **measured("nms3d"), "tolerance": 0,
+            "ms_is": "the greedy of one B=8 forward of the trained checkpoint",
+        },
+        {
+            "name": "ballquery_fast_bf16", "route": "cuda", "source": "votenet_tpu_torch/csrc/ballquery.cu",
+            "replaces": "votenet_tpu/ops/grouping.py:144 _query_ball_point_dense, fast_bf16 (no Pallas kernel)",
+            "variant": "bq_precision=fast_bf16 (ballquery_kernel<false, true>)",
+            "launches": paths["serve_bq_fast_bf16"]["ballquery_fast_bf16"],
+            "launches_paths": path_launches("ballquery_fast_bf16"), **measured("ballquery_fast_bf16"),
+            "production_ms": production_ms["ballquery_fast_bf16"], "tolerance": 0,
+            "ms_is": "sum over the 5 main-path shapes at B=8",
         },
     ]
     print(json.dumps({"kernels": kernels}))

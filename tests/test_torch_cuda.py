@@ -842,3 +842,175 @@ def test_two_ranks_share_the_card(cuda):
     paths = chip_smoke.phase_two_ranks(cfg, synthetic_scenes(0, cfg, 8), preset="tiny")
     assert paths["dp2_gloo_step"] == chip_smoke.step_launches(cfg)
     assert paths["sp2_forward"]["fps"] == 4 and paths["sp2_ops"]["scatter"] == 1
+
+
+# ------------------------------------- NMS, the fast_bf16 ball query, remat, the dead paths
+
+@pytest.mark.parametrize("B,N,p_cand,levels", [(1, 256, 0.3, 3), (8, 256, 0.6, 7), (3, 1000, 0.2, 2),
+                                               (2, 33, 0.9, 1), (4, 1024, 0.5, 50)])
+def test_nms_kernel_matches_both_plain_versions(cuda, B, N, p_cand, levels):
+    """Random IoU relations (any pattern, scores tied in ``levels`` values,
+    N off a multiple of 32 and at the 1024 limit): the kernel's keep mask
+    equals its walk's twin and the Jacobi loop's, on the card."""
+    from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda, nms3d_greedy_plain
+    from votenet_tpu_torch.ops.nms3d import nms3d_jacobi_plain
+
+    rng = np.random.RandomState(B * N)
+    iou = torch.from_numpy(rng.rand(B, N, N).astype(np.float32)).to(cuda)
+    scores = torch.from_numpy(rng.randint(0, levels, (B, N)).astype(np.float32)).to(cuda)
+    order = torch.argsort(scores, dim=1, descending=True, stable=True)
+    cand = torch.from_numpy(rng.rand(B, N) < p_cand).to(cuda)
+    got = nms3d_greedy_cuda(iou, order, cand, 0.7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms3d_greedy_plain(iou, order, cand, 0.7))
+    assert torch.equal(got, nms3d_jacobi_plain(iou, order, cand, 0.7))
+
+
+def random_box_batch(seed, B, N):
+    """(corners, scores, objectness) of B x N random boxes in a 4 m room."""
+    from votenet_tpu_torch.models.decode import get_3d_bbox
+
+    rng = np.random.RandomState(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    corners = get_3d_bbox(f(rng.uniform(0.3, 2.0, (B, N, 3))), f(rng.uniform(0, 2 * np.pi, (B, N))),
+                          f(rng.uniform(-2, 2, (B, N, 3))))
+    return corners, f(rng.randint(0, 20, (B, N))), f(rng.randn(B, N, 2))
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_nms_on_the_card_syncs_nowhere_and_matches_cpu(cuda, B):
+    """``ops.nms3d`` on CUDA tensors runs under the sync debug mode "error"
+    (any host sync raises) and launches the kernel once; on the CPU's IoU
+    floats the kernel gives the CPU's keep mask (the two devices' IoU may
+    differ by ulps, which can move a pair across the threshold)."""
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
+
+    corners, scores, obj = random_box_batch(B, B, 256)
+    g = [x.to(cuda) for x in (corners, scores, obj)]
+    before = nms3d_greedy_cuda.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keep = ops.nms3d(*g, 0.25)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert nms3d_greedy_cuda.launches == before + 1
+    cpu = ops.nms3d(corners, scores, obj, 0.25)
+    iou_cpu = ops.box3d_iou_matrix(corners, corners).to(cuda)
+    order = torch.argsort(g[1], dim=1, descending=True, stable=True)
+    assert torch.equal(nms3d_greedy_cuda(iou_cpu, order, g[2][..., 1] > g[2][..., 0], 0.25).cpu(), cpu)
+    assert 0 < int(keep.sum()) < int((obj[..., 1] > obj[..., 0]).sum())
+
+
+def test_decode_and_nms_on_the_card_sync_nowhere(cuda):
+    """``predict_boxes`` (decode, the IoU, NMS, the detection cap) on a tiny
+    VoteNet's end points under the sync debug mode "error": the host never
+    waits for the card, so it enqueues them while the forward runs."""
+    from votenet_tpu_torch.models import VoteNet, predict_boxes
+
+    cfg = tiny_config()
+    model = VoteNet(cfg).to(cuda)
+    pts = torch.from_numpy(cloud(1, 2, cfg.point_num, "scene")).to(cuda)
+    with torch.inference_mode():
+        ep = model(pts)
+        predict_boxes(ep, cfg)  # first use: the class mean sizes copied to the card once
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = predict_boxes(ep, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert out["keep"].shape == (2, cfg.proposal_num)
+
+
+def test_nms_kernel_refuses_long_rows(cuda):
+    from votenet_tpu_torch.ops.cuda.nms3d import NMS_MAX_BOXES, nms3d_greedy_cuda
+
+    n = NMS_MAX_BOXES + 1
+    with pytest.raises(ValueError, match=str(NMS_MAX_BOXES)):
+        nms3d_greedy_cuda(torch.zeros((1, n, n), device=cuda), torch.arange(n, device=cuda)[None],
+                          torch.ones((1, n), dtype=torch.bool, device=cuda), 0.25)
+
+
+@pytest.mark.parametrize("segments", [None, 1, 3])
+@pytest.mark.parametrize(
+    "B,N,M,radius,S,kind",
+    [(1, 20480, 2048, 0.2, 64, "scene"), (8, 2048, 1024, 0.4, 64, "scene"), (2, 1024, 256, 0.3, 64, "normal"),
+     (2, 300, 50, 1.5, 16, "grid"), (1, 100, 7, 0.01, 8, "normal")],
+)
+def test_ball_query_fast_bf16_kernel_matches_plain(cuda, B, N, M, radius, S, kind, segments):
+    """The fast_bf16 variant bit-equal to its plain version on the card and
+    on the CPU, through both routes; its own counter counts it."""
+    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda, query_ball_point_plain
+
+    xyz = torch.from_numpy(cloud(B * N + 1, B, N, kind)).to(cuda)
+    q = xyz[:, :M].clone()
+    q[0, -1] = 1000.0  # empty ball
+    before = (query_ball_point_cuda.launches, query_ball_point_cuda.fast_bf16.launches)
+    got = query_ball_point_cuda(radius, S, xyz, q, segments=segments, mode="fast_bf16")
+    torch.cuda.synchronize()
+    assert (query_ball_point_cuda.launches, query_ball_point_cuda.fast_bf16.launches) == (before[0], before[1] + 1)
+    want = query_ball_point_plain(radius, S, xyz, q, "fast_bf16")
+    cpu = query_ball_point_plain(radius, S, xyz.cpu(), q.cpu(), "fast_bf16")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0].cpu(), cpu[0]) and torch.equal(got[1].cpu(), cpu[1])
+    assert int(got[1][0, -1]) == 0
+
+
+@pytest.mark.parametrize("case", list(BALL_EDGES))
+def test_ball_query_fast_bf16_kernel_edges(cuda, case):
+    from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda, query_ball_point_plain
+
+    N, hits, S, segments = BALL_EDGES[case]
+    xyz = torch.from_numpy(crafted_balls(N, hits)).to(cuda)
+    q = torch.zeros((1, 3, 3), device=cuda)
+    q[0, 1] = 2.5
+    q[0, 2] = 100.0
+    want = query_ball_point_plain(0.5, S, xyz, q, "fast_bf16")
+    for seg in {segments, 1, 3}:
+        got = query_ball_point_cuda(0.5, S, xyz, q, segments=seg, mode="fast_bf16")
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), seg
+
+
+def test_remat_step_on_the_card_is_the_plain_step(cuda):
+    """The tiny VoteNet's step with and without remat under deterministic
+    algorithms: losses, gradients and running statistics bit-equal; the
+    remat step runs FPS and the ball query 9 times (sa1-sa4 again)."""
+    import chip_smoke
+    from votenet_tpu_torch.data.dataflow import batch_scenes
+    from votenet_tpu_torch.data.synthetic import synthetic_scenes
+    from votenet_tpu_torch.train import create_train_state, forward_backward
+
+    cfg = tiny_config()
+    batch = next(batch_scenes(iter(synthetic_scenes(0, cfg, 4)), 4, cfg.max_gt_boxes))
+    out = {}
+    counters = chip_smoke.train_counters()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (False, True):
+            c = cfg.replace(remat=remat)
+            state = create_train_state(c, 8, torch.Generator().manual_seed(0), device="cuda")
+            for k in counters.values():
+                k.launches = 0
+            losses = forward_backward(state.model, batch, c)
+            out[remat] = (losses, {n: p.grad for n, p in state.model.named_parameters()},
+                          dict(state.model.named_buffers()), {n: k.launches for n, k in counters.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (lp, gp, sp, _), (lr, gr, sr, launches) = out[False], out[True]
+    assert all(torch.equal(a, b) for a, b in zip(lp, lr))
+    assert all(torch.equal(gp[n], gr[n]) for n in gp) and all(torch.equal(sp[n], sr[n]) for n in sp)
+    assert launches == chip_smoke.step_launches(cfg.replace(remat=True))
+
+
+def test_dead_paths_on_the_card_match_cpu(cuda):
+    """chip_smoke.py's phase 25: every SA option and the MSG module in eval
+    and train mode, and the reference's other ops, the card against the
+    CPU."""
+    import chip_smoke
+    from votenet_tpu_torch.config import default_config
+    from votenet_tpu_torch.data.synthetic import synthetic_scenes
+
+    chip_smoke.phase_dead_paths(synthetic_scenes(0, default_config(), 2))

@@ -16,6 +16,7 @@ from votenet_tpu_torch.config import tiny_config
 from votenet_tpu_torch import ops
 from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
 from votenet_tpu_torch.ops.cuda import fps as fps_mod
+from votenet_tpu_torch.ops.cuda import nms3d as nms_mod
 from votenet_tpu_torch.ops.cuda import samlp as samlp_mod
 from votenet_tpu_torch.ops.cuda import scatter as scatter_mod
 
@@ -69,18 +70,22 @@ def test_import_scan_sees_function_bodies():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    before = (fps_mod.farthest_point_sample_cuda.launches, bq_mod.query_ball_point_cuda.launches)
+    def counts():
+        return (fps_mod.farthest_point_sample_cuda.launches, bq_mod.query_ball_point_cuda.launches,
+                bq_mod.query_ball_point_cuda.fast_bf16.launches, nms_mod.nms3d_greedy_cuda.launches)
+
+    before = counts()
     xyz = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 3).astype(np.float32))
     ops.farthest_point_sample(8, xyz)
     ops.query_ball_point(0.4, 4, xyz, xyz[:, :8].contiguous())
+    ops.query_ball_point(0.4, 4, xyz, xyz[:, :8].contiguous(), "fast_bf16")
     from votenet_tpu_torch.predictor import VoteNetPredictor
 
     VoteNetPredictor(tiny_config(), device="cpu", batch_size=1).detect(xyz[0].numpy())
-    after = (fps_mod.farthest_point_sample_cuda.launches, bq_mod.query_ball_point_cuda.launches)
-    assert after == before == (0, 0)
+    assert counts() == before == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("kernel", ["fps", "ballquery", "scatter", "samlp"])
+@pytest.mark.parametrize("kernel", ["fps", "ballquery", "scatter", "samlp", "ballquery_fast_bf16", "nms3d"])
 def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     """Given a CPU tensor, the wrapper raises: it neither computes the plain
     version nor builds the library."""
@@ -92,12 +97,18 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     monkeypatch.setattr(bq_mod, "library", no_build)
     monkeypatch.setattr(scatter_mod, "library", no_build)
     monkeypatch.setattr(samlp_mod, "library", no_build)
+    monkeypatch.setattr(nms_mod, "library", no_build)
     xyz = torch.zeros(1, 16, 3)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         if kernel == "fps":
             fps_mod.farthest_point_sample_cuda(4, xyz)
         elif kernel == "ballquery":
             bq_mod.query_ball_point_cuda(0.2, 4, xyz, xyz)
+        elif kernel == "ballquery_fast_bf16":
+            bq_mod.query_ball_point_cuda(0.2, 4, xyz, xyz, mode="fast_bf16")
+        elif kernel == "nms3d":
+            nms_mod.nms3d_greedy_cuda(torch.zeros(1, 16, 16), torch.arange(16)[None],
+                                      torch.ones(1, 16, dtype=torch.bool), 0.25)
         elif kernel == "scatter":
             scatter_mod.scatter_add_cuda(xyz, torch.zeros(1, 16, dtype=torch.int32), 4)
         else:
@@ -109,6 +120,7 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     assert bq_mod.query_ball_point_cuda.launches == 0
     assert scatter_mod.scatter_add_cuda.launches == 0
     assert samlp_mod.fused_sa_mlp_pool_cuda.launches == 0
+    assert bq_mod.query_ball_point_cuda.fast_bf16.launches == nms_mod.nms3d_greedy_cuda.launches == 0
 
 
 def test_cpu_eval_launches_no_kernel():

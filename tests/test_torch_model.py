@@ -248,14 +248,32 @@ def test_convert_transposes_kernels(both_models):
     np.testing.assert_array_equal(sd["proposal.mlp2.dense2.bias"].numpy(), np.asarray(v["params"]["proposal"]["mlp2"]["dense2"]["bias"]))
 
 
-@pytest.mark.parametrize(
-    "override", [dict(bq_precision="fast_bf16"), dict(gather_packing="bf16_hilo"), dict(remat=True)],
-)
+@pytest.mark.parametrize("override", [dict(gather_packing="bf16_hilo")])
 def test_unsupported_modes_raise(cfg, override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(cfg.replace(**override))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VoteNet(cfg.replace(**override))
+    with pytest.raises(ValueError, match="bq_precision"):
+        check_supported(cfg.replace(bq_precision="fast"))
+
+
+@pytest.mark.parametrize("override", [dict(bq_precision="fast_bf16"), dict(remat=True)])
+def test_fast_ball_query_and_remat_build_and_run(cfg, points, override):
+    """The fast_bf16 ball query and remat are ported
+    (tests/test_torch_bq_fast.py and tests/test_torch_remat.py hold them
+    against JAX): each builds, runs the eval forward and a training forward
+    and backward."""
+    check_supported(cfg.replace(**override))
+    model = VoteNet(cfg.replace(**override))
+    assert all(m.bq_precision == cfg.replace(**override).bq_precision
+               for m in (model.sa1, model.sa2, model.sa3, model.sa4, model.proposal))
+    with torch.no_grad():
+        out = model(t(points))
+    assert torch.isfinite(out["proposals_output"]).all()
+    model.train()
+    model(t(points))["proposals_output"].sum().backward()
+    assert all(p.grad is not None for p in model.parameters())
 
 
 @pytest.mark.parametrize(
@@ -300,19 +318,22 @@ def test_samlp_on_builds_and_other_values_raise(cfg):
         VoteNet(cfg.replace(samlp="bogus"))
 
 
-def test_training_mode_raises(cfg):
-    """Training mode is ported: ``train()`` switches every module to it. What
-    still raises are the training knobs the port does not run yet, each
-    naming its ROADMAP item."""
+def test_training_mode_raises(cfg, points):
+    """Training mode is ported: ``train()`` switches every module to it.
+    What still raises is the one knob the port leaves out, gather packing,
+    naming its ROADMAP entry; remat builds and trains."""
     model = VoteNet(cfg)
     assert not model.training
     model.train()
     assert all(m.training for m in model.modules())
     model.eval()
     assert not any(m.training for m in model.modules())
-    for override in (dict(gather_packing="bf16_hilo"), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VoteNet(cfg.replace(**override))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VoteNet(cfg.replace(gather_packing="bf16_hilo"))
+    remat = VoteNet(cfg.replace(remat=True)).train()
+    assert all(m.training for m in remat.modules())
+    remat(t(points))["proposals_output"].sum().backward()
+    assert all(p.grad is not None for p in remat.sa1.parameters())
 
 
 def test_init_is_seeded_by_the_generator(cfg):

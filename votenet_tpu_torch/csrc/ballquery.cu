@@ -67,6 +67,22 @@
 // prototype's cost on the TPU, a one-hot contraction per coordinate, has no
 // counterpart here: the copy costs 12 bytes a slot of stores.
 
+// fast_bf16 variant (FAST, ops/cuda/ballquery.py, bq_precision="fast_bf16"):
+// the port's own kernel for a mode that reaches no Pallas kernel in the JAX
+// package (votenet_tpu/ops/grouping.py:111-122 routes it to the XLA twin,
+// whose hit test is the matmul expansion of votenet_tpu/ops/common.py:60-76).
+// The port follows that twin's TPU semantics, where the einsum's default
+// precision feeds the cross term bf16 operands: d2 = (a2 + b2) - 2 * ab with
+// a2, b2 the f32 norms of the unrounded query and point, ((x*x + y*y) +
+// z*z), and ab = (x'x'' + y'y'') + z'z'' over the coordinates rounded to
+// bf16 (nearest, ties to even): each product of two bf16 values is exact in
+// f32, and no step fuses. A tile's rounded coordinates and norms are made
+// once, when the tile lands, into a second shared array of float4 (x', y',
+// z', b2); padding slots get b2 = +inf, so their d2 is +inf. Selection,
+// padding of the output, counts, the split route and the merge pass are the
+// exact kernel's. Not combined with EMIT.
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -87,6 +103,24 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx,
                    __fmul_rn(dz, dz));
 }
 
+// |p|^2 of unrounded coordinates, ((x*x + y*y) + z*z), unfused
+__device__ __forceinline__ float sqnorm(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the fast_bf16 hit test's d2: (a2 + b2) - 2 * ab, ab over bf16-rounded
+// coordinates (each product exact in f32), p = (x', y', z', b2)
+__device__ __forceinline__ float sqdist_fast(float a2, float qx, float qy, float qz,
+                                             float4 p) {
+  const float ab = __fadd_rn(__fadd_rn(__fmul_rn(qx, p.x), __fmul_rn(qy, p.y)),
+                             __fmul_rn(qz, p.z));
+  return __fsub_rn(__fadd_rn(a2, p.w), __fmul_rn(2.0f, ab));
+}
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
@@ -104,8 +138,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // (B, M, nsample) and out_cnt is cnt (B, M), padded here, and with EMIT
 // gxyz (B, M, nsample, 3) too; nseg > 1 (EMIT false): out_idx is the
 // scratch (B, M, nseg, nsample) and out_cnt (B, M, nseg) the hits of each
-// segment (at most nsample), merged by bq_merge_kernel.
-template <bool EMIT>
+// segment (at most nsample), merged by bq_merge_kernel. FAST: the fast_bf16
+// hit test (the note at the top), EMIT false.
+template <bool EMIT, bool FAST>
 __global__ void __launch_bounds__(kQueries)
     ballquery_kernel(const float* __restrict__ xyz,
                      const float* __restrict__ new_xyz, int N, int M,
@@ -113,6 +148,7 @@ __global__ void __launch_bounds__(kQueries)
                      int* __restrict__ out_idx, int* __restrict__ out_cnt,
                      float* __restrict__ gxyz) {
   __shared__ __align__(16) float tile[2][kTile * 3];
+  __shared__ float4 ftile[FAST ? kTile : 1];  // FAST: (x', y', z', b2) of the current tile
 
   const int tid = threadIdx.x;
   const int m = blockIdx.x * kQueries + tid;
@@ -130,6 +166,13 @@ __global__ void __launch_bounds__(kQueries)
     qx = new_xyz[3 * q];
     qy = new_xyz[3 * q + 1];
     qz = new_xyz[3 * q + 2];
+  }
+  // FAST: the query's f32 norm, then its coordinates rounded to bf16
+  const float a2 = FAST ? sqnorm(qx, qy, qz) : 0.0f;
+  if constexpr (FAST) {
+    qx = round_bf16(qx);
+    qy = round_bf16(qy);
+    qz = round_bf16(qz);
   }
   int* out = out_idx + (q * nseg + seg) * nsample;
 
@@ -162,24 +205,43 @@ __global__ void __launch_bounds__(kQueries)
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t is in shared memory for every thread
+    const int k0 = k_begin + t * kTile;
+    if constexpr (FAST) {  // the tile's rounded coordinates and norms, once
+      const float* c = tile[t & 1];
+      const int n = min(kTile, k_end - k0);
+      for (int e = tid; e < kTile; e += kQueries) {
+        ftile[e] = e < n ? make_float4(round_bf16(c[3 * e]), round_bf16(c[3 * e + 1]),
+                                       round_bf16(c[3 * e + 2]),
+                                       sqnorm(c[3 * e], c[3 * e + 1], c[3 * e + 2]))
+                         : make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));
+      }
+      __syncthreads();
+    }
     if (found < nsample) {
       const float4* v = reinterpret_cast<const float4*>(tile[t & 1]);
-      const int k0 = k_begin + t * kTile;
       const int ngroups = (min(kTile, k_end - k0) + kGroup - 1) / kGroup;
       for (int j = 0; j < ngroups; ++j) {
         // kGroup points, four at a time from three 16-byte loads: independent
         // tests, so their latencies overlap
         unsigned hits = 0u;
+        if constexpr (FAST) {
 #pragma unroll
-        for (int i = 0; i < kGroup / 4; ++i) {
-          const float4 a = v[3 * (j * kGroup / 4 + i)];
-          const float4 c = v[3 * (j * kGroup / 4 + i) + 1];
-          const float4 e = v[3 * (j * kGroup / 4 + i) + 2];
-          hits |= (static_cast<unsigned>(sqdist(qx, qy, qz, a.x, a.y, a.z) < r2) |
-                   static_cast<unsigned>(sqdist(qx, qy, qz, a.w, c.x, c.y) < r2) << 1 |
-                   static_cast<unsigned>(sqdist(qx, qy, qz, c.z, c.w, e.x) < r2) << 2 |
-                   static_cast<unsigned>(sqdist(qx, qy, qz, e.y, e.z, e.w) < r2) << 3)
-                  << (4 * i);
+          for (int i = 0; i < kGroup; ++i) {
+            hits |= static_cast<unsigned>(sqdist_fast(a2, qx, qy, qz, ftile[j * kGroup + i]) < r2)
+                    << i;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kGroup / 4; ++i) {
+            const float4 a = v[3 * (j * kGroup / 4 + i)];
+            const float4 c = v[3 * (j * kGroup / 4 + i) + 1];
+            const float4 e = v[3 * (j * kGroup / 4 + i) + 2];
+            hits |= (static_cast<unsigned>(sqdist(qx, qy, qz, a.x, a.y, a.z) < r2) |
+                     static_cast<unsigned>(sqdist(qx, qy, qz, a.w, c.x, c.y) < r2) << 1 |
+                     static_cast<unsigned>(sqdist(qx, qy, qz, c.z, c.w, e.x) < r2) << 2 |
+                     static_cast<unsigned>(sqdist(qx, qy, qz, e.y, e.z, e.w) < r2) << 3)
+                    << (4 * i);
+          }
         }
         while (hits != 0u && found < nsample) {  // in index order
           const int k = k0 + j * kGroup + __ffs(hits) - 1;
@@ -283,12 +345,14 @@ extern "C" {
 // (B*M*nseg*nsample int32) and seg_cnt (B*M*nseg int32) are scratch, and a
 // merge kernel writes idx and cnt. seg_pts is a multiple of the tile. A
 // non-null gxyz (B*M*nsample*3 f32) runs the emit variant, which also
-// writes the grouped coordinates there.
+// writes the grouped coordinates there. fast_bf16 != 0 runs the fast_bf16
+// hit test (not with gxyz).
 int votenet_ball_query(const float* xyz, const float* new_xyz, int B, int N,
                        int M, float r2, int nsample, int nseg, int seg_pts,
-                       int* seg_idx, int* seg_cnt, int* idx, int* cnt,
+                       int fast_bf16, int* seg_idx, int* seg_cnt, int* idx, int* cnt,
                        float* gxyz, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || nsample < 1 || nseg < 1 || seg_pts < 1 ||
+  if ((fast_bf16 && gxyz != nullptr) ||
+      B < 1 || N < 1 || M < 1 || nsample < 1 || nseg < 1 || seg_pts < 1 ||
       seg_pts % kTile != 0 || (nseg - 1) * seg_pts >= N ||
       static_cast<long long>(nseg) * seg_pts < N || B > 65535 || nseg > 65535)
     return cudaErrorInvalidValue;
@@ -297,16 +361,24 @@ int votenet_ball_query(const float* xyz, const float* new_xyz, int B, int N,
   const bool emit = gxyz != nullptr;
   if (nseg == 1) {
     if (emit) {
-      ballquery_kernel<true><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
-                                                       r2, nsample, idx, cnt, gxyz);
+      ballquery_kernel<true, false><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
+                                                              r2, nsample, idx, cnt, gxyz);
+    } else if (fast_bf16) {
+      ballquery_kernel<false, true><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
+                                                              r2, nsample, idx, cnt, nullptr);
     } else {
-      ballquery_kernel<false><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
-                                                        r2, nsample, idx, cnt, nullptr);
+      ballquery_kernel<false, false><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, 1,
+                                                               r2, nsample, idx, cnt, nullptr);
     }
     return cudaGetLastError();
   }
-  ballquery_kernel<false><<<grid, kQueries, 0, s>>>(xyz, new_xyz, N, M, seg_pts, nseg,
-                                                    r2, nsample, seg_idx, seg_cnt, nullptr);
+  if (fast_bf16) {
+    ballquery_kernel<false, true><<<grid, kQueries, 0, s>>>(
+        xyz, new_xyz, N, M, seg_pts, nseg, r2, nsample, seg_idx, seg_cnt, nullptr);
+  } else {
+    ballquery_kernel<false, false><<<grid, kQueries, 0, s>>>(
+        xyz, new_xyz, N, M, seg_pts, nseg, r2, nsample, seg_idx, seg_cnt, nullptr);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int total = B * M;

@@ -4,6 +4,7 @@ scores and a keep mask."""
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -12,6 +13,15 @@ import torch
 from votenet_tpu_torch.config import Config
 from votenet_tpu_torch.data.geometry import CLASS_MEAN_SIZE
 from votenet_tpu_torch.ops import nms3d
+
+
+@functools.lru_cache(maxsize=None)
+def class_mean_size(device: torch.device) -> torch.Tensor:
+    """``CLASS_MEAN_SIZE`` (NC, 3) on ``device``, copied there once: a copy
+    from the host at every decode would make the host wait for the forward
+    (a blocking host-to-device copy syncs the stream)."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(CLASS_MEAN_SIZE, device=device)
 
 
 def get_3d_bbox(box_size: torch.Tensor, heading_angle: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
@@ -42,7 +52,7 @@ def decode_proposals(end_points: Dict[str, torch.Tensor], config: Config) -> Dic
     size_cls = torch.argmax(out[..., 5 + 2 * NH : 5 + 2 * NH + NS], dim=-1)  # (B, P)
     size_res_all = out[..., 5 + 2 * NH + NS : 5 + 2 * NH + 4 * NS].reshape(B, P, NS, 3)
     size_res = torch.gather(size_res_all, 2, size_cls[..., None, None].expand(B, P, 1, 3))[..., 0, :]
-    mean_size = torch.as_tensor(CLASS_MEAN_SIZE, device=out.device)[size_cls]  # (B, P, 3)
+    mean_size = class_mean_size(out.device)[size_cls]  # (B, P, 3)
     # the 1e-6 floor guards tiny or negative sizes
     size_pred = mean_size * torch.clamp(1.0 + size_res, min=1e-6)
 

@@ -90,6 +90,9 @@ class BatchNorm(nn.Module):
     its own rows, so the backward sums the cotangents), and the statistics
     are the whole batch's, identical on every rank, as the JAX package's
     are over its mesh. In one process the sums are the same ones.
+
+    ``frozen`` (set by :func:`frozen_running_stats`) keeps the running
+    statistics where they are in training.
     """
 
     def __init__(
@@ -105,6 +108,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.group: comm.Group = None
+        self.frozen = False  # set by frozen_running_stats
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -117,14 +121,32 @@ class BatchNorm(nn.Module):
                 s, sq = comm.psum_varying(torch.cat([s, sq]), self.group).chunk(2)
             mean = s / count
             var = torch.clamp(sq / count - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if not self.frozen:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean) * mul + self.bias).to(self.dtype)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module):
+    """Within the block, every training :class:`BatchNorm` of ``model``
+    normalises by the batch's statistics as always but does not move its
+    running statistics: remat's recompute (``models/votenet.py``) runs a
+    layer's forward a second time, and flax's ``nn.remat`` updates the
+    statistics once a step."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen = False
 
 
 @contextlib.contextmanager
@@ -145,7 +167,8 @@ def batch_norm_group(model: nn.Module, group: comm.Group):
 class MLPStack(nn.Module):
     """Shared per-point MLP: Linear + BN + ReLU per width (``dense{i}``,
     ``bn{i}``), in ``dtype``. ``final_activation=False`` leaves the last
-    layer linear.
+    layer linear; ``use_bn=False`` drops the batch norms (a dense layer with
+    its bias, then the ReLU).
 
     With ``center`` the first layer is the JAX package's ``CenteredDense``:
     ``(h - center @ W[:3]) + b`` in that association, ``x``, ``center``, the
@@ -169,14 +192,16 @@ class MLPStack(nn.Module):
         final_activation: bool = True,
         eps: float = BN_EPS,
         dtype: torch.dtype = torch.float32,
+        use_bn: bool = True,
     ):
         super().__init__()
         self.n = len(widths)
         self.final_activation = final_activation
         self.dtype = dtype
+        self.use_bn = use_bn
         for i, w in enumerate(widths):
             setattr(self, f"dense{i}", make_linear(cin, w, generator))
-            if final_activation or i < self.n - 1:
+            if use_bn and (final_activation or i < self.n - 1):
                 setattr(self, f"bn{i}", BatchNorm(w, eps, dtype=dtype))
             cin = w
         self.eval()
@@ -200,7 +225,7 @@ class MLPStack(nn.Module):
             else:
                 x = dense(layer, x, dt)
             if self.final_activation or i < self.n - 1:
-                x = torch.relu(getattr(self, f"bn{i}")(x))
+                x = torch.relu(getattr(self, f"bn{i}")(x) if self.use_bn else x)
         return x
 
     def _split_dense0(self, xyz: torch.Tensor, feat: torch.Tensor, center: torch.Tensor,
@@ -225,25 +250,82 @@ class MLPStack(nn.Module):
         return (h_xyz.to(dt) + h_feat) + layer.bias.to(dt)
 
 
+def sample_and_group(npoint: int, radius: float, nsample: int, xyz: torch.Tensor, points: Optional[torch.Tensor],
+                     knn: bool = False, use_xyz: bool = True, sample_xyz: Optional[torch.Tensor] = None,
+                     bq_precision: Optional[str] = None):
+    """FPS, gather, ball query (or kNN), group, centre-subtract (the JAX
+    ``sample_and_group``, reference utils.py:25-61). FPS runs on
+    ``sample_xyz`` when given. ``bq_precision`` is the ball query's mode
+    (None: ``ops.dispatch.bq_precision()``). Returns (new_xyz (B, npoint,
+    3), new_points (B, npoint, nsample, 3 + C, C or 3), idx (B, npoint,
+    nsample) int32, grouped_xyz (B, npoint, nsample, 3) centred)."""
+    fps_src = sample_xyz if sample_xyz is not None else xyz
+    new_xyz = ops.gather_point(xyz, ops.farthest_point_sample(npoint, fps_src))
+    if knn:
+        _, idx = ops.knn_point(nsample, xyz, new_xyz)
+    else:
+        idx, _ = ops.query_ball_point(radius, nsample, xyz, new_xyz, bq_precision)
+    if points is None:
+        grouped_xyz = ops.group_point(xyz, idx) - new_xyz[:, :, None, :]
+        return new_xyz, grouped_xyz, idx, grouped_xyz
+    both = ops.group_point(torch.cat([xyz, points], dim=-1), idx)  # one gather of [xyz | features]
+    grouped_xyz = both[..., :3] - new_xyz[:, :, None, :]
+    new_points = torch.cat([grouped_xyz, both[..., 3:]], dim=-1) if use_xyz else both[..., 3:]
+    return new_xyz, new_points, idx, grouped_xyz
+
+
+def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor], use_xyz: bool = True):
+    """One group of all points, centred at the origin (the JAX
+    ``sample_and_group_all``, utils.py:64-90): (new_xyz (B, 1, 3) zeros,
+    new_points (B, 1, N, 3 + C, C or 3), idx (B, 1, N) int32 0..N-1,
+    grouped_xyz (B, 1, N, 3) the points themselves)."""
+    B, N, _ = xyz.shape
+    new_xyz = torch.zeros((B, 1, 3), dtype=xyz.dtype, device=xyz.device)
+    idx = torch.arange(N, dtype=torch.int32, device=xyz.device).expand(B, 1, N)
+    grouped_xyz = xyz[:, None, :, :]
+    if points is None:
+        return new_xyz, grouped_xyz, idx, grouped_xyz
+    new_points = torch.cat([xyz, points], dim=-1) if use_xyz else points
+    return new_xyz, new_points[:, None, :, :], idx, grouped_xyz
+
+
+POOLINGS = ("max", "avg", "weighted_avg", "max_and_avg")
+
+
 class PointNetSAModule(nn.Module):
-    """Set abstraction with ball-query grouping and max pooling (the JAX
-    module's fused path, ``pointnet2.py:422-525``).
+    """Set abstraction (the JAX module, ``pointnet2.py:233-555``).
 
     FPS picks ``npoint`` centres (on ``sample_xyz`` when given: the proposal
     layer samples seeds but groups votes), the ball query groups
     ``[xyz | points]`` around them, the MLP runs, the ball slots are
-    max-pooled, and the optional ``mlp2`` head follows with a linear last
-    layer. Eval projects before the gather; training gathers first
-    (``pointnet2.py:468-515``), so that the backward scatters the narrow
-    ``[xyz | points]`` rows and not the wide dense0 output.
+    pooled, and the optional ``mlp2`` head follows with a linear last
+    layer. ``points`` may be None (the grouped coordinates alone).
+
+    The reference's other options, on no path of the model: ``group_all``
+    (one group of every point, :func:`sample_and_group_all`), ``knn`` (the
+    ``nsample`` nearest points, ``ops.knn_point``, in place of the ball),
+    ``use_xyz=False`` (the features alone, without the centred
+    coordinates), ``use_bn=False`` (no batch norm) and ``pooling`` "avg",
+    "weighted_avg" (``exp(-5 d)`` weights over the centred grouped
+    coordinates' norms, normalised over the slots) or "max_and_avg" (the
+    mean's channels, then the max's). As in the JAX module, ``group_all``,
+    ``use_xyz=False``, "weighted_avg" and an empty ``mlp`` take the
+    explicit path (:func:`sample_and_group`, the centred grouped tensor
+    into a plain MLP, in training and eval alike); the rest take the fused
+    path described below.
+
+    Fused path (``pointnet2.py:422-525``): eval projects before the gather;
+    training gathers first (``pointnet2.py:468-515``), so that the backward
+    scatters the narrow ``[xyz | points]`` rows and not the wide dense0
+    output.
 
     ``coord_grad=False`` declares ``xyz`` non-differentiable: the backbone's
     coordinates derive from the input cloud alone. They are detached before
     the gather, and its backward scatters only the feature channels. The
     proposal layer keeps ``True``: its xyz are votes, which carry gradient.
-    Pooling is ``torch.amax``, which, like ``jnp.max``, splits the gradient
-    evenly among tied maxima (ties are common: the ball query fills empty
-    slots with the first hit).
+    Max pooling is ``torch.amax``, which, like ``jnp.max``, splits the
+    gradient evenly among tied maxima (ties are common: the ball query fills
+    empty slots with the first hit).
 
     ``samlp=True`` runs the eval forward's MLP and max-pool as one fused op,
     ``ops.fused_sa_mlp_pool`` (the kernel of ``csrc/samlp.cu`` on a CUDA
@@ -251,16 +333,19 @@ class PointNetSAModule(nn.Module):
     the JAX module's ``_fused_eval_mlp_pool`` under ``Config.samlp="on"``,
     its matmul operands in ``ops.dispatch.samlp_precision()`` ("f32" or
     "bf16"), read at every forward as the JAX module reads it. Training
-    ignores it, as in the JAX package, and so does an MLP of one
-    layer (the fused chain starts at a second layer) or of another dtype than
-    f32 (the JAX gate, ``pointnet2.py:304-313``).
+    ignores it, as in the JAX package, and so do the explicit path, a
+    pooling other than max, ``use_bn=False``, an MLP of one layer (the
+    fused chain starts at a second layer) and another dtype than f32 (the
+    JAX gate, ``pointnet2.py:304-313``).
 
     ``dtype`` is the MLPs' (f32 or bf16). ``split_coords`` is the JAX
     module's mixed-precision path (``pointnet2.py:454-467``): a narrow f32
     gather of the coordinates and a wide ``dtype`` one of the features, in
     place of one gather of ``[xyz | points]``; see ``MLPStack``. ``scatter``
     ("exact" or "fast_bf16", ``Config.scatter_precision``) is the mode of the
-    training gathers' backward scatter.
+    training gathers' backward scatter. ``bq_precision`` ("exact",
+    "fast_bf16", ``Config.bq_precision``) is the ball query's; None reads
+    ``ops.dispatch.bq_precision()`` at every forward.
 
     ``sp=True`` runs the grouping stage point-sharded over ``sp_group``
     (the JAX module's ``sp_mesh``, ``pointnet2.py:370-420``): ``xyz`` and
@@ -269,8 +354,8 @@ class PointNetSAModule(nn.Module):
     :mod:`votenet_tpu_torch.parallel.point_sharded`, and the MLP and the
     pool run on the replicated grouped tensor, gather-first in training and
     in eval alike (samlp is not taken), as the JAX module does. It takes the
-    ball-query grouping only, and not mixed precision's split coordinates,
-    which raise ValueError as in the JAX package.
+    ball-query grouping only (``group_all`` and ``knn`` raise ValueError, as
+    does mixed precision's split coordinates, as in the JAX package).
     """
 
     def __init__(
@@ -290,19 +375,36 @@ class PointNetSAModule(nn.Module):
         scatter: str = "exact",
         sp: bool = False,
         sp_group: comm.Group = None,
+        group_all: bool = False,
+        pooling: str = "max",
+        knn: bool = False,
+        use_xyz: bool = True,
+        use_bn: bool = True,
+        bq_precision: Optional[str] = None,
     ):
         super().__init__()
         if sp and split_coords:
             raise ValueError("sp + split_coords (mixed precision) is not wired; run SP in f32")
+        if sp and (group_all or knn):
+            raise ValueError("sp_mesh supports ball-query grouping only (no knn/group_all)")
+        if pooling not in POOLINGS:
+            raise ValueError(f"unknown pooling {pooling!r}")
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.sp, self.sp_group = sp, sp_group
+        self.group_all, self.pooling, self.knn, self.use_xyz = group_all, pooling, knn, use_xyz
+        self.bq_precision = bq_precision
+        self.fused = not group_all and use_xyz and pooling != "weighted_avg" and len(mlp) > 0
         self.coord_grad = coord_grad
-        self.samlp = samlp and len(mlp) >= 2 and dtype == torch.float32
+        self.samlp = (samlp and self.fused and pooling == "max" and use_bn and len(mlp) >= 2
+                      and dtype == torch.float32)
         self.split_coords = split_coords
         self.scatter = scatter
-        self.mlp = MLPStack(3 + cin, mlp, generator, eps=eps, dtype=dtype)
+        c_mlp = 3 + cin if use_xyz or cin == 0 else cin  # cin == 0: the coordinates alone
+        self.mlp = MLPStack(c_mlp, mlp, generator, eps=eps, dtype=dtype, use_bn=use_bn)
+        c_pool = mlp[-1] if len(mlp) else c_mlp
         self.mlp2 = (
-            MLPStack(mlp[-1], mlp2, generator, final_activation=False, eps=eps, dtype=dtype)
+            MLPStack(2 * c_pool if pooling == "max_and_avg" else c_pool, mlp2, generator, final_activation=False,
+                     eps=eps, dtype=dtype, use_bn=use_bn)
             if mlp2 is not None
             else None
         )
@@ -311,18 +413,49 @@ class PointNetSAModule(nn.Module):
     def forward(
         self,
         xyz: torch.Tensor,
-        points: torch.Tensor,
+        points: Optional[torch.Tensor],
         sample_xyz: Optional[torch.Tensor] = None,
     ):
-        """xyz (B, N, 3), points (B, N, C) -> (new_xyz (B, npoint, 3),
-        features (B, npoint, C'), idx (B, npoint, nsample) int32)."""
-        fps_src = sample_xyz if sample_xyz is not None else xyz
+        """xyz (B, N, 3), points (B, N, C) or None -> (new_xyz (B, npoint,
+        3), features (B, npoint, C'), idx (B, npoint, nsample) int32)."""
         if self.sp:
-            return self._sharded_forward(xyz, points, fps_src)
+            new_xyz, new_points, idx = self._sharded_forward(xyz, points, sample_xyz)
+        elif not self.fused:
+            if self.group_all:
+                new_xyz, grouped, idx, grouped_xyz = sample_and_group_all(xyz, points, self.use_xyz)
+            else:
+                new_xyz, grouped, idx, grouped_xyz = sample_and_group(
+                    self.npoint, self.radius, self.nsample, xyz, points, self.knn, self.use_xyz, sample_xyz,
+                    self.bq_precision,
+                )
+            new_points = self._pool(self.mlp(grouped), grouped_xyz)
+        else:
+            new_xyz, new_points, idx = self._fused_forward(xyz, points, sample_xyz)
+        if self.mlp2 is not None:
+            new_points = self.mlp2(new_points)
+        return new_xyz, new_points, idx
+
+    def _pool(self, x: torch.Tensor, grouped_xyz: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, M, S, C) -> (B, M, C), or 2C for "max_and_avg"
+        (``pointnet2.py:540-555``)."""
+        if self.pooling == "max":
+            return torch.amax(x, dim=2)
+        if self.pooling == "avg":
+            return torch.mean(x, dim=2)
+        if self.pooling == "weighted_avg":  # exp(-5d) inverse-distance weights (utils.py:135-142)
+            e = torch.exp(-torch.linalg.vector_norm(grouped_xyz, dim=-1, keepdim=True) * 5)
+            return torch.sum(x * (e / torch.sum(e, dim=2, keepdim=True)), dim=2)
+        return torch.cat([torch.mean(x, dim=2), torch.amax(x, dim=2)], dim=-1)
+
+    def _fused_forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor], sample_xyz):
+        fps_src = sample_xyz if sample_xyz is not None else xyz
         new_xyz = ops.gather_point(xyz, ops.farthest_point_sample(self.npoint, fps_src))
-        idx, _ = ops.query_ball_point(self.radius, self.nsample, xyz, new_xyz)
+        if self.knn:
+            _, idx = ops.knn_point(self.nsample, xyz, new_xyz)
+        else:
+            idx, _ = ops.query_ball_point(self.radius, self.nsample, xyz, new_xyz, self.bq_precision)
         gather_xyz = xyz if self.coord_grad else xyz.detach()
-        if self.split_coords:
+        if self.split_coords and points is not None:
             feat = points.to(self.mlp.dtype)
             if self.training:
                 grouped = (ops.group_point(gather_xyz, idx, scatter=self.scatter),
@@ -330,38 +463,37 @@ class PointNetSAModule(nn.Module):
                 new_points = self.mlp(grouped, center=new_xyz)
             else:
                 new_points = self.mlp((gather_xyz, feat), center=new_xyz, idx=idx)
-            new_points = torch.amax(new_points, dim=2)
         elif self.training:
             # torch.cat promotes f32 coordinates and bf16 features to f32, as jnp.concatenate does
-            grouped = ops.group_point(
-                torch.cat([gather_xyz, points], dim=-1), idx,
-                grad_skip_prefix=0 if self.coord_grad else 3, scatter=self.scatter,
-            )
-            new_points = torch.amax(self.mlp(grouped, center=new_xyz), dim=2)
-        elif self.samlp:
-            new_points = self._fused_eval_mlp_pool(torch.cat([xyz, points], dim=-1), new_xyz, idx)
+            both = gather_xyz if points is None else torch.cat([gather_xyz, points], dim=-1)
+            skip = 0 if self.coord_grad or points is None else 3
+            grouped = ops.group_point(both, idx, grad_skip_prefix=skip, scatter=self.scatter)
+            new_points = self.mlp(grouped, center=new_xyz)
         else:
-            new_points = self.mlp(torch.cat([xyz, points], dim=-1), center=new_xyz, idx=idx)
-            new_points = torch.amax(new_points, dim=2)
-        if self.mlp2 is not None:
-            new_points = self.mlp2(new_points)
-        return new_xyz, new_points, idx
+            both = xyz if points is None else torch.cat([xyz, points], dim=-1)
+            if self.samlp:  # pooled by the fused op
+                return new_xyz, self._fused_eval_mlp_pool(both, new_xyz, idx), idx
+            new_points = self.mlp(both, center=new_xyz, idx=idx)
+        return new_xyz, self._pool(new_points, None), idx
 
-    def _sharded_forward(self, xyz: torch.Tensor, points: torch.Tensor, fps_src: torch.Tensor):
+    def _sharded_forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor], sample_xyz):
         """The forward over this rank's slabs of a point-sharded cloud (see
-        the class docstring); the outputs are replicated over ``sp_group``."""
+        the class docstring), up to the pool; the outputs are replicated
+        over ``sp_group``."""
         g = self.sp_group
+        if not self.fused:
+            new_xyz, grouped, idx, grouped_xyz = sp_ops.sample_and_group_sharded(
+                self.npoint, self.radius, self.nsample, xyz, points, g, self.use_xyz, self.bq_precision)
+            return new_xyz, self._pool(self.mlp(grouped), grouped_xyz), idx
+        fps_src = sample_xyz if sample_xyz is not None else xyz
         new_xyz = sp_ops.gather_point_sharded(xyz, sp_ops.farthest_point_sample_sharded(self.npoint, fps_src, g), g)
-        idx, _ = sp_ops.query_ball_point_sharded(self.radius, self.nsample, xyz, new_xyz, g)
+        idx, _ = sp_ops.query_ball_point_sharded(self.radius, self.nsample, xyz, new_xyz, g, self.bq_precision)
         gather_xyz = xyz if self.coord_grad else xyz.detach()
+        both = gather_xyz if points is None else torch.cat([gather_xyz, points], dim=-1)
         grouped = sp_ops.group_point_sharded(
-            torch.cat([gather_xyz, points], dim=-1), idx, g,
-            grad_skip_prefix=0 if self.coord_grad else 3, scatter=self.scatter,
+            both, idx, g, grad_skip_prefix=0 if self.coord_grad or points is None else 3, scatter=self.scatter,
         )
-        new_points = torch.amax(self.mlp(grouped, center=new_xyz), dim=2)
-        if self.mlp2 is not None:
-            new_points = self.mlp2(new_points)
-        return new_xyz, new_points, idx
+        return new_xyz, self._pool(self.mlp(grouped, center=new_xyz), None), idx
 
     def _fused_eval_mlp_pool(self, both: torch.Tensor, new_xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """The eval MLP and max-pool through ``ops.fused_sa_mlp_pool``, with
@@ -389,6 +521,57 @@ class PointNetSAModule(nn.Module):
             si, ti = bn_fold(i)
             layers.append((dense.weight.t(), si, dense.bias * si + ti))
         return ops.fused_sa_mlp_pool(h_all, idx, sh0, s0, layers, samlp_precision())
+
+
+class PointNetSAModuleMSG(nn.Module):
+    """Multi-scale-grouping set abstraction (the JAX module,
+    ``pointnet2.py:565-602``, reference utils.py:161-201; on no path of the
+    model). FPS picks ``npoint`` centres; for each scale i, the ball of
+    ``radius_list[i]`` and ``nsample_list[i]`` groups the features and the
+    centred coordinates, concatenated in the reference's reversed order
+    ``[grouped, grouped_xyz]`` (``use_xyz``; the features alone without it,
+    the coordinates alone where ``cin`` is 0), ``mlp_scale{i}`` runs on
+    them and the slots are max-pooled; the scales' features are
+    concatenated. The ball query's mode is ``ops.dispatch.bq_precision()``,
+    read at every forward, as the JAX module reads it. Returns (new_xyz
+    (B, npoint, 3), (B, npoint, sum of the scales' last widths))."""
+
+    def __init__(
+        self,
+        npoint: int,
+        radius_list: Sequence[float],
+        nsample_list: Sequence[int],
+        cin: int,
+        mlp_list: Sequence[Sequence[int]],
+        generator: torch.Generator,
+        use_xyz: bool = True,
+        use_bn: bool = True,
+        eps: float = BN_EPS,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.npoint = npoint
+        self.radius_list, self.nsample_list = tuple(radius_list), tuple(nsample_list)
+        self.use_xyz = use_xyz
+        c_in = cin + 3 if use_xyz or cin == 0 else cin
+        for i, widths in enumerate(mlp_list):
+            setattr(self, f"mlp_scale{i}", MLPStack(c_in, widths, generator, eps=eps, dtype=dtype, use_bn=use_bn))
+        self.eval()
+
+    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor]):
+        new_xyz = ops.gather_point(xyz, ops.farthest_point_sample(self.npoint, xyz))
+        outs = []
+        for i, (radius, nsample) in enumerate(zip(self.radius_list, self.nsample_list)):
+            idx, _ = ops.query_ball_point(radius, nsample, xyz, new_xyz)
+            grouped_xyz = ops.group_point(xyz, idx) - new_xyz[:, :, None, :]
+            if points is not None:
+                grouped = ops.group_point(points, idx)
+                if self.use_xyz:  # the reversed order of utils.py:190
+                    grouped = torch.cat([grouped, grouped_xyz], dim=-1)
+            else:
+                grouped = grouped_xyz
+            outs.append(torch.amax(getattr(self, f"mlp_scale{i}")(grouped), dim=2))
+        return new_xyz, torch.cat(outs, dim=-1)
 
 
 class PointNetFPModule(nn.Module):

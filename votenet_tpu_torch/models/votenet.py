@@ -10,11 +10,14 @@ checkpoint converts by renaming (``models/convert.py``).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from votenet_tpu_torch.config import Config
 from votenet_tpu_torch.models.pointnet2 import (
@@ -22,8 +25,10 @@ from votenet_tpu_torch.models.pointnet2 import (
     PointNetFPModule,
     PointNetSAModule,
     dense,
+    frozen_running_stats,
     make_linear,
 )
+from votenet_tpu_torch.ops.dispatch import check_bq_mode
 from votenet_tpu_torch.parallel import comm
 from votenet_tpu_torch.parallel.mesh import POINTS_AXIS, Mesh, point_sharding
 
@@ -46,32 +51,33 @@ def compute_dtype(config: Config) -> torch.dtype:
 
 
 def check_supported(config: Config) -> None:
-    """Raise for a Config this port does not run yet.
+    """Raise for a Config this port does not run.
 
-    The port runs the parity defaults, ``samlp="on"``, both
-    ``compute_dtype`` values ("float32", "bfloat16"), ``mixed_precision``
-    and ``scatter_precision="fast_bf16"``. The rest raises
-    NotImplementedError, naming the ROADMAP item that brings it. A ``samlp``
-    other than "on" or "off", or a ``scatter_precision`` other than "exact"
-    or "fast_bf16", raises ValueError, as ``votenet_tpu.ops.dispatch`` does;
-    ``compute_dtype`` raises as :func:`compute_dtype` says.
+    The port runs every mode of the JAX package's Config but
+    ``gather_packing="bf16_hilo"``, which raises NotImplementedError naming
+    its ROADMAP entry (left out: its barrier exists only to defeat an XLA
+    fold). A ``samlp`` other than "on" or "off", or a ``scatter_precision``
+    or ``bq_precision`` other than "exact" or "fast_bf16", raises
+    ValueError, as ``votenet_tpu.ops.dispatch`` does; ``compute_dtype``
+    raises as :func:`compute_dtype` says.
     """
     if config.samlp not in ("on", "off"):
         raise ValueError(f"samlp must be 'on' or 'off', got {config.samlp!r}")
     if config.scatter_precision not in ("exact", "fast_bf16"):
         raise ValueError(f"scatter_precision must be 'exact' or 'fast_bf16', got {config.scatter_precision!r}")
+    check_bq_mode(config.bq_precision)
     compute_dtype(config)
-    unsupported = {
-        "bq_precision": (config.bq_precision, "exact", "fast_bf16 ball query"),
-        "gather_packing": (config.gather_packing, "none", "bf16_hilo gather packing"),
-        "remat": (config.remat, False, "remat"),
-    }
-    for name, (value, supported, item) in unsupported.items():
-        if value != supported:
-            raise NotImplementedError(
-                f"votenet_tpu_torch runs {name}={supported!r} only, got {value!r}: "
-                f"see ROADMAP.md, 'Modules still to port', {item}"
-            )
+    if config.gather_packing != "none":
+        raise NotImplementedError(
+            f"votenet_tpu_torch runs gather_packing='none' only, got {config.gather_packing!r}: "
+            "see ROADMAP.md, 'Leave these out', bf16_hilo gather packing"
+        )
+
+
+def _remat_contexts(layer: nn.Module):
+    """``checkpoint``'s context_fn under remat: nothing around the first
+    forward; the recompute leaves ``layer``'s running statistics alone."""
+    return contextlib.nullcontext(), frozen_running_stats(layer)
 
 
 class VotingModule(nn.Module):
@@ -114,7 +120,22 @@ class VoteNet(nn.Module):
     split path (f32 coordinates, bf16 features), the rest f32. The seed
     state concatenates f32 coordinates with the seed features and so is f32,
     as are the votes; the head is cast to f32. ``config.scatter_precision``
-    is the mode of every training gather's backward scatter.
+    is the mode of every training gather's backward scatter,
+    ``config.bq_precision`` the mode of every ball query.
+
+    ``config.remat`` (the JAX model's ``nn.remat`` around sa1-sa4,
+    ``votenet.py:114,127``; the FP, voting and proposal layers are not
+    wrapped there either): in training with grad enabled, each backbone SA
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant), which keeps
+    only its inputs and recomputes its forward in the backward, dropping the
+    grouped (B, npoint, nsample, C) activations between the two. The
+    recompute re-runs FPS and the ball query, which are deterministic and
+    draw from no generator (so no RNG state is saved), and runs with the
+    running statistics' update off (``frozen_running_stats``): the batch
+    statistics it normalises with are the first forward's numbers, and the
+    running statistics move once a step, as flax's do. Under ``sp_mesh``
+    every rank recomputes its layers in the same order, so the recompute's
+    collectives pair up across the ranks.
 
     Weights are drawn from ``generator`` (flax's initialisers: he-normal
     kernels, zero biases, unit batch-norm scales); a checkpoint replaces
@@ -149,6 +170,7 @@ class VoteNet(nn.Module):
         dt = self.dtype = compute_dtype(cfg)
         mixed = cfg.mixed_precision and dt == torch.float32
         scatter = cfg.scatter_precision
+        bq = cfg.bq_precision
         cin = 3  # the input cloud's xyz are also its l0 features
         n_in = cfg.point_num
         for i in range(4):
@@ -164,6 +186,7 @@ class VoteNet(nn.Module):
                 scatter=scatter,
                 sp=sp,
                 sp_group=self.sp_group,
+                bq_precision=bq,
             )
             setattr(self, f"sa{i + 1}", sa)
             cin = cfg.sa_mlps[i][-1]
@@ -178,7 +201,7 @@ class VoteNet(nn.Module):
             cfg.proposal_num, cfg.proposal_radius, cfg.proposal_nsample, seed_c,
             cfg.proposal_mlp, g,
             mlp2=tuple(cfg.proposal_mlp2_hidden) + (cfg.num_proposal_channels,),
-            eps=eps, samlp=samlp, dtype=dt, scatter=scatter,
+            eps=eps, samlp=samlp, dtype=dt, scatter=scatter, bq_precision=bq,
         )
         for m in self.modules():
             if isinstance(m, BatchNorm):
@@ -195,6 +218,7 @@ class VoteNet(nn.Module):
         ``sp_mesh``, points is this rank's (B, N / size, 3) slab."""
         xyz, feats = points, points
         slab = self.sp_input
+        remat = self.config.remat and self.training and torch.is_grad_enabled()
         sa_out = []
         for i in range(4):
             sa = getattr(self, f"sa{i + 1}")
@@ -202,7 +226,11 @@ class VoteNet(nn.Module):
                 xyz = feats = comm.all_gather(xyz, self.sp_group).permute(1, 0, 2, 3).flatten(1, 2)
             elif sa.sp and not slab:  # a replicated input: this rank's slab of it
                 xyz, feats = point_sharding(xyz, self.sp_group), point_sharding(feats, self.sp_group)
-            xyz, feats, _ = sa(xyz, feats)
+            if remat:
+                xyz, feats, _ = checkpoint(sa, xyz, feats, use_reentrant=False, preserve_rng_state=False,
+                                           context_fn=functools.partial(_remat_contexts, sa))
+            else:
+                xyz, feats, _ = sa(xyz, feats)
             slab = False
             sa_out.append((xyz, feats))
         (_, _), (l2_xyz, l2_points), (l3_xyz, l3_points), (l4_xyz, l4_points) = sa_out

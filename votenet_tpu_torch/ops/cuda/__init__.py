@@ -100,7 +100,7 @@ def library() -> ctypes.CDLL:
             lib.votenet_fps_max_clusters.argtypes = [i32, i32]
             lib.votenet_fps_max_clusters.restype = i32
             lib.votenet_ball_query.argtypes = [
-                ptr, ptr, i32, i32, i32, f32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr
+                ptr, ptr, i32, i32, i32, f32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr
             ]
             lib.votenet_ball_query.restype = i32
             lib.votenet_scatter_add.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
@@ -111,6 +111,8 @@ def library() -> ctypes.CDLL:
                 i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
             ]
             lib.votenet_samlp.restype = i32
+            lib.votenet_nms3d.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr, ptr]
+            lib.votenet_nms3d.restype = i32
             lib.votenet_error_string.argtypes = [i32]
             lib.votenet_error_string.restype = ctypes.c_char_p
             _lib = lib

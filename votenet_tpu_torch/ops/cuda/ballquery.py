@@ -27,15 +27,25 @@ The emit variant (:func:`query_ball_point_emit_xyz_cuda`, after the prototype
 grouped coordinates gxyz (B, M, nsample, 3) f32, bit-equal to
 ``group_point(xyz1, idx)``: the kernel copies them from its point tiles as
 it appends the hits, or the merge pass copies them by index.
+
+The fast_bf16 variant (``mode="fast_bf16"``, ``Config.bq_precision``) is
+the port's own kernel for a mode that reaches no Pallas kernel in the JAX
+package: its hit test is ``ops.common.pairwise_sqdist_fast_bf16`` (the TPU
+semantics of the JAX XLA twin's matmul expansion, see there) against the
+same ``r2``, on the same selection, padding and routes. Its launches count
+in ``query_ball_point_cuda.fast_bf16.launches``.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
-from votenet_tpu_torch.ops.common import pairwise_sqdist
+from votenet_tpu_torch.ops.common import pairwise_sqdist, pairwise_sqdist_fast_bf16
 from votenet_tpu_torch.ops.cuda import check_launch, library, require_cuda, sm_count
+from votenet_tpu_torch.ops.dispatch import check_bq_mode
 
 # query rows per chunk of the plain version: bounds its (chunk, N) temporaries
 _PLAIN_ROWS = 256
@@ -70,9 +80,13 @@ def _first_k_plain(hit: torch.Tensor, nsample: int):
     return finalize_first_k(pos.to(torch.int32), torch.clamp(cum[:, -1], max=nsample), nsample)
 
 
-def query_ball_point_plain(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
+def query_ball_point_plain(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                           mode: str = "exact"):
     """Plain PyTorch ball query: points (B, N, 3), queries (B, M, 3) ->
-    idx (B, M, nsample) int32, cnt (B, M) int32."""
+    idx (B, M, nsample) int32, cnt (B, M) int32. ``mode`` "fast_bf16" takes
+    the hit test of :func:`~votenet_tpu_torch.ops.common.pairwise_sqdist_fast_bf16`."""
+    check_bq_mode(mode)
+    sqdist = pairwise_sqdist if mode == "exact" else pairwise_sqdist_fast_bf16
     xyz1 = xyz1.float()
     xyz2 = xyz2.float()
     B, M = xyz2.shape[0], xyz2.shape[1]
@@ -81,7 +95,7 @@ def query_ball_point_plain(radius: float, nsample: int, xyz1: torch.Tensor, xyz2
     cnt = torch.empty((B, M), dtype=torch.int32, device=xyz1.device)
     for b in range(B):
         for m0 in range(0, M, _PLAIN_ROWS):
-            hit = pairwise_sqdist(xyz2[b, m0 : m0 + _PLAIN_ROWS], xyz1[b]) < r2
+            hit = sqdist(xyz2[b, m0 : m0 + _PLAIN_ROWS], xyz1[b]) < r2
             idx[b, m0 : m0 + _PLAIN_ROWS], cnt[b, m0 : m0 + _PLAIN_ROWS] = _first_k_plain(hit, nsample)
     return idx, cnt
 
@@ -112,9 +126,10 @@ def ballquery_route(B: int, N: int, M: int, sms: int, segments: int | None = Non
 
 
 def _launch(name: str, radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
-            segments: int | None, emit: bool):
+            segments: int | None, emit: bool, mode: str = "exact"):
     """Check the arguments and launch ``votenet_ball_query``: (idx, cnt),
     and with ``emit`` the grouped coordinates after them."""
+    check_bq_mode(mode)
     require_cuda(name, xyz1, 3, 3)
     require_cuda(name, xyz2, 3, 3)
     B, N, _ = xyz1.shape
@@ -137,6 +152,7 @@ def _launch(name: str, radius: float, nsample: int, xyz1: torch.Tensor, xyz2: to
     with torch.cuda.device(xyz1.device):
         err = lib.votenet_ball_query(
             xyz1.data_ptr(), xyz2.data_ptr(), B, N, M, radius_sq(radius), nsample, nseg, seg_pts,
+            int(mode == "fast_bf16"),
             None if seg_idx is None else seg_idx.data_ptr(), None if seg_cnt is None else seg_cnt.data_ptr(),
             idx.data_ptr(), cnt.data_ptr(), None if gxyz is None else gxyz.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -146,21 +162,27 @@ def _launch(name: str, radius: float, nsample: int, xyz1: torch.Tensor, xyz2: to
 
 
 def query_ball_point_cuda(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
-                          segments: int | None = None):
-    """Launch the ball-query kernel on contiguous f32 CUDA tensors: points
-    (B, N, 3), queries (B, M, 3) -> idx (B, M, nsample) int32, cnt (B, M) int32.
+                          segments: int | None = None, mode: str = "exact"):
+    """Launch the ball-query kernel's ``mode`` variant ("exact" or
+    "fast_bf16") on contiguous f32 CUDA tensors: points (B, N, 3), queries
+    (B, M, 3) -> idx (B, M, nsample) int32, cnt (B, M) int32.
 
     ``segments`` forces the route (:func:`ballquery_route`); by default the
     card's SM count picks it. Raises for a tensor that is not on a CUDA
-    device; it never computes the plain version. Adds one to
-    ``query_ball_point_cuda.launches`` per call (one or, split, two kernels).
+    device; it never computes the plain version. Adds one per call (one or,
+    split, two kernels) to ``query_ball_point_cuda.launches`` (exact) or
+    ``query_ball_point_cuda.fast_bf16.launches``.
     """
-    out = _launch("query_ball_point_cuda", radius, nsample, xyz1, xyz2, segments, emit=False)
-    query_ball_point_cuda.launches += 1
+    out = _launch("query_ball_point_cuda", radius, nsample, xyz1, xyz2, segments, emit=False, mode=mode)
+    if mode == "exact":
+        query_ball_point_cuda.launches += 1
+    else:
+        query_ball_point_cuda.fast_bf16.launches += 1
     return out
 
 
 query_ball_point_cuda.launches = 0
+query_ball_point_cuda.fast_bf16 = SimpleNamespace(launches=0)  # the fast_bf16 variant's own count
 
 
 def query_ball_point_emit_xyz_plain(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):

@@ -5,7 +5,10 @@ module docstring, the authoritative statement): a point is a hit iff
 ``d2 < r2`` strictly on difference-form f32 distances, with
 ``r2 = float32(radius) * float32(radius)`` squared in f32; the output takes
 the first ``nsample`` hits in index order; slots past the last hit repeat the
-first hit; an empty ball is index 0; counts saturate at ``nsample``.
+first hit; an empty ball is index 0; counts saturate at ``nsample``. The
+"fast_bf16" mode (``ops.dispatch.bq_precision``) changes the hit test only:
+``ops.common.pairwise_sqdist_fast_bf16``, the TPU semantics of the JAX
+package's matmul expansion, against the same ``r2``.
 
 ``group_point`` is differentiable with respect to its points: its backward is
 the scatter-add of ``csrc/scatter.cu`` for a CUDA tensor, the plain version
@@ -16,33 +19,39 @@ from __future__ import annotations
 
 import torch
 
-from votenet_tpu_torch.ops.common import kernel_route
+from votenet_tpu_torch.ops.common import kernel_route, pairwise_sqdist
 from votenet_tpu_torch.ops.cuda.ballquery import (
     finalize_first_k,
     query_ball_point_cuda,
     query_ball_point_emit_xyz_cuda,
     query_ball_point_emit_xyz_plain,
     query_ball_point_plain,
+    radius_sq,
 )
 from votenet_tpu_torch.ops.cuda.scatter import scatter_add_cuda, scatter_add_plain
+from votenet_tpu_torch.ops.dispatch import bq_precision
 
 __all__ = ["query_ball_point", "query_ball_point_emit_xyz", "merge_first_k", "finalize_first_k", "group_point",
-           "scatter_add"]
+           "scatter_add", "query_ball_point_topk", "knn_point", "select_top_k"]
 
 
-def query_ball_point(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
+def query_ball_point(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                     mode: str | None = None):
     """Fixed-radius neighbourhood query.
 
     xyz1: (B, N, 3) points, xyz2: (B, M, 3) queries -> idx (B, M, nsample)
     int32 and cnt (B, M) int32. A CPU tensor runs the plain version, a CUDA
-    tensor the kernel of ``csrc/ballquery.cu``. The inputs are detached: the
-    query has no gradient (the proposal layer queries votes, which do).
+    tensor the kernel of ``csrc/ballquery.cu``. ``mode`` is "exact" or
+    "fast_bf16"; None reads ``ops.dispatch.bq_precision()`` at this call.
+    The inputs are detached: the query has no gradient (the proposal layer
+    queries votes, which do).
     """
+    mode = bq_precision() if mode is None else mode
     xyz1 = xyz1.detach().float()
     xyz2 = xyz2.detach().float()
     if kernel_route(xyz1, "query_ball_point") == "cuda":
-        return query_ball_point_cuda(radius, nsample, xyz1.contiguous(), xyz2.contiguous())
-    return query_ball_point_plain(radius, nsample, xyz1, xyz2)
+        return query_ball_point_cuda(radius, nsample, xyz1.contiguous(), xyz2.contiguous(), mode=mode)
+    return query_ball_point_plain(radius, nsample, xyz1, xyz2, mode)
 
 
 def query_ball_point_emit_xyz(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
@@ -147,3 +156,50 @@ def group_point(
     runs at the feature width (128/256, not 131/259).
     """
     return _GroupPoint.apply(points, idx, grad_skip_prefix, scatter)
+
+
+# The reference API's other grouping ops (``votenet_tpu/ops/grouping.py:59,
+# 548, 561``). No model path calls them and none reaches a Pallas kernel in
+# the JAX package: plain PyTorch on every device, no gradient.
+
+
+def query_ball_point_topk(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """The readable oracle of the ball query (the JAX package's
+    ``query_ball_point_topk``): hits by the exact difference form against
+    ``radius_sq(radius)``, the ``nsample`` smallest of the keys "index if a
+    hit, else N", then the reference padding. Same results as
+    :func:`query_ball_point` in "exact" mode. nsample <= N."""
+    xyz1 = xyz1.detach().float()
+    xyz2 = xyz2.detach().float()
+    N = xyz1.shape[1]
+    hit = pairwise_sqdist(xyz2, xyz1) < radius_sq(radius)  # (B, M, N), strict
+    iota = torch.arange(N, dtype=torch.int32, device=xyz1.device)
+    key = torch.where(hit, iota, torch.full_like(iota, N))
+    idx_sorted = torch.sort(key, dim=-1).values[..., :nsample]  # the first hits, sentinel-padded
+    idx = torch.where(idx_sorted >= N, idx_sorted[..., :1], idx_sorted)
+    idx = torch.where(idx >= N, torch.zeros_like(idx), idx)  # an empty ball -> 0
+    cnt = torch.clamp(hit.sum(dim=-1), max=nsample).to(torch.int32)
+    return idx, cnt
+
+
+def select_top_k(k: int, dist: torch.Tensor):
+    """Sort each row of ``dist`` (B, M, N) ascending (the reference's
+    partial selection sort, tf_grouping.py:22-31; the JAX package returns the
+    full stable sort, a refinement, and so does this) -> (idx (B, M, N)
+    int32, the sorted distances). Equal distances keep index order. ``k`` is
+    the reference's and orders nothing more than the full sort does."""
+    del k
+    order = torch.sort(dist, dim=-1, stable=True).indices
+    return order.to(torch.int32), torch.gather(dist, -1, order)
+
+
+def knn_point(k: int, xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """k nearest points by exact squared distance: xyz1 (B, N, 3) points,
+    xyz2 (B, M, 3) queries -> (dist2, idx), each (B, M, k), ascending.
+
+    ``lax.top_k`` (the JAX package's) puts the lower index first among equal
+    distances; ``torch.topk`` promises no order there, so this takes the
+    first k of a stable ascending sort, which does."""
+    d2 = pairwise_sqdist(xyz2.detach().float(), xyz1.detach().float())  # (B, M, N)
+    vals, order = torch.sort(d2, dim=-1, stable=True)
+    return vals[..., :k], order[..., :k].to(torch.int32)

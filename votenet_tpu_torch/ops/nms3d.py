@@ -5,11 +5,16 @@ Semantics: candidates are the boxes whose objectness logit[1] > logit[0]
 is kept iff no kept candidate of higher priority in the same batch row has
 IoU strictly above the threshold.
 
-The port always builds the dense (B, N, N) IoU matrix. The JAX package picks
-a compaction tier (64, 160 or dense) with ``lax.cond`` on the candidate
-count; the tiers give the same keep mask by construction (suppression flows
-only from higher to lower priority among candidates), so they only save IoU
-work. Choosing a tier eagerly would cost one more host sync.
+Both routes build the dense (B, N, N) IoU matrix with the same PyTorch code
+(``box3d_iou_matrix``), so the threshold test sees the same floats. On a
+CUDA tensor the greedy is the kernel of ``csrc/nms3d.cu``: one launch, no
+host sync (``ops/cuda/nms3d.py``). On a CPU tensor it is the JAX package's
+Jacobi fixpoint, one host sync a round. The JAX package picks a compaction
+tier (64, 160 or dense) with ``lax.cond`` on the candidate count; the tiers
+give the same keep mask by construction (suppression flows only from higher
+to lower priority among candidates), so they only save IoU work. Choosing a
+tier here would need the count on the host, one sync a call, which is what
+the kernel removes: the port has no tiers.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from votenet_tpu_torch.ops.common import kernel_route
+from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
 from votenet_tpu_torch.ops.iou3d import box3d_iou_matrix
 
 
@@ -28,20 +35,30 @@ def nms3d(
 ) -> torch.Tensor:
     """Greedy oriented 3D NMS -> keep (B, N) bool.
 
-    corners (B, N, 8, 3), scores (B, N), objectness (B, N, 2).
-
-    The greedy is solved as a Jacobi fixpoint: every round recomputes
-    "kept = candidate and no kept higher-priority box overlaps it" for all
-    boxes at once, and the first round that changes nothing is the greedy
-    result. Host syncs: one per round, to test for the fixpoint; the rounds
-    number the longest suppression chain plus one (at most N + 1).
+    corners (B, N, 8, 3), scores (B, N), objectness (B, N, 2). A CUDA tensor
+    runs the greedy kernel (at most ``NMS_MAX_BOXES`` boxes a row, else
+    ValueError) and syncs with the host nowhere; a CPU tensor runs
+    :func:`nms3d_jacobi_plain`; any other device raises.
     """
-    B, N = scores.shape
     cand = objectness[..., 1] > objectness[..., 0]
     iou = box3d_iou_matrix(corners, corners)  # (B, N, N)
     order = torch.argsort(scores, dim=1, descending=True, stable=True)
+    if kernel_route(scores, "nms3d") == "cuda":
+        return nms3d_greedy_cuda(iou, order, cand, iou_threshold)
+    return nms3d_jacobi_plain(iou, order, cand, iou_threshold)
+
+
+def nms3d_jacobi_plain(iou: torch.Tensor, order: torch.Tensor, cand: torch.Tensor,
+                       iou_threshold: float) -> torch.Tensor:
+    """The greedy as a Jacobi fixpoint (the JAX package's ``_jacobi_greedy``):
+    every round recomputes "kept = candidate and no kept higher-priority box
+    overlaps it" for all boxes at once, and the first round that changes
+    nothing is the greedy result. Host syncs: one per round, to test for the
+    fixpoint; the rounds number the longest suppression chain plus one (at
+    most N + 1)."""
+    B, N = cand.shape
     rank = torch.empty_like(order)
-    rank.scatter_(1, order, torch.arange(N, device=scores.device).expand(B, N))
+    rank.scatter_(1, order, torch.arange(N, device=order.device).expand(B, N))
     higher = rank[:, :, None] < rank[:, None, :]  # [b, j, i]: j before i
     # supp[b, j, i]: candidate j, once kept, suppresses i
     supp = higher & (iou > iou_threshold) & cand[:, :, None]

@@ -40,3 +40,16 @@ def gather_point(inp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather points by index: (B, N, C), (B, M) -> (B, M, C)."""
     C = inp.shape[-1]
     return torch.gather(inp, 1, idx.long()[..., None].expand(-1, -1, C))
+
+
+def prob_sample(inp_p: torch.Tensor, inp_r: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF categorical sampling (the JAX package's ``prob_sample``,
+    reference tf_sampling.py:50-57): inp_p (B, N) unnormalised
+    probabilities, inp_r (B, M) draws in [0, sum(p)) -> (B, M) int32, the
+    first index whose running sum exceeds the draw, clipped to [0, N - 1].
+    Plain PyTorch on every device (no path calls it). The running sum is
+    ``torch.cumsum`` in the input's dtype, sequential on the CPU: where a
+    float sum rounds, another order can move an index by one."""
+    cdf = torch.cumsum(inp_p, dim=-1)
+    idx = torch.searchsorted(cdf.contiguous(), inp_r.to(cdf.dtype).contiguous(), right=True)
+    return torch.clamp(idx, 0, inp_p.shape[-1] - 1).to(torch.int32)

@@ -48,13 +48,17 @@ __all__ = [
 
 
 def query_ball_point_sharded(radius: float, nsample: int, xyz1: torch.Tensor, xyz2: torch.Tensor,
-                             group: comm.Group):
+                             group: comm.Group, mode: str | None = None):
     """Ball query over a sharded cloud: xyz1 (B, N/size, 3) this rank's slab,
     xyz2 (B, M, 3) the queries (the same on every rank) -> idx (B, M,
     nsample) int32 global indices and cnt (B, M) int32, replicated; equal to
-    ``ops.query_ball_point`` over the whole cloud."""
+    ``ops.query_ball_point`` over the whole cloud in ``mode`` ("exact" or
+    "fast_bf16"; None reads ``ops.dispatch.bq_precision()`` at this call, as
+    the JAX op does, ``votenet_tpu/parallel/point_sharded.py:94-102``). The
+    hit test is per (query, point) pair in either mode, so the slabs' hits
+    are the whole cloud's."""
     n_l = xyz1.shape[1]
-    bidx, bcnt = ops.query_ball_point(radius, nsample, xyz1, xyz2)
+    bidx, bcnt = ops.query_ball_point(radius, nsample, xyz1, xyz2, mode)
     part = torch.cat([bidx + comm.index(group) * n_l, bcnt[..., None]], dim=-1)
     parts = comm.all_gather(part, group)  # (size, B, M, nsample + 1), in index order
     idx = torch.zeros_like(bidx)
@@ -141,15 +145,16 @@ def farthest_point_sample_sharded(npoint: int, xyz: torch.Tensor, group: comm.Gr
 
 
 def sample_and_group_sharded(npoint: int, radius: float, nsample: int, xyz: torch.Tensor,
-                             points: Optional[torch.Tensor], group: comm.Group, use_xyz: bool = True):
+                             points: Optional[torch.Tensor], group: comm.Group, use_xyz: bool = True,
+                             mode: str | None = None):
     """The SA layer's grouping stage over a sharded cloud: FPS, gather, ball
     query, group, centre-subtract (the JAX ``sample_and_group``, reference
     utils.py:25-61). xyz (B, N/size, 3) and points (B, N/size, C) this rank's
     slabs -> (new_xyz (B, npoint, 3), new_points (B, npoint, nsample, 3 + C
     or C or 3), idx (B, npoint, nsample) int32, grouped_xyz (B, npoint,
-    nsample, 3) centred), all replicated."""
+    nsample, 3) centred), all replicated. ``mode`` is the ball query's."""
     new_xyz = gather_point_sharded(xyz, farthest_point_sample_sharded(npoint, xyz, group), group)
-    idx, _ = query_ball_point_sharded(radius, nsample, xyz, new_xyz, group)
+    idx, _ = query_ball_point_sharded(radius, nsample, xyz, new_xyz, group, mode)
     if points is None:
         grouped_xyz = group_point_sharded(xyz, idx, group) - new_xyz[:, :, None, :]
         return new_xyz, grouped_xyz, idx, grouped_xyz
