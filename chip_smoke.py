@@ -4,14 +4,18 @@ paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --profile  # also: torch.profiler over 3 training steps and one eval pass, each mode
-    python3 chip_smoke.py --kernel-times  # phases 1-3, 9, 16-18, 23, 22's and 26's kernels alone (no final line)
+    python3 chip_smoke.py --kernel-times  # phases 1-3, 9, 16-18, 23, 31, 22's and 26's kernels alone (no final line)
+    python3 chip_smoke.py --head-times  # the detection head's times alone, public names only (no final line)
     python3 chip_smoke.py --multi-device  # phases 1-2 and 19-21 alone (no final line)
 
 ``--kernel-times`` also runs from a copy of this file placed at the root of
 another checkout of the port (an earlier commit's archive), so that both
 commits' kernels are timed by the same code in one call: phase 3 then skips
 the ball query's route rows where that checkout has one route, and phases
-16-18, 22, 23 and 26 where it lacks the kernel.
+16-18, 23 and 31, 22 and 26 where it lacks the kernel (or, for the last
+three, this file's decode kernel). ``--head-times`` runs from such a copy
+too: it times the decode, the IoU matrix, ``ops.nms3d`` and
+``predict_boxes`` through names every checkout since the NMS kernel has.
 
 Phases, each checked; any failure exits non-zero without the final line:
 
@@ -154,22 +158,27 @@ Phases, each checked; any failure exits non-zero without the final line:
    train-mode forward of the whole model with sa1 sharded, its end points
    within REL_TOL of scale of the single-device forward's (FPS 4 launches:
    sa1's is the loop; the ball query 5).
-22. NMS: the greedy kernel (``csrc/nms3d.cu``) on the decoded boxes of
-   phase 4's seed-0 model and of phase 10's trained checkpoint, B=1 and 8:
-   its keep mask equal to the plain loop's on the card and to the CPU loop's
-   on the card's IoU, and on the CPU's IoU to the CPU's ``ops.nms3d``; the
-   gates of the device-independent mask: the card's IoU floats (the kernel
-   of ``csrc/iou3d.cu``) equal to the CPU's, no IoU pair on either side of
-   the threshold between the devices, and the CPU's mask equal to the
-   card's (0 boxes differ); the decode's corners on the card against the
-   CPU's from the same end points printed (ulps; not gated); ``ops.nms3d``
-   on the card under the sync debug mode "error"; device us of the kernel
-   and the loop. Then decode + NMS apart at B=1 and 8: decode and the IoU
-   matrix (the kernel and its eager plain version, device ms),
-   ``predict_boxes`` through either route, the packed fetch and the host
-   decode (host ms); phase 10's eval pass (samlp on) and ``detect()`` by
-   route, in turns. Serving (phase 4) and eval (phase 10) launch the greedy
-   and the IoU kernel once a forward each.
+22. NMS: the greedy kernel (``csrc/nms3d.cu``: its own order and
+   candidates from the scores and objectness) on the decoded boxes of phase
+   4's seed-0 model and of phase 10's trained checkpoint, B=1 and 8: its
+   keep mask equal to the fixpoint's (candidates, ``torch.argsort``, the
+   Jacobi loop) on the card and on the CPU on the card's IoU, and on the
+   CPU's IoU to the CPU's ``ops.nms3d``; the gates of the device-independent
+   head, from the same end points: the decode's outputs (corners included:
+   0 floats differ) equal to the CPU's bit for bit, the card's IoU floats
+   (the kernel of ``csrc/iou3d.cu``) equal to the CPU's from the CPU's own
+   corners, no IoU pair on either side of the threshold between the
+   devices, the CPU's mask equal to the card's (0 boxes differ), and every
+   output of ``predict_boxes`` equal; ``ops.nms3d`` and ``predict_boxes`` on
+   the card under the sync debug mode "error"; device us of the kernel
+   (beside its earlier time) and of the plain version. Then decode + NMS
+   apart at B=1 and 8: the decode and the IoU matrix (each kernel and its
+   eager plain version) and ``predict_boxes`` (device ms), ``predict_boxes``
+   through each route (kernel; the decode's plain version; the greedy's),
+   the packed fetch and the host decode (host ms); phase 10's eval pass
+   (samlp on) and ``detect()`` by route, in turns. Serving (phase 4) and
+   eval (phase 10) launch the decode, the IoU kernel and the greedy once a
+   forward each.
 23. The ball query's fast_bf16 variant (``bq_precision="fast_bf16"``: the
    TPU semantics of the JAX package's matmul-expansion hit test) at the five
    main-path shapes, B=1 and 8, through both routes: bit-equal to its plain
@@ -192,13 +201,16 @@ Phases, each checked; any failure exits non-zero without the final line:
    and statistics within REL_TOL of scale); ``knn_point``, ``select_top_k``,
    ``query_ball_point_topk`` and ``prob_sample`` bit-equal.
 26. The IoU matrix kernel (``csrc/iou3d.cu``) on phase 22's decoded boxes,
-   B=1 and 8: equal (==) to its plain version on the card and on the CPU;
-   device us of the kernel and of the plain version's eager passes beside
-   the bound.
+   B=1 and 8: the self-matrix's triangle (the corners given twice, as NMS
+   does) equal bit for bit to the full route (a copy as the second
+   argument) and (==) to its plain version on the card and on the CPU;
+   device us of the triangle (beside its bound and its earlier time), of
+   the full route and of the plain version's eager passes.
 27. NMS past 1024 boxes a row (N = 1025, 1056, 2048, 4096; B=2; seeded
    boxes in a room grown with N): the greedy kernel's workspace route equal
    to the plain walk and the fixpoint on the card, ``ops.nms3d`` on the card
-   (no host sync) to the CPU's; device us of the greedy, ms of the op.
+   (no host sync) to the CPU's; device us of the greedy beside its earlier
+   time, ms of the op.
 28. ``three_nn_streaming`` against ``three_nn_dense`` at B=8, 20480 ->
    2048 points, and ``query_ball_point_streaming`` and ``_dense`` against
    the ball-query kernel at sa1's shape, B=8: bit-equal; device ms and peak
@@ -215,6 +227,11 @@ Phases, each checked; any failure exits non-zero without the final line:
    steps an epoch: metrics fetched at step 8), 2 epochs, against 1, both under
    deterministic algorithms: the checkpoints byte-equal, each run's ms a
    step, the K=4 run's launches.
+31. The decode kernel (``csrc/decode.cu``) on the end points of phase 4's
+   seed-0 model and of phase 10's trained checkpoint, B=1 and 8: every
+   output equal bit for bit to its plain version's on the card and on the
+   CPU; device us of the kernel and of the plain version's eager passes
+   beside the bound. It runs before phase 22.
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
@@ -226,9 +243,12 @@ variants' ``launches`` are their phase's (16's eval, 17's and 18's checks)
 and ``production_ms`` the production kernel's sum beside them. The port's
 own kernels follow: ``nms3d`` (``launches`` phase 4's serving path, 6
 forwards; ``ms`` the greedy of one B=8 forward of the trained checkpoint,
-``plain_ms`` the plain loop's on the card), ``iou3d`` (``launches`` phase
-4's, ``ms`` and ``plain_ms`` the kernel's and its eager plain version's on
-the trained checkpoint's B=8 boxes, phase 26) and ``ballquery_fast_bf16``
+``plain_ms`` its plain version's on the card: the candidates, the argsort
+and the fixpoint), ``iou3d`` (``launches`` phase 4's, ``ms`` and
+``plain_ms`` the kernel's triangle and its eager plain version's on the
+trained checkpoint's B=8 boxes, phase 26), ``decode`` (``launches`` phase
+4's, ``ms`` and ``plain_ms`` on the trained checkpoint's B=8 end points,
+phase 31) and ``ballquery_fast_bf16``
 (``launches`` phase 23's serving forward; ``production_ms`` the exact
 kernel's).
 Kernel times are device times:
@@ -251,11 +271,15 @@ multiply-add plus 3 per element of each affine + ReLU and 1 per pooled
 element at 67 TFLOP/s; its bf16 variant 2 per multiply-add at 989 TFLOP/s
 (bf16). The emit variant: the ball query's, plus 12 bytes written a slot.
 The fast_bf16 ball query: the exact one's (9 operations a test). The NMS
-greedy: the IoU rows of the run's candidates read (a non-candidate's row
-is not needed), 4 + 1 bytes of order and candidate in and 1 of keep out a
-box; one threshold test an IoU read. The IoU matrix: IOU_PAIR_OPS f32
-operations a pair and IOU_BOX_OPS a box (counted from the kernel's
-formulation, below), the corners read and the matrix written.
+greedy: the IoUs the run's candidates need read (each candidate's with the
+boxes after it in the order: a non-candidate's row is not needed), 4 bytes
+of score and 8 of objectness in and 1 of keep out a box; one threshold
+test an IoU read and one comparison a pair to rank. The IoU matrix:
+IOU_PAIR_OPS f32 operations a pair and IOU_BOX_OPS a box (counted from the
+kernel's formulation, below), the corners read and the matrix written; the
+self-matrix NMS asks for needs N (N + 1) / 2 pairs. The decode: the head's
+channels and centres read and its 34 words a proposal written;
+DECODE_OPS and 2 a compared score a proposal.
 """
 
 from __future__ import annotations
@@ -536,9 +560,9 @@ def phase_serve(cfg, scenes, predictor, label="phase 4"):
     predictor.detect(scenes[0]["points"])
     torch.cuda.synchronize()
     counters = {k: c for k, c in eval_counters().items()
-                if k in ("fps", "ballquery", "ballquery_fast_bf16", "nms", "iou3d")}
+                if k in ("fps", "ballquery", "ballquery_fast_bf16", "nms", "iou3d", "decode")}
     bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
-    per_forward = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "nms": 1, "iou3d": 1} | {bq: 5}
+    per_forward = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "nms": 1, "iou3d": 1, "decode": 1} | {bq: 5}
 
     def counts():
         return {k: c.launches for k, c in counters.items()}
@@ -956,13 +980,14 @@ def phase_samlp(cfg, scenes, state_dict, report, f32_bound):
 
 
 def eval_counters():
+    from votenet_tpu_torch.ops.cuda.decode import decode_proposals_cuda
     from votenet_tpu_torch.ops.cuda.iou3d import box3d_iou_matrix_cuda
     from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
     from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda
 
     return {**{k: v for k, v in train_counters().items() if not k.startswith("scatter")},
             "samlp": fused_sa_mlp_pool_cuda, "samlp_bf16": fused_sa_mlp_pool_cuda.bf16, "nms": nms3d_greedy_cuda,
-            "iou3d": box3d_iou_matrix_cuda}
+            "iou3d": box3d_iou_matrix_cuda, "decode": decode_proposals_cuda}
 
 
 def same_detections(a, b):
@@ -981,7 +1006,8 @@ def same_detections(a, b):
 def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, label="phase 10", beside=None,
                samlp_counter="samlp"):
     """Evaluator over 16 scenes on the card, samlp off then on, each forward
-    launching fps 5, the ball query 5 (on the Config's variant), nms 1 and
+    launching fps 5, the ball query 5 (on the Config's variant), the decode,
+    the IoU and nms 1 each, and
     samlp 0 (off) or ``samlp_per_forward``
     (on: the fused kernel runs the f32 SA layers only) on the counter
     ``samlp_counter`` ("samlp_bf16": the bf16-operand variant), 0 on the
@@ -1029,7 +1055,7 @@ def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, l
         launches = {k: c.launches for k, c in counters.items()}
         bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
         want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "samlp": 0, "samlp_bf16": 0, "nms": 1,
-                "iou3d": 1}
+                "iou3d": 1, "decode": 1}
         want[bq] = 5
         want[samlp_counter] = samlp_per_forward if mode == "on" else 0
         for i, d in enumerate(per_forward):
@@ -1550,7 +1576,7 @@ def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label=
     want = {k: per_step[k] * steps for k in ("fps", "ballquery", "ballquery_fast_bf16", "scatter",
                                              "scatter_fast_bf16")}
     want = want | {"fps": want["fps"] + 5 * fwd, bq: want[bq] + 5 * fwd, "samlp": 5 * fwd, "samlp_bf16": 0,
-                   "nms": fwd, "iou3d": fwd}
+                   "nms": fwd, "iou3d": fwd, "decode": fwd}
     records = stats[0] + stats[1]
     checks = {
         "resumed from epoch 2": "resumed from epoch 2" in outs[1][0],
@@ -1955,39 +1981,65 @@ def detection_models(cfg, scenes, state_dict):
     return trained, [("phase-4", seeded.model, scenes), ("phase-10", trained, synthetic_scenes(SEED, cfg, EVAL_SCENES))]
 
 
-def nms_bound(B, N, n_cand):
-    """The greedy's least time: the IoU rows of this run's ``n_cand``
-    candidates read once (a non-candidate suppresses nothing, so its row is
-    not needed), the order (int32), candidates and keep mask (a byte each)
-    once; one threshold test an IoU read."""
-    return bound_ms(float(n_cand * N), n_cand * N * 4.0 + B * N * 6.0)
+def nms_reads(scores, obj):
+    """The IoUs the greedy reads on this data: the candidate at order
+    position p needs its IoUs with the N - 1 - p boxes after it."""
+    import torch
+
+    N = scores.shape[1]
+    order = torch.argsort(scores.cpu(), dim=1, descending=True, stable=True)
+    cand = (obj[..., 1] > obj[..., 0]).cpu().gather(1, order)
+    return int(((N - 1 - torch.arange(N)) * cand).sum())
+
+
+def nms_bound(B, N, reads):
+    """The greedy's least time: the scores (4 bytes), the objectness (8) and
+    the keep mask (1) a box, the ``reads`` IoUs this run's candidates need
+    (4 bytes each); one threshold test an IoU read and one comparison a
+    pair of boxes to rank them."""
+    return bound_ms(float(reads + B * N * N), reads * 4.0 + B * N * 13.0)
+
+
+# The head's kernel times of record before this slice's redesigns of the
+# greedy and the IoU matrix (H100 80GB HBM3, 700.00 W; chip_smoke.py's
+# phases 22, 26 and 27 of PR 10-11, PERF.md section 6), printed beside this
+# run's as "earlier -> now".
+EARLIER_US = {("nms3d", "phase-10", 8): 20.7, ("iou3d", "phase-10", 8): 33.8, ("iou3d", "phase-4", 8): 47.3,
+              ("nms3d", "N=1025", 2): 170.7, ("nms3d", "N=1056", 2): 177.9, ("nms3d", "N=2048", 2): 430.5,
+              ("nms3d", "N=4096", 2): 972.8}
+
+
+def earlier_now(kernel, layer, B, ms):
+    if (kernel, layer, B) in EARLIER_US:
+        print(f"  {kernel} {layer} B={B}: earlier {EARLIER_US[kernel, layer, B]:.1f} us (H100 80GB HBM3, 700.00 W, "
+              f"PERF.md) -> now {ms * 1e3:.1f} us")
 
 
 @contextlib.contextmanager
 def decode_nms_route(route):
-    """Within the block decode + NMS take ``route``: "kernel" (as shipped),
-    "loop" (``ops.nms3d`` runs the plain loop on a CUDA tensor, the route
-    before the kernel) or "copy" (the kernel, with the decode copying the
-    class mean sizes from the host at every call, as before): the routes
-    timed side by side in one process."""
+    """Within the block decode + NMS take ``route``: "kernel" (as shipped:
+    three launches), "loop" (the greedy's plain version on the card: the
+    candidates, ``torch.argsort`` and the fixpoint, one host sync a round)
+    or "plain_decode" (the decode's plain version on the card's tensors,
+    some 80 eager launches): the routes timed side by side in one process."""
     import importlib
 
     import torch
 
-    from votenet_tpu_torch.data.geometry import CLASS_MEAN_SIZE
     from votenet_tpu_torch.ops.nms3d import nms3d_jacobi_plain
 
     nms_mod = importlib.import_module("votenet_tpu_torch.ops.nms3d")
     dec_mod = importlib.import_module("votenet_tpu_torch.models.decode")
-    saved = nms_mod.nms3d_greedy_cuda, dec_mod.class_mean_size
+    saved = nms_mod.nms3d_greedy_cuda, dec_mod.kernel_route
     if route == "loop":
-        nms_mod.nms3d_greedy_cuda = nms3d_jacobi_plain
-    elif route == "copy":
-        dec_mod.class_mean_size = lambda device: torch.as_tensor(CLASS_MEAN_SIZE, device=device)
+        nms_mod.nms3d_greedy_cuda = lambda iou, scores, obj, thr: nms3d_jacobi_plain(
+            iou, torch.argsort(scores, dim=1, descending=True, stable=True), obj[..., 1] > obj[..., 0], thr)
+    elif route == "plain_decode":
+        dec_mod.kernel_route = lambda t, op: "cpu"
     try:
         yield
     finally:
-        nms_mod.nms3d_greedy_cuda, dec_mod.class_mean_size = saved
+        nms_mod.nms3d_greedy_cuda, dec_mod.kernel_route = saved
 
 
 def host_ms(fn, reps):
@@ -2006,13 +2058,27 @@ def host_ms(fn, reps):
     return out
 
 
+def same_floats(a, b):
+    """Equal tensors, floats compared by their bits (a NaN equals its own
+    bits, -0 differs from +0)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return torch.equal(a, b)
+
+
 def phase_nms(cfg, scenes, state_dict, report, kernels_only=False):
-    """Phase 22: the NMS greedy kernel against the plain loop on the card and
+    """Phase 22: the NMS greedy kernel against the fixpoint on the card and
     the CPU's keep mask, on the decoded boxes of phase 4's seed-0 model and
-    of phase 10's trained checkpoint, B=1 and 8; no host sync inside
-    ``ops.nms3d`` on the card; then decode + NMS apart (decode, IoU, the
-    greedy each route, the packed fetch, the host decode), phase 10's eval
-    pass and ``detect()`` by route."""
+    of phase 10's trained checkpoint, B=1 and 8; the head on the card
+    against the CPU from the same end points (decode, IoU, masks,
+    ``predict_boxes``: gates); no host sync inside ``ops.nms3d`` or
+    ``predict_boxes`` on the card; then decode + NMS apart (decode, IoU,
+    ``predict_boxes`` each route, the packed fetch, the host decode), phase
+    10's eval pass and ``detect()`` by route."""
     import torch
 
     from votenet_tpu_torch import ops
@@ -2020,65 +2086,77 @@ def phase_nms(cfg, scenes, state_dict, report, kernels_only=False):
     from votenet_tpu_torch.eval import DeviceSceneCache, Evaluator, make_packed_predict_fn
     from votenet_tpu_torch.eval.evaluator import decode_batch_predictions
     from votenet_tpu_torch.models import VoteNet, predict_boxes
-    from votenet_tpu_torch.models.decode import decode_proposals
+    from votenet_tpu_torch.models.decode import decode_proposals, decode_proposals_plain
     from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
     from votenet_tpu_torch.ops.iou3d import box3d_iou_matrix_plain
     from votenet_tpu_torch.ops.nms3d import nms3d_jacobi_plain
     from votenet_tpu_torch.predictor import VoteNetPredictor
 
-    print("phase 22: NMS greedy kernel vs the plain loop on the card and the CPU's mask (CUDA events)")
+    print("phase 22: NMS greedy kernel vs the fixpoint on the card and the CPU's mask; the head on the card "
+          "against the CPU (CUDA events)")
     print(TABLE_HEAD)
     trained, cases = detection_models(cfg, scenes, state_dict)
     eval_scenes = cases[1][2]
     checks = {}
     thr = cfg.nms_iou
+
+    def plain_greedy(iou, scores, obj):
+        order = torch.argsort(scores, dim=1, descending=True, stable=True)
+        return nms3d_jacobi_plain(iou, order, obj[..., 1] > obj[..., 0], thr)
+
     for name, model, sc in cases:
         for B in (1, 8):
             pts = torch.from_numpy(np.stack([s["points"] for s in sc[:B]])).cuda()
             with torch.inference_mode():
                 ep = model(pts)
+                ep_cpu = {k: v.cpu() for k, v in ep.items()}
                 d = decode_proposals(ep, cfg)
-                # the decode on the CPU from the card's end points: a second source of device dependence
-                d_cpu = decode_proposals({k: v.cpu() for k, v in ep.items()}, cfg)
+                d_cpu = decode_proposals(ep_cpu, cfg)  # the CPU's own decode of the card's end points
                 corners, scores, obj = d["bboxes"], d["nms_scores"], d["objectness"]
                 cand = obj[..., 1] > obj[..., 0]
                 iou = ops.box3d_iou_matrix(corners, corners)
-                order = torch.argsort(scores, dim=1, descending=True, stable=True)
-                got = nms3d_greedy_cuda(iou, order, cand, thr)
-                loop = nms3d_jacobi_plain(iou, order, cand, thr)
-                loop_cpu = nms3d_jacobi_plain(iou.cpu(), order.cpu(), cand.cpu(), thr)
-                # the CPU's own route: its IoU floats may differ from the card's by ulps
-                cpu = ops.nms3d(corners.cpu(), scores.cpu(), obj.cpu(), thr)
-                iou_cpu = ops.box3d_iou_matrix(corners.cpu(), corners.cpu())
-                on_cpu_iou = nms3d_greedy_cuda(iou_cpu.cuda(), order, cand, thr)
+                got = nms3d_greedy_cuda(iou, scores, obj, thr)
+                loop = plain_greedy(iou, scores, obj)
+                loop_cpu = plain_greedy(iou.cpu(), scores.cpu(), obj.cpu())
+                iou_cpu = ops.box3d_iou_matrix(d_cpu["bboxes"], d_cpu["bboxes"])
+                cpu = ops.nms3d(d_cpu["bboxes"], d_cpu["nms_scores"], d_cpu["objectness"], thr)
+                on_cpu_iou = nms3d_greedy_cuda(iou_cpu.cuda(), scores, obj, thr)
+                head_cpu = predict_boxes(ep_cpu, cfg)
                 torch.cuda.synchronize()
-                torch.cuda.set_sync_debug_mode("error")  # any sync inside ops.nms3d raises
+                torch.cuda.set_sync_debug_mode("error")  # any sync inside ops.nms3d or predict_boxes raises
                 try:
                     whole = ops.nms3d(corners, scores, obj, thr)
+                    head = predict_boxes(ep, cfg)
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
                 equal = torch.equal(got, loop) and torch.equal(got.cpu(), loop_cpu) and torch.equal(whole, got)
-                k_ms = cuda_ms(lambda: nms3d_greedy_cuda(iou, order, cand, thr), 50)
-                p_ms = cuda_ms(lambda: nms3d_jacobi_plain(iou, order, cand, thr), 3)
+                k_ms = cuda_ms(lambda: nms3d_greedy_cuda(iou, scores, obj, thr), 50)
+                p_ms = cuda_ms(lambda: plain_greedy(iou, scores, obj), 3)
             n_cand, n_kept = int(cand.sum()), int(got.sum())
             crossed = int(((iou.cpu() > thr) != (iou_cpu > thr)).sum())
             differ = int((cpu != got.cpu()).sum())
-            checks[f"{name} B={B}: the kernel's keep == the loop's on the card == the CPU loop's on the card's "
-                   f"IoU == ops.nms3d on the card, {n_cand} candidates, {n_kept} kept"] = equal and 0 < n_kept <= n_cand
+            checks[f"{name} B={B}: the kernel's keep == the fixpoint's on the card == the CPU fixpoint's on the "
+                   f"card's IoU == ops.nms3d on the card, {n_cand} candidates, {n_kept} kept"] = equal and (
+                       0 < n_kept <= n_cand)
             checks[f"{name} B={B}: the kernel on the CPU's IoU == the CPU's ops.nms3d"] = torch.equal(
                 on_cpu_iou.cpu(), cpu)
-            checks[f"{name} B={B}: the IoU floats on the card (the kernel) == the CPU's (the plain version) "
-                   f"({int((iou.cpu() != iou_cpu).sum())} differ), IoU pairs on either side of the threshold "
-                   f"between the devices: {crossed}"] = torch.equal(iou.cpu(), iou_cpu) and crossed == 0
+            checks[f"{name} B={B}: the IoU floats on the card (the kernel) == the CPU's (the plain version on the "
+                   f"CPU's own corners) ({int((iou.cpu() != iou_cpu).sum())} differ), IoU pairs on either side of "
+                   f"the threshold between the devices: {crossed}"] = torch.equal(iou.cpu(), iou_cpu) and crossed == 0
             checks[f"{name} B={B}: the CPU's mask differs from the card's in {differ} boxes"] = differ == 0
             a, b = d["bboxes"].cpu(), d_cpu["bboxes"]
             ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
-            print(f"  {name} B={B}: the decode's corners, card against CPU from the same end points (not gated): "
-                  f"{int((a != b).sum())} of {a.numel()} floats differ, at most {int(ulps.max())} ulps, "
-                  f"max abs {float((a - b).abs().max()):.3g}")
+            checks[f"{name} B={B}: the decode's corners, card against CPU from the same end points: "
+                   f"{int((a != b).sum())} of {a.numel()} floats differ, at most {int(ulps.max())} ulps"] = (
+                       same_floats(a, b))
+            checks[f"{name} B={B}: every decode output on the card == the CPU's, bit for bit"] = all(
+                same_floats(d[k].cpu(), d_cpu[k]) for k in d)
+            checks[f"{name} B={B}: predict_boxes on the card == on the CPU (every output, the keep mask: "
+                   f"{int(head['keep'].sum())} kept)"] = all(same_floats(head[k].cpu(), head_cpu[k]) for k in head)
             report("nms3d", name, B, f"N={scores.shape[1]} cand={n_cand} kept={n_kept}", equal, 0, k_ms, p_ms,
-                   nms_bound(B, scores.shape[1], n_cand), total=name == "phase-10")
-    checks["ops.nms3d on the card: no host sync (sync debug mode 'error')"] = True
+                   nms_bound(B, scores.shape[1], nms_reads(scores, obj)), total=name == "phase-10")
+            earlier_now("nms3d", name, B, k_ms)
+    checks["ops.nms3d and predict_boxes on the card: no host sync (sync debug mode 'error')"] = True
     if kernels_only:
         return finish(checks, "NMS kernel checks", None)
 
@@ -2089,18 +2167,14 @@ def phase_nms(cfg, scenes, state_dict, report, kernels_only=False):
             ep = trained(pts)
             d = decode_proposals(ep, cfg)
             dec_ms = cuda_ms(lambda: decode_proposals(ep, cfg), 10)
+            dec_plain_ms = cuda_ms(lambda: decode_proposals_plain(ep, cfg), 10)
             iou_ms = cuda_ms(lambda: ops.box3d_iou_matrix(d["bboxes"], d["bboxes"]), 10)
             iou_plain_ms = cuda_ms(lambda: box3d_iou_matrix_plain(d["bboxes"], d["bboxes"]), 3)
-            both = {}
-            for route in ("kernel", "loop"):
+            head_ms = cuda_ms(lambda: predict_boxes(ep, cfg), 10)
+            routes = {}
+            for route in ("kernel", "plain_decode", "loop", "loop", "plain_decode", "kernel"):
                 with decode_nms_route(route):
-                    both[route] = host_ms(lambda: predict_boxes(ep, cfg), 10)
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")  # decode + NMS enqueue without waiting for the card
-            try:
-                predict_boxes(ep, cfg)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+                    routes.setdefault(route, []).extend(host_ms(lambda: predict_boxes(ep, cfg), 5))
             predict = make_packed_predict_fn(trained, cfg)
             out = predict(pts)
             torch.cuda.synchronize()
@@ -2113,15 +2187,14 @@ def phase_nms(cfg, scenes, state_dict, report, kernels_only=False):
                 t0 = time.perf_counter()
                 decode_batch_predictions(list(range(B)), {"packed": rows, "cnt": cnt}, {})
                 host.append((time.perf_counter() - t0) * 1e3)
-        print(f"  B={B}: decode {dec_ms:.3f} ms, IoU matrix {iou_ms:.4f} ms (the kernel; its eager plain version "
-              f"{iou_plain_ms:.3f} ms) (device); decode + NMS "
-              f"(predict_boxes, host clock) kernel route median {float(np.median(both['kernel'])):.3f} ms "
-              f"{[round(v, 3) for v in both['kernel']]}, loop route median {float(np.median(both['loop'])):.3f} "
-              f"ms {[round(v, 3) for v in both['loop']]}; packed fetch median {float(np.median(fetch)):.3f} ms, "
-              f"host decode median {float(np.median(host)):.3f} ms")
-    checks["predict_boxes on the card: no host sync (sync debug mode 'error')"] = True
+        print(f"  B={B}: decode {dec_ms:.4f} ms (the kernel; its plain version's eager passes {dec_plain_ms:.3f} "
+              f"ms), IoU matrix {iou_ms:.4f} ms (the kernel; its eager plain version {iou_plain_ms:.3f} ms), "
+              f"predict_boxes {head_ms:.4f} ms (device); predict_boxes host clock by route in turns: " + "; ".join(
+                  f"{r} median {float(np.median(v)):.3f} ms {[round(x, 3) for x in v]}" for r, v in routes.items())
+              + f"; packed fetch median {float(np.median(fetch)):.3f} ms, host decode median "
+              f"{float(np.median(host)):.3f} ms")
     # phase 10's eval pass (samlp on), whose host enqueues the next forward
-    # while the card runs this one unless NMS waits for the card
+    # while the card runs this one unless the head waits for the card
     gt_all = synthetic_gt_all(eval_scenes)
     cache = DeviceSceneCache([(int(s["data_idx"]), s["points"]) for s in eval_scenes], 8, "cuda")
     on = VoteNet(cfg.replace(samlp="on"))
@@ -2130,7 +2203,7 @@ def phase_nms(cfg, scenes, state_dict, report, kernels_only=False):
     ev = Evaluator(cfg, gt_all, batch_size=8)
     ev.predictions_for_scenes(predict, cache)  # warm-up
     passes = {}
-    for route in ("kernel", "loop", "loop", "kernel") * 2:
+    for route in ("kernel", "plain_decode", "loop", "loop", "plain_decode", "kernel") * 2:
         with decode_nms_route(route):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2141,17 +2214,105 @@ def phase_nms(cfg, scenes, state_dict, report, kernels_only=False):
         f"{r} median {float(np.median(v)):.2f} {[round(x, 2) for x in v]}" for r, v in passes.items()))
     predictor = VoteNetPredictor(cfg, state_dict, device="cuda", batch_size=1)
     detect = {}
-    for route in ("kernel", "loop", "copy", "copy", "loop", "kernel"):
+    for route in ("kernel", "plain_decode", "loop", "loop", "plain_decode", "kernel"):
         with decode_nms_route(route):
             predictor.detect(eval_scenes[0]["points"])  # warm-up
             for i in range(5):
                 t0 = time.perf_counter()
                 predictor.detect(eval_scenes[i]["points"])
                 detect.setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
-    print("  detect() ms, B=1, trained checkpoint, routes in turns (kernel: as shipped; loop: the plain loop "
-          "on the card; copy: the kernel, the decode copying the mean sizes from the host each call): " + "; ".join(
+    print("  detect() ms, B=1, trained checkpoint, routes in turns (kernel: as shipped; plain_decode: the decode's "
+          "plain version on the card; loop: the greedy's plain version on the card): " + "; ".join(
               f"{r} median {float(np.median(v)):.3f} {[round(x, 3) for x in v]}" for r, v in detect.items()))
     return finish(checks, "NMS checks", None)
+
+
+# The decode kernel's operations a proposal (csrc/decode.cu), beside the
+# argmaxes' 2 a compared score: the size 9 (the add, the floor's compare and
+# select, the product, each of 3), the centre 3, the heading 6 (the product,
+# the add, the scale, the fmod, the fix's compare and add), sin and cos 31
+# (the quadrant's product and rint, 4 parts of 2, the square, 7 and 9 for
+# the polynomials, 4 selects and negations), the half extents 3, the 8
+# corners 9 each.
+DECODE_OPS = 9 + 3 + 6 + 31 + 3 + 8 * 9
+
+
+def decode_bound(B, P, C, NH, NS, NC):
+    """The decode's least time: the head's channels and the proposal centres
+    read (C + 3 floats a proposal), the corners, centre, size, heading and
+    score written (32 floats) and the two classes (int32); DECODE_OPS and 2
+    a compared score a proposal at the f32 peak."""
+    return bound_ms(float((DECODE_OPS + 2 * (NH + NS + NC)) * B * P), B * P * (C + 3 + 32 + 2) * 4.0)
+
+
+def phase_decode(cfg, scenes, state_dict, report):
+    """Phase 31: the decode kernel (``csrc/decode.cu``) against its plain
+    version on the card and on the CPU, on the end points of phase 4's
+    seed-0 model and of phase 10's trained checkpoint, B=1 and 8: every
+    output equal bit for bit; device us of the kernel and of the plain
+    version's eager passes on the card beside the bound."""
+    import torch
+
+    from votenet_tpu_torch.models.decode import decode_proposals, decode_proposals_plain
+
+    print("phase 31: the decode kernel vs its plain version on the card and the CPU (CUDA events)")
+    print(TABLE_HEAD)
+    checks = {}
+    _, cases = detection_models(cfg, scenes, state_dict)
+    NH, NS, NC = cfg.num_heading_bin, cfg.num_size_cluster, cfg.num_class
+    for (name, model, sc), B in ((case, B) for case in cases for B in (1, 8)):
+        pts = torch.from_numpy(np.stack([s["points"] for s in sc[:B]])).cuda()
+        with torch.inference_mode():
+            ep = model(pts)
+            got = decode_proposals(ep, cfg)
+            plain = decode_proposals_plain(ep, cfg)
+            cpu = decode_proposals_plain({k: v.cpu() for k, v in ep.items()}, cfg)
+            k_ms = cuda_ms(lambda: decode_proposals(ep, cfg), 50)
+            p_ms = cuda_ms(lambda: decode_proposals_plain(ep, cfg), 10)
+        equal = all(same_floats(got[k], plain[k]) and same_floats(got[k].cpu(), cpu[k]) for k in cpu)
+        err = max(float((got[k].cpu().double() - cpu[k].double()).abs().max()) for k in cpu)
+        _, P, C = ep["proposals_output"].shape
+        checks[f"{name} B={B}: every decode output of the kernel == the plain version's on the card == on the "
+               f"CPU, bit for bit"] = equal
+        report("decode", name, B, f"P={P} C={C}", equal, err, k_ms, p_ms, decode_bound(B, P, C, NH, NS, NC),
+               total=name == "phase-10")
+    return finish(checks, "decode kernel checks", None)
+
+
+def head_times(cfg, scenes, state_dict):
+    """``--head-times``: the detection head at B=1 and 8 on the trained
+    checkpoint's end points, through public names only (``decode_proposals``,
+    ``ops.box3d_iou_matrix``, ``ops.nms3d``, ``predict_boxes``), so that a
+    copy of this file at the root of an earlier checkout times that
+    checkout's head with the same code: device ms of each (CUDA events) and
+    ``predict_boxes``' host ms through a sync (medians of 20)."""
+    import torch
+
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.data.synthetic import synthetic_scenes
+    from votenet_tpu_torch.models import VoteNet, predict_boxes
+    from votenet_tpu_torch.models.decode import decode_proposals
+
+    model = VoteNet(cfg)
+    model.load_state_dict(state_dict)
+    model.cuda()
+    eval_scenes = synthetic_scenes(SEED, cfg, EVAL_SCENES)
+    res = {}
+    for B in (1, 8):
+        pts = torch.from_numpy(np.stack([s["points"] for s in eval_scenes[:B]])).cuda()
+        with torch.inference_mode():
+            ep = model(pts)
+            d = decode_proposals(ep, cfg)
+            c, s, o = d["bboxes"], d["nms_scores"], d["objectness"]
+            res[B] = {
+                "decode_ms": cuda_ms(lambda: decode_proposals(ep, cfg), 20),
+                "iou_ms": cuda_ms(lambda: ops.box3d_iou_matrix(c, c), 20),
+                "nms_op_ms": cuda_ms(lambda: ops.nms3d(c, s, o, cfg.nms_iou), 20),
+                "predict_boxes_ms": cuda_ms(lambda: predict_boxes(ep, cfg), 20),
+                "predict_boxes_host_ms": float(np.median(host_ms(lambda: predict_boxes(ep, cfg), 20))),
+            }
+        print(f"head times B={B}: " + ", ".join(f"{k} {v:.4f}" for k, v in res[B].items()))
+    print(json.dumps({"head_times": res}))
 
 
 def phase_bq_fast(cfg, scenes, report, production_ms, state_dict=None, f32_maps=None):
@@ -2211,7 +2372,8 @@ def phase_bq_fast(cfg, scenes, report, production_ms, state_dict=None, f32_maps=
         c.launches = 0
     out = {k: v.cpu() for k, v in predictor(batch).items()}
     paths = {"serve_bq_fast_bf16": {k: c.launches for k, c in counters.items()}}
-    want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 5, "samlp": 0, "samlp_bf16": 0, "nms": 1, "iou3d": 1}
+    want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 5, "samlp": 0, "samlp_bf16": 0, "nms": 1, "iou3d": 1,
+            "decode": 1}
     checks[f"one B=8 serving forward launches {paths['serve_bq_fast_bf16']} == {want}"] = (
         paths["serve_bq_fast_bf16"] == want)
     checks["its outputs finite"] = all(torch.isfinite(out[k]).all() for k in ("bboxes", "class_scores"))
@@ -2417,30 +2579,37 @@ def phase_dead_paths(scenes):
 # ---------------------------------------------------------------- phases 26-30
 
 # The IoU kernel's operations (csrc/iou3d.cu): a pair's two boundary sums, each
-# 4 edges x (2 for the edge, 16 clips of 22: the plane's direction and the
-# start's offset 4, c0 and c1 4 each, 2 compares, the guard, the negation and
-# the division 3, lo's and hi's selects 2, the dead test 3; then 24: the
-# max and min over the planes 6, the clamps 4, the valid test 2, the clipped
-# ends 8, the cross product 3 and its select 1) plus the 3 adds over the
-# edges: 459 each; the combination 23 (the signs' products and sum, the cap,
-# the clamp, the y overlap, the volumes, the union, the division). A box's
-# area and sign once a box: 18.
-IOU_PAIR_OPS = 2 * 459 + 23
-IOU_BOX_OPS = 18
+# 16 clips of 20 (the start's offset from the plane 2, c0 and c1 4 each, 2
+# compares, the guard, the negation and the division 3, lo's and hi's
+# selects 2, the dead test 3), then 24 an edge (the max and min over the
+# planes 6, the clamps 4, the valid test 2, the clipped ends 8, the cross
+# product 3 and its select 1) and the 3 adds over the edges: 419 each; the
+# combination 19 (the signs' products and sum, the cap, the clamp, the y
+# overlap, the union, the division). Once a box: its area and sign 18, its
+# edges 8, its volume 3.
+IOU_PAIR_OPS = 2 * 419 + 19
+IOU_BOX_OPS = 18 + 8 + 3
 
 
-def iou_bound(B, N, M):
+def iou_bound(B, N, M, self_matrix=False):
     """The IoU matrix's least time: IOU_PAIR_OPS a pair and IOU_BOX_OPS a box
     at the f32 peak; the corners read (96 bytes a box) and the matrix
-    written (4 bytes a pair)."""
+    written (4 bytes a pair). The self-matrix (the same corners twice, N ==
+    M) needs N (N + 1) / 2 pairs, its N boxes read once, the whole matrix
+    written."""
+    if self_matrix:
+        return bound_ms(IOU_PAIR_OPS * B * N * (N + 1) / 2 + IOU_BOX_OPS * B * N, B * N * 96.0 + B * N * N * 4.0)
     return bound_ms(IOU_PAIR_OPS * B * N * M + IOU_BOX_OPS * B * (N + M), B * (N + M) * 96.0 + B * N * M * 4.0)
 
 
 def phase_iou(cfg, scenes, state_dict, report):
     """Phase 26: the IoU kernel against its plain version on the card and on
     the CPU, on phase 4's and phase 10's decoded boxes at B=1 and 8: the
-    matrices equal (==, element by element); device us of the kernel and of
-    the plain version's eager passes on the card, beside the bound."""
+    self-matrix's triangle (the corners given twice, as NMS gives them) and
+    the full route (a copy as the second argument) equal to each other bit
+    for bit and to the plain version (==, element by element); device us of
+    the triangle (beside its bound), of the full route (beside its own) and
+    of the plain version's eager passes on the card."""
     import torch
 
     from votenet_tpu_torch.models.decode import decode_proposals
@@ -2455,17 +2624,25 @@ def phase_iou(cfg, scenes, state_dict, report):
         pts = torch.from_numpy(np.stack([s["points"] for s in sc[:B]])).cuda()
         with torch.inference_mode():
             corners = decode_proposals(model(pts), cfg)["bboxes"].contiguous()
+            other = corners.clone()
             got = box3d_iou_matrix_cuda(corners, corners)
+            full = box3d_iou_matrix_cuda(corners, other)
             plain = box3d_iou_matrix_plain(corners, corners)
             cpu = box3d_iou_matrix_plain(corners.cpu(), corners.cpu())
             k_ms = cuda_ms(lambda: box3d_iou_matrix_cuda(corners, corners), 50)
+            f_ms = cuda_ms(lambda: box3d_iou_matrix_cuda(corners, other), 50)
             p_ms = cuda_ms(lambda: box3d_iou_matrix_plain(corners, corners), 3)
-        equal = torch.equal(got, plain) and torch.equal(got.cpu(), cpu)
+        equal = same_floats(got, full) and torch.equal(got, plain) and torch.equal(got.cpu(), cpu)
         err = float((got - plain).abs().max())
         N = corners.shape[1]
-        checks[f"{name} B={B}: kernel == plain on the card == plain on the CPU ({int((got.cpu() != cpu).sum())} "
-               f"of {cpu.numel()} floats differ from the CPU's; {int((got > 0).sum())} pairs overlap)"] = equal
-        report("iou3d", name, B, f"N=M={N}", equal, err, k_ms, p_ms, iou_bound(B, N, N), total=name == "phase-10")
+        checks[f"{name} B={B}: the triangle == the full route (bits) == plain on the card == plain on the CPU "
+               f"({int((got.cpu() != cpu).sum())} of {cpu.numel()} floats differ from the CPU's; "
+               f"{int((got > 0).sum())} pairs overlap)"] = equal
+        report("iou3d", name, B, f"N=M={N} triangle", equal, err, k_ms, p_ms, iou_bound(B, N, N, self_matrix=True),
+               total=name == "phase-10")
+        print(f"  iou3d {name} B={B}: the full route (c2 a copy) {f_ms * 1e3:.1f} us, its bound "
+              f"{max(iou_bound(B, N, N)) * 1e3:.1f} us")
+        earlier_now("iou3d", name, B, k_ms)
         if name == "phase-10" and B == 8:
             block_times(corners)
     return finish(checks, "IoU kernel checks", None)
@@ -2509,7 +2686,8 @@ def phase_nms_long(report):
     at 256): the greedy kernel's keep mask (the workspace route) equal to
     the plain walk's and the fixpoint's on the card, and ``ops.nms3d`` on the
     card (the IoU and greedy kernels, no host sync) to ``ops.nms3d`` on the
-    CPU; device us of the greedy, ms of the whole op."""
+    CPU; device us of the greedy (its rank, pack and walk launches) beside
+    its earlier time, ms of the whole op."""
     import torch
 
     from votenet_tpu_torch import ops
@@ -2534,7 +2712,7 @@ def phase_nms_long(report):
             iou = ops.box3d_iou_matrix(g[0], g[0])
             order = torch.argsort(g[1], dim=1, descending=True, stable=True)
             cand = g[2][..., 1] > g[2][..., 0]
-            got = nms3d_greedy_cuda(iou, order, cand, thr)
+            got = nms3d_greedy_cuda(iou, g[1], g[2], thr)
             walk = nms3d_greedy_plain(iou, order, cand, thr)
             fix = nms3d_jacobi_plain(iou, order, cand, thr)
             torch.cuda.synchronize()
@@ -2544,8 +2722,9 @@ def phase_nms_long(report):
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             cpu = ops.nms3d(corners, scores, obj, thr)
-            k_ms = cuda_ms(lambda: nms3d_greedy_cuda(iou, order, cand, thr), 10)
-            p_ms = cuda_ms(lambda: nms3d_jacobi_plain(iou, order, cand, thr), 1)
+            k_ms = cuda_ms(lambda: nms3d_greedy_cuda(iou, g[1], g[2], thr), 10)
+            p_ms = cuda_ms(lambda: nms3d_jacobi_plain(iou, torch.argsort(g[1], dim=1, descending=True, stable=True),
+                                                      g[2][..., 1] > g[2][..., 0], thr), 1)
             op_ms = cuda_ms(lambda: ops.nms3d(*g, thr), 5)
         n_cand, n_kept = int(cand.sum()), int(got.sum())
         equal = torch.equal(got, walk) and torch.equal(got, fix) and torch.equal(whole, got)
@@ -2554,7 +2733,8 @@ def phase_nms_long(report):
         checks[f"N={N}: ops.nms3d on the card == on the CPU ({int((whole.cpu() != cpu).sum())} boxes differ)"] = (
             torch.equal(whole.cpu(), cpu))
         report("nms3d", f"N={N}", 2, f"cand={n_cand} kept={n_kept}", equal, 0, k_ms, p_ms,
-               nms_bound(2, N, n_cand), total=False)
+               nms_bound(2, N, nms_reads(g[1], g[2])), total=False)
+        earlier_now("nms3d", f"N={N}", 2, k_ms)
         print(f"  N={N}: ops.nms3d on the card (IoU kernel + greedy) {op_ms:.3f} ms")
     checks["ops.nms3d on the card past 1024 boxes: no host sync (sync debug mode 'error')"] = True
     return finish(checks, "long-row NMS checks", None)
@@ -2834,7 +3014,8 @@ def main() -> int:
     variants = ("samlp_bf16", "ballquery_emit_xyz", "fps_noscalar", "ballquery_fast_bf16")
     stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0,
                  "bound_ms": 0.0}
-             for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d", "iou3d") + variants}
+             for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d", "iou3d", "decode")
+             + variants}
     production_ms = dict.fromkeys(variants, 0.0)  # phases 16-18: the production kernels' sums beside
 
     def report(kernel, layer, B, shape, equal, err, k_ms, p_ms, bound, l_ms=None, total=True):
@@ -2864,6 +3045,12 @@ def main() -> int:
             failed.append(name)
             return None
 
+    if "--head-times" in sys.argv[1:]:  # the head alone, public names only: to set beside another checkout's
+        state_dict = run("read checkpoint", trained_state_dict)
+        if state_dict is not None:
+            run("head times", lambda: head_times(cfg, scenes, state_dict))
+        print(card)
+        return 1 if failed else 0
     if "--multi-device" in sys.argv[1:]:  # phases 19-21 alone: their costs in a process that ran no other phase
         run("distributed path, one NCCL rank", lambda: phase_dp_world1(cfg, scenes))
         run("two ranks on one card", lambda: phase_two_ranks(cfg, scenes))
@@ -2886,9 +3073,10 @@ def main() -> int:
             run("fps noscalar", lambda: phase_fps_noscalar(cfg, scenes, report, production_ms))
         if hasattr(bq_mod.query_ball_point_cuda, "fast_bf16"):
             run("ball query fast_bf16", lambda: phase_bq_fast(cfg, scenes, report, production_ms))
-        if state_dict is not None and os.path.exists(Path(bq_mod.__file__).with_name("nms3d.py")):
+        if state_dict is not None and os.path.exists(Path(bq_mod.__file__).with_name("decode.py")):
+            # the head's kernels as this file calls them (an earlier checkout: --head-times)
+            run("decode kernel", lambda: phase_decode(cfg, scenes, state_dict, report))
             run("nms kernel", lambda: phase_nms(cfg, scenes, state_dict, report, kernels_only=True))
-        if state_dict is not None and os.path.exists(Path(bq_mod.__file__).with_name("iou3d.py")):
             run("iou kernel", lambda: phase_iou(cfg, scenes, state_dict, report))
         print(json.dumps({"kernel_times": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
                                            for k, v in stats.items() if k != "scatter"},
@@ -2937,8 +3125,9 @@ def main() -> int:
     # phases 19-21: multi-device training, each path's counts from 0 (phases 20-21: rank 0's)
     paths["dp_world1_nccl_step"] = run("distributed path, one NCCL rank", lambda: phase_dp_world1(cfg, scenes))
     paths.update(run("two ranks on one card", lambda: phase_two_ranks(cfg, scenes)) or {})
-    # phases 22-25: the NMS kernel, the fast_bf16 ball query, remat, the dead paths
+    # phases 31 and 22-25: the decode and NMS kernels, the fast_bf16 ball query, remat, the dead paths
     if state_dict is not None:
+        run("decode kernel", lambda: phase_decode(cfg, scenes, state_dict, report))
         run("nms kernel", lambda: phase_nms(cfg, scenes, state_dict, report))
     paths.update(run("ball query fast_bf16", lambda: phase_bq_fast(
         cfg, scenes, report, production_ms, state_dict=state_dict, f32_maps=f32_maps)) or {})
@@ -3059,7 +3248,14 @@ def main() -> int:
             "replaces": "votenet_tpu/ops/iou3d.py:350 box3d_iou_matrix (XLA, no Pallas kernel)",
             "launches": launches["iou3d"], "launches_eval": eval_launches["on"]["iou3d"],
             "launches_paths": path_launches("iou3d"), **measured("iou3d"), "tolerance": 0,
-            "ms_is": "the IoU matrix of one B=8 forward of the trained checkpoint",
+            "ms_is": "the IoU self-matrix (its triangle) of one B=8 forward of the trained checkpoint",
+        },
+        {
+            "name": "decode", "route": "cuda", "source": "votenet_tpu_torch/csrc/decode.cu",
+            "replaces": "votenet_tpu/models/decode.py:44 decode_proposals (XLA, no Pallas kernel)",
+            "launches": launches["decode"], "launches_eval": eval_launches["on"]["decode"],
+            "launches_paths": path_launches("decode"), **measured("decode"), "tolerance": 0,
+            "ms_is": "the decode of one B=8 forward of the trained checkpoint",
         },
         {
             "name": "ballquery_fast_bf16", "route": "cuda", "source": "votenet_tpu_torch/csrc/ballquery.cu",

@@ -846,12 +846,20 @@ def test_two_ranks_share_the_card(cuda):
 
 # ------------------------------------- NMS, the fast_bf16 ball query, remat, the dead paths
 
+def objectness_for(cand, rng):
+    """(B, N, 2) logits whose second exceeds the first exactly where ``cand``."""
+    base = rng.randn(*cand.shape).astype(np.float32)
+    gap = rng.uniform(1e-3, 1.0, cand.shape).astype(np.float32)
+    return torch.from_numpy(np.stack([base, np.where(cand, base + gap, base - gap)], -1).astype(np.float32))
+
+
 @pytest.mark.parametrize("B,N,p_cand,levels", [(1, 256, 0.3, 3), (8, 256, 0.6, 7), (3, 1000, 0.2, 2),
                                                (2, 33, 0.9, 1), (4, 1024, 0.5, 50)])
 def test_nms_kernel_matches_both_plain_versions(cuda, B, N, p_cand, levels):
     """Random IoU relations (any pattern, scores tied in ``levels`` values,
-    N off a multiple of 32 and at the 1024 limit): the kernel's keep mask
-    equals its walk's twin and the Jacobi loop's, on the card."""
+    N off a multiple of 32 and at the 1024 limit): the kernel's keep mask,
+    from its own order and candidates, equals its walk's twin and the Jacobi
+    loop's over torch.argsort's order, on the card."""
     from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda, nms3d_greedy_plain
     from votenet_tpu_torch.ops.nms3d import nms3d_jacobi_plain
 
@@ -859,8 +867,9 @@ def test_nms_kernel_matches_both_plain_versions(cuda, B, N, p_cand, levels):
     iou = torch.from_numpy(rng.rand(B, N, N).astype(np.float32)).to(cuda)
     scores = torch.from_numpy(rng.randint(0, levels, (B, N)).astype(np.float32)).to(cuda)
     order = torch.argsort(scores, dim=1, descending=True, stable=True)
-    cand = torch.from_numpy(rng.rand(B, N) < p_cand).to(cuda)
-    got = nms3d_greedy_cuda(iou, order, cand, 0.7)
+    cand_np = rng.rand(B, N) < p_cand
+    cand = torch.from_numpy(cand_np).to(cuda)
+    got = nms3d_greedy_cuda(iou, scores, objectness_for(cand_np, rng).to(cuda), 0.7)
     torch.cuda.synchronize()
     assert torch.equal(got, nms3d_greedy_plain(iou, order, cand, 0.7))
     assert torch.equal(got, nms3d_jacobi_plain(iou, order, cand, 0.7))
@@ -901,8 +910,7 @@ def test_nms_on_the_card_syncs_nowhere_and_matches_cpu(cuda, B):
     cpu = ops.nms3d(corners, scores, obj, 0.25)
     assert torch.equal(keep.cpu(), cpu)
     iou_cpu = ops.box3d_iou_matrix(corners, corners).to(cuda)
-    order = torch.argsort(g[1], dim=1, descending=True, stable=True)
-    assert torch.equal(nms3d_greedy_cuda(iou_cpu, order, g[2][..., 1] > g[2][..., 0], 0.25).cpu(), cpu)
+    assert torch.equal(nms3d_greedy_cuda(iou_cpu, g[1], g[2], 0.25).cpu(), cpu)
     assert 0 < int(keep.sum()) < int((obj[..., 1] > obj[..., 0]).sum())
 
 
@@ -933,8 +941,8 @@ def test_nms_kernel_takes_long_rows(cuda):
     from votenet_tpu_torch.ops.cuda.nms3d import NMS_SMEM_BOXES, nms3d_greedy_cuda
 
     n = NMS_SMEM_BOXES + 1
-    keep = nms3d_greedy_cuda(torch.zeros((1, n, n), device=cuda), torch.arange(n, device=cuda)[None],
-                             torch.ones((1, n), dtype=torch.bool, device=cuda), 0.25)
+    obj = torch.tensor([0.0, 1.0], device=cuda).expand(1, n, 2)  # every box a candidate; a stride-0 view
+    keep = nms3d_greedy_cuda(torch.zeros((1, n, n), device=cuda), torch.zeros((1, n), device=cuda), obj, 0.25)
     assert bool(keep.all())
 
 
@@ -949,11 +957,12 @@ def test_nms_kernel_long_rows_match_both_plain_versions(cuda, B, N, p_cand, leve
 
     rng = np.random.RandomState(N + B)
     iou = torch.from_numpy(rng.rand(B, N, N).astype(np.float32)).to(cuda)
-    order = torch.argsort(torch.from_numpy(rng.randint(0, levels, (B, N)).astype(np.float32)).to(cuda), dim=1,
-                          descending=True, stable=True)
-    cand = torch.from_numpy(rng.rand(B, N) < p_cand).to(cuda)
+    scores = torch.from_numpy(rng.randint(0, levels, (B, N)).astype(np.float32)).to(cuda)
+    order = torch.argsort(scores, dim=1, descending=True, stable=True)
+    cand_np = rng.rand(B, N) < p_cand
+    cand = torch.from_numpy(cand_np).to(cuda)
     thr = 1.0 - 2.0 / N  # a few suppressions a box, long chains
-    got = nms3d_greedy_cuda(iou, order, cand, thr)
+    got = nms3d_greedy_cuda(iou, scores, objectness_for(cand_np, rng).to(cuda), thr)
     torch.cuda.synchronize()
     assert torch.equal(got, nms3d_greedy_plain(iou, order, cand, thr))
     assert torch.equal(got, nms3d_jacobi_plain(iou, order, cand, thr))
@@ -993,6 +1002,121 @@ def test_iou_matrix_routes_to_the_kernel(cuda):
     got = ops.box3d_iou_matrix(corners.to(cuda), corners[:, :, :17].to(cuda))
     assert box3d_iou_matrix_cuda.launches == before + 1 and got.shape == (2, 3, 40, 17)
     assert torch.equal(got.cpu(), ops.box3d_iou_matrix(corners, corners[:, :, :17]))
+
+
+@pytest.mark.parametrize("N", [1, 17, 256, 300, 1056])
+def test_iou_self_matrix_triangle_equals_the_full_route(cuda, N):
+    """The same memory twice takes the self-matrix's triangle (tiles on and
+    above the diagonal, each float written to both halves); a copy of it
+    takes the full route: the two matrices are equal bit for bit, and equal
+    to the plain version on the CPU."""
+    from tests.test_torch_iou import boxes
+    from votenet_tpu_torch.ops.cuda.iou3d import box3d_iou_matrix_cuda
+    from votenet_tpu_torch.ops.iou3d import box3d_iou_matrix_plain
+
+    c = torch.from_numpy(np.ascontiguousarray(boxes("rotated", np.random.RandomState(N), (2, N))))
+    g = c.to(cuda)
+    tri = box3d_iou_matrix_cuda(g, g)
+    full = box3d_iou_matrix_cuda(g, g.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(tri.view(torch.int32), full.view(torch.int32))
+    assert torch.equal(tri.cpu(), box3d_iou_matrix_plain(c, c))
+
+
+@pytest.mark.parametrize("B,N", [(1, 256), (8, 256), (2, 33), (3, 1000), (2, 1025), (1, 2048)])
+def test_nms_kernel_order_with_nan_inf_and_signed_zeros(cuda, B, N):
+    """The kernel's own order (scores tied, NaN of either sign, +-inf, -0
+    and +0) gives the fixpoint's mask over torch.argsort's order on the CPU,
+    on both routes; objectness a strided view of a head's output."""
+    from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
+    from votenet_tpu_torch.ops.nms3d import nms3d_jacobi_plain
+
+    rng = np.random.RandomState(B + N)
+    iou = rng.rand(B, N, N).astype(np.float32)
+    s = rng.randint(-2, 3, (B, N)).astype(np.float32)
+    s[:, ::7], s[:, 3::11], s[:, 1::13], s[:, 2::5] = np.nan, -np.nan, np.inf, -np.inf
+    s[:, 4::6] = -0.0
+    head = rng.randn(B, N, 9).astype(np.float32)
+    obj = torch.from_numpy(head)[..., 3:5]
+    thr = 1.0 - 3.0 / N if N > 8 else 0.5
+    order = torch.argsort(torch.from_numpy(s), dim=1, descending=True, stable=True)
+    want = nms3d_jacobi_plain(torch.from_numpy(iou), order, obj[..., 1] > obj[..., 0], thr)
+    got = nms3d_greedy_cuda(torch.from_numpy(iou).to(cuda), torch.from_numpy(s).to(cuda),
+                            torch.from_numpy(head).to(cuda)[..., 3:5], thr)
+    assert torch.equal(got.cpu(), want)
+
+
+def decode_end_points(cfg, B, P, seed):
+    from tests.test_torch_decode import end_points, heading_cases
+
+    out, xyz = end_points(cfg, B, P, seed, headings=heading_cases(cfg.num_heading_bin)[:B * P])
+    return torch.from_numpy(out), torch.from_numpy(xyz)
+
+
+@pytest.mark.parametrize("config,B,P", [("tiny", 2, 16), ("default", 1, 256), ("default", 8, 256),
+                                        ("default", 3, 200)])
+def test_decode_kernel_equals_plain_on_the_card_and_the_cpu(cuda, config, B, P):
+    """The decode kernel's every output equals the plain version's on the
+    card and on the CPU, bit for bit (int32 views of the floats): the stated
+    sin and cos, the heading's fmod, the corners' order; a proposal count
+    off the block size; the heading cases of tests/test_torch_decode.py."""
+    from votenet_tpu_torch.config import default_config
+    from votenet_tpu_torch.models.decode import decode_proposals, decode_proposals_plain
+    from votenet_tpu_torch.ops.cuda.decode import decode_proposals_cuda
+
+    cfg = tiny_config() if config == "tiny" else default_config()
+    out, xyz = decode_end_points(cfg, B, P, B * P)
+    out[0, -1, -cfg.num_class:] = float("nan")  # a NaN logit: the maximum, its bits as they came
+    ep = {"proposals_output": out.to(cuda), "proposals_xyz": xyz.to(cuda)}
+    before = decode_proposals_cuda.launches
+    got = decode_proposals(ep, cfg)
+    torch.cuda.synchronize()
+    assert decode_proposals_cuda.launches == before + 1
+    card = decode_proposals_plain(ep, cfg)
+    cpu = decode_proposals_plain({"proposals_output": out, "proposals_xyz": xyz}, cfg)
+    assert sorted(got) == sorted(cpu)
+    for k in got:
+        g, c = got[k].cpu(), cpu[k]
+        assert g.dtype == c.dtype and g.shape == c.shape, k
+        view = (lambda x: x.view(torch.int32)) if g.dtype == torch.float32 else (lambda x: x)
+        assert torch.equal(view(g.contiguous()), view(c.contiguous())), k
+        assert torch.equal(view(g.contiguous()), view(card[k].cpu().contiguous())), k
+
+
+def test_predict_boxes_is_three_launches_with_no_sort_and_no_sync(cuda, monkeypatch):
+    """``predict_boxes`` at the default ``max_detections`` (the proposal
+    count) on CUDA end points: one launch each of the decode, the IoU and
+    the greedy, no ``torch.argsort`` call, no host sync; its outputs equal
+    the CPU's from the same end points (floats and keep mask)."""
+    from votenet_tpu_torch.config import default_config
+    from votenet_tpu_torch.models.decode import predict_boxes
+    from votenet_tpu_torch.ops.cuda.decode import decode_proposals_cuda
+    from votenet_tpu_torch.ops.cuda.iou3d import box3d_iou_matrix_cuda
+    from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
+
+    cfg = default_config()
+    out, xyz = decode_end_points(cfg, 8, 256, 5)
+    out[..., 1] += 0.3
+    xyz *= 0.6
+    ep = {"proposals_output": out.to(cuda), "proposals_xyz": xyz.to(cuda)}
+    predict_boxes(ep, cfg)  # first use: the class mean sizes copied to the card once
+    sorts = []
+    argsort = torch.argsort
+    monkeypatch.setattr(torch, "argsort", lambda *a, **k: sorts.append(1) or argsort(*a, **k))
+    counters = (decode_proposals_cuda, box3d_iou_matrix_cuda, nms3d_greedy_cuda)
+    before = [c.launches for c in counters]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = predict_boxes(ep, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1] and not sorts
+    monkeypatch.undo()
+    cpu = predict_boxes({"proposals_output": out, "proposals_xyz": xyz}, cfg)
+    for k in ("bboxes", "nms_scores", "heading_pred", "size_pred", "center_pred", "size_cls", "heading_cls", "keep"):
+        assert torch.equal(got[k].cpu(), cpu[k]), k
+    assert 0 < int(cpu["keep"].sum()) < int((out[..., 1] > out[..., 0]).sum())
 
 
 def test_streaming_forms_on_the_card(cuda):

@@ -15,6 +15,7 @@ import torch
 from votenet_tpu_torch.config import tiny_config
 from votenet_tpu_torch import ops
 from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
+from votenet_tpu_torch.ops.cuda import decode as decode_mod
 from votenet_tpu_torch.ops.cuda import fps as fps_mod
 from votenet_tpu_torch.ops.cuda import iou3d as iou_mod
 from votenet_tpu_torch.ops.cuda import nms3d as nms_mod
@@ -74,7 +75,7 @@ def test_cpu_tensors_launch_no_kernel():
     def counts():
         return (fps_mod.farthest_point_sample_cuda.launches, bq_mod.query_ball_point_cuda.launches,
                 bq_mod.query_ball_point_cuda.fast_bf16.launches, nms_mod.nms3d_greedy_cuda.launches,
-                iou_mod.box3d_iou_matrix_cuda.launches)
+                iou_mod.box3d_iou_matrix_cuda.launches, decode_mod.decode_proposals_cuda.launches)
 
     before = counts()
     xyz = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 3).astype(np.float32))
@@ -84,10 +85,11 @@ def test_cpu_tensors_launch_no_kernel():
     from votenet_tpu_torch.predictor import VoteNetPredictor
 
     VoteNetPredictor(tiny_config(), device="cpu", batch_size=1).detect(xyz[0].numpy())
-    assert counts() == before == (0, 0, 0, 0, 0)
+    assert counts() == before == (0, 0, 0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("kernel", ["fps", "ballquery", "scatter", "samlp", "ballquery_fast_bf16", "nms3d", "iou3d"])
+@pytest.mark.parametrize("kernel", ["fps", "ballquery", "scatter", "samlp", "ballquery_fast_bf16", "nms3d", "iou3d",
+                                    "decode"])
 def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     """Given a CPU tensor, the wrapper raises: it neither computes the plain
     version nor builds the library."""
@@ -101,6 +103,7 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     monkeypatch.setattr(samlp_mod, "library", no_build)
     monkeypatch.setattr(nms_mod, "library", no_build)
     monkeypatch.setattr(iou_mod, "library", no_build)
+    monkeypatch.setattr(decode_mod, "library", no_build)
     xyz = torch.zeros(1, 16, 3)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         if kernel == "fps":
@@ -110,8 +113,9 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
         elif kernel == "ballquery_fast_bf16":
             bq_mod.query_ball_point_cuda(0.2, 4, xyz, xyz, mode="fast_bf16")
         elif kernel == "nms3d":
-            nms_mod.nms3d_greedy_cuda(torch.zeros(1, 16, 16), torch.arange(16)[None],
-                                      torch.ones(1, 16, dtype=torch.bool), 0.25)
+            nms_mod.nms3d_greedy_cuda(torch.zeros(1, 16, 16), torch.zeros(1, 16), torch.zeros(1, 16, 2), 0.25)
+        elif kernel == "decode":
+            decode_mod.decode_proposals_cuda(torch.zeros(1, 16, 79), xyz, torch.zeros(10, 3), 12, 10, 10)
         elif kernel == "iou3d":
             iou_mod.box3d_iou_matrix_cuda(torch.zeros(1, 4, 8, 3), torch.zeros(1, 5, 8, 3))
         elif kernel == "scatter":
@@ -126,6 +130,7 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     assert scatter_mod.scatter_add_cuda.launches == 0
     assert samlp_mod.fused_sa_mlp_pool_cuda.launches == 0
     assert bq_mod.query_ball_point_cuda.fast_bf16.launches == nms_mod.nms3d_greedy_cuda.launches == 0
+    assert iou_mod.box3d_iou_matrix_cuda.launches == decode_mod.decode_proposals_cuda.launches == 0
 
 
 def test_cpu_eval_launches_no_kernel():

@@ -180,6 +180,21 @@ def test_plain_iou_equals_the_kernels_stated_order(kind):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_self_matrix_is_bit_symmetric(kind):
+    """IoU(P, Q) and IoU(Q, P) are the same float, bit for bit: the two
+    boundary sums swap places in one commutative addition, and min, max and
+    vol1 + vol2 are symmetric. The kernel computes only the upper triangle
+    of the self-matrix NMS asks for and writes each float to both halves;
+    this is what makes that equal to the plain version's full matrix."""
+    rng = np.random.RandomState(20 + KINDS.index(kind))
+    b = t(boxes(kind, rng, (2, 256)))
+    m = ops.box3d_iou_matrix(b, b)
+    bits = m.numpy().view(np.int32)
+    np.testing.assert_array_equal(bits, bits.transpose(0, 2, 1))
+    assert int((m > 0).sum()) > 2 * 256  # overlapping pairs off the diagonal
+
+
 def test_plain_matrix_blocks_change_no_float(monkeypatch):
     rng = np.random.RandomState(3)
     b1, b2 = t(boxes("rotated", rng, (3, 50))), t(boxes("rotated", rng, (3, 40)))

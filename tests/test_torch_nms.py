@@ -8,7 +8,10 @@ to JAX's keep mask (``JAX_PLATFORMS=cpu``, its compaction tiers included),
 on boxes made with numpy from a seed: long suppression chains, tied scores,
 no candidate at all, and candidate counts on both sides of each JAX tier
 (64 and 160 of 256, and of 1056: past the kernel's shared-memory route).
-The kernel itself against both is in ``tests/test_torch_cuda.py``.
+The kernel itself against both is in ``tests/test_torch_cuda.py``; here
+numpy transcriptions of its design (the rank rule of its order, the walk in
+chunks of 32 over the compacted candidates) are held to torch.argsort and
+the fixpoint.
 """
 
 import numpy as np
@@ -121,13 +124,13 @@ def test_greedy_kernel_refuses_cpu_tensors_and_long_rows():
     before anything is built or launched. The CPU route of ops.nms3d
     launches no kernel."""
     iou = torch.zeros((1, 8, 8))
-    order = torch.arange(8)[None]
-    cand = torch.ones((1, 8), dtype=torch.bool)
+    scores = torch.arange(8.0)[None]
+    obj = torch.zeros((1, 8, 2))
     with pytest.raises(RuntimeError, match="CUDA"):
-        nms3d_greedy_cuda(iou, order, cand, THR)
+        nms3d_greedy_cuda(iou, scores, obj, THR)
     n = NMS_SMEM_BOXES + 1
     with pytest.raises(RuntimeError, match="CUDA"):
-        nms3d_greedy_cuda(torch.zeros((1, n, n)), torch.arange(n)[None], torch.ones((1, n), dtype=torch.bool), THR)
+        nms3d_greedy_cuda(torch.zeros((1, n, n)), torch.zeros((1, n)), torch.zeros((1, n, 2)), THR)
     before = nms3d_greedy_cuda.launches
     rng = np.random.RandomState(3)
     corners = oracles.random_boxes(rng, (1, 40))
@@ -186,3 +189,116 @@ def test_walk_matches_the_fixpoint_at_2048_boxes():
     walk = nms3d_greedy_plain(iou, order, cand, 0.995)
     np.testing.assert_array_equal(walk.numpy(), nms3d_jacobi_plain(iou, order, cand, 0.995).numpy())
     assert 0 < int(walk.sum()) < int(cand.sum())
+
+
+# ----------------------------------------------- the greedy kernel's design
+# numpy transcriptions of csrc/nms3d.cu: the rank rule of its order and its
+# walk in chunks of 32 positions, held to torch.argsort and the fixpoint
+
+def np_order_keys(scores):
+    """The kernel's 64-bit keys, (B, N) f32 -> (B, N) uint64: the score's
+    order-preserving bits (every NaN at the top, -0 as +0) above the
+    complemented index, so that j comes before i iff key[j] > key[i]."""
+    s = np.asarray(scores, np.float32)
+    u = np.where(s == 0, np.uint32(0), s.view(np.uint32))
+    u = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    u = np.where(np.isnan(s), np.uint32(0xFFFFFFFF), u).astype(np.uint64)
+    idx = np.arange(s.shape[-1], dtype=np.uint64)
+    return (u << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - idx)
+
+
+def np_order(scores):
+    """The kernel's order: rank[i] = the keys above key[i]; ord[rank] = i."""
+    key = np_order_keys(scores)
+    rank = (key[:, None, :] > key[:, :, None]).sum(-1)
+    order = np.empty_like(rank)
+    np.put_along_axis(order, rank, np.arange(key.shape[-1])[None].repeat(len(key), 0), axis=1)
+    return order
+
+
+def np_chunked_walk(iou, scores, cand, thr):
+    """The kernel's greedy: the candidates compacted in box order, their
+    order by the rank rule, bit rows by candidate position (row p, bit q
+    for q > p), then the walk in chunks of 32 positions: the chunk's
+    unblocked positions resolved against its diagonal block one at a time,
+    the kept rows ORed into the later words of `blocked`; a box that is no
+    candidate is not kept."""
+    B, N = cand.shape
+    thr = np.float32(thr)
+    keep = np.zeros((B, N), bool)
+    for b in range(B):
+        boxes = np.nonzero(cand[b])[0]  # compaction: the candidates by index
+        Nc = len(boxes)
+        if Nc == 0:
+            continue
+        o = boxes[np_order(scores[b:b + 1, boxes])[0]]  # ord[p]: the box at candidate position p
+        Wc = -(-Nc // 32)
+        q = np.arange(Nc)
+        rows = np.zeros((32 * Wc, 32 * Wc), bool)
+        rows[:Nc, :Nc] = (iou[b][np.ix_(o, o)] > thr) & (q[None, :] > q[:, None])
+        blocked = np.zeros(32 * Wc, bool)
+        for c in range(Wc):
+            sl = slice(32 * c, 32 * c + 32)
+            alive = (np.arange(32 * c, 32 * c + 32) < Nc) & ~blocked[sl]
+            diag = rows[sl, sl]
+            for k in range(32):
+                if alive[k]:
+                    alive &= ~diag[k]
+            kept_pos = 32 * c + np.nonzero(alive)[0]
+            keep[b, o[kept_pos]] = True
+            blocked[32 * (c + 1):] |= rows[kept_pos][:, 32 * (c + 1):].any(0)
+    return keep
+
+
+RANK_CASES = ["ties", "nan", "inf", "zeros", "random"]
+
+
+@pytest.mark.parametrize("kind", RANK_CASES)
+def test_kernel_rank_rule_matches_torch_argsort(kind):
+    """The in-CTA rank rule gives torch.argsort(descending=True,
+    stable=True)'s permutation on the CPU: ties by index, every NaN (either
+    sign) first and by index, +-inf, -0 equal to +0."""
+    rng = np.random.RandomState(RANK_CASES.index(kind))
+    N = 300
+    s = rng.randint(-3, 4, (3, N)).astype(np.float32)
+    if kind == "nan":
+        s[:, ::7] = np.nan
+        s[1, ::11] = -np.nan
+    elif kind == "inf":
+        s[:, ::5] = np.inf
+        s[:, 2::5] = -np.inf
+        s[2, ::13] = np.nan
+    elif kind == "zeros":
+        s[:, ::3] = 0.0
+        s[:, 1::3] = -0.0
+    elif kind == "random":
+        s = rng.randn(3, N).astype(np.float32)
+    want = torch.argsort(t(s), dim=1, descending=True, stable=True).numpy()
+    np.testing.assert_array_equal(np_order(s), want)
+
+
+WALK_NS = [1, 31, 32, 33, 256, 1024, 1025]
+
+
+@pytest.mark.parametrize("cands", ["none", "all", "random"])
+@pytest.mark.parametrize("N", WALK_NS)
+def test_chunked_walk_matches_the_fixpoint(N, cands):
+    """The kernel's chunked walk over its candidates in its own order equals
+    the Jacobi fixpoint over torch.argsort's order of all boxes: no
+    candidates, all candidates and a random half, random suppression
+    (scores tied in few values, some NaN)."""
+    rng = np.random.RandomState(N + len(cands))
+    B = 2
+    iou = rng.rand(B, N, N).astype(np.float32)
+    scores = rng.randint(0, 5, (B, N)).astype(np.float32)
+    scores[:, ::9] = np.nan
+    cand = {"none": np.zeros((B, N), bool), "all": np.ones((B, N), bool),
+            "random": rng.rand(B, N) < 0.5}[cands]
+    thr = float(np.float32(1.0 - 3.0 / max(N, 4)))  # a few suppressions a box
+    order = torch.argsort(t(scores), dim=1, descending=True, stable=True)
+    want = nms3d_jacobi_plain(t(iou), order, t(cand), thr).numpy()
+    np.testing.assert_array_equal(np_chunked_walk(iou, scores, cand, thr), want)
+    if cands == "none":
+        assert not want.any()
+    elif N > 32:
+        assert 0 < want.sum() < cand.sum()

@@ -32,8 +32,8 @@ BUILD_DIR = _PKG / "build"
 # -fmad=false: no contraction of a*b+c into an FMA anywhere in the kernels
 # (the distance sums and samlp's affine steps are also written with
 # __fmul_rn/__fadd_rn; samlp's matmuls run on wgmma, which the flag does not
-# touch); see the notes in csrc/fps.cu, csrc/ballquery.cu, csrc/samlp.cu and
-# csrc/iou3d.cu.
+# touch); see the notes in csrc/fps.cu, csrc/ballquery.cu, csrc/samlp.cu,
+# csrc/iou3d.cu and csrc/decode.cu.
 # -Xptxas=-v puts each kernel's registers, shared memory and spills into the
 # build log.
 NVCC_FLAGS = (
@@ -112,10 +112,16 @@ def library() -> ctypes.CDLL:
                 i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
             ]
             lib.votenet_samlp.restype = i32
-            lib.votenet_nms3d.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr, ptr, ptr]
+            i64 = ctypes.c_int64
+            lib.votenet_nms3d.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, f32, ptr, ptr, ptr]
             lib.votenet_nms3d.restype = i32
+            lib.votenet_nms3d_workspace_words.argtypes = [i32, i32]
+            lib.votenet_nms3d_workspace_words.restype = i64
             lib.votenet_iou3d.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
             lib.votenet_iou3d.restype = i32
+            lib.votenet_decode.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr,
+                                           ptr, ptr]
+            lib.votenet_decode.restype = i32
             lib.votenet_error_string.argtypes = [i32]
             lib.votenet_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -2,9 +2,12 @@
 
 Kernel: ``votenet_tpu_torch/csrc/iou3d.cu``, the port's own (the JAX
 package computes the matrix in XLA, ``votenet_tpu/ops/iou3d.py:329-353``,
-and reaches no Pallas kernel). One thread a (row, column) pair computes the
-edge-clip IoU in registers, in the order of the plain version
-``ops/iou3d.py::box3d_iou_matrix_plain``, whose floats it equals; see the
+and reaches no Pallas kernel). A block takes a tile of pairs with its boxes
+staged once in shared memory, one thread a pair computing the edge-clip IoU
+in registers, in the order of the plain version
+``ops/iou3d.py::box3d_iou_matrix_plain``, whose floats it equals. Given the
+same memory twice (``c1 is c2``, as NMS calls it) it computes the upper
+triangle of the self-matrix and writes each float to both halves; see the
 note at the top of the source.
 """
 
@@ -18,7 +21,8 @@ from votenet_tpu_torch.ops.cuda import check_launch, library, require_cuda
 def box3d_iou_matrix_cuda(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
     """Launch the IoU kernel: c1 (B, N, 8, 3), c2 (B, M, 8, 3), contiguous
     f32 on one CUDA device -> (B, N, M) f32, equal to
-    ``ops.iou3d.box3d_iou_matrix_plain``. Raises RuntimeError for a tensor
+    ``ops.iou3d.box3d_iou_matrix_plain``; one triangle of pairs when c1 and
+    c2 are the same memory (the matrix is symmetric bit for bit). Raises RuntimeError for a tensor
     that is not on a CUDA device (it never computes the plain version),
     ValueError for other shapes or types. Adds one to
     ``box3d_iou_matrix_cuda.launches`` per call."""

@@ -1,20 +1,21 @@
 """The NMS greedy: the CUDA kernel's wrapper and its plain version.
 
 Kernel: ``votenet_tpu_torch/csrc/nms3d.cu``, the port's own (the JAX
-package's NMS, ``votenet_tpu/ops/nms3d.py:40-58``, is a ``lax.while_loop``
-and reaches no Pallas kernel). Up to ``NMS_SMEM_BOXES`` boxes a row, one
-CTA a batch row packs the suppression relation into bit rows in shared
-memory and one warp walks the priority order: the greedy in one launch with
-no host sync. Longer rows pack their bit rows into a global workspace (one
-warp a row, many CTAs) and walk them in a second launch; see the note at
-the top of the source.
+package's NMS, ``votenet_tpu/ops/nms3d.py:40-58``, is a stable argsort and a
+``lax.while_loop``, and reaches no Pallas kernel). Up to ``NMS_SMEM_BOXES``
+boxes a row, one CTA a batch row ranks the scores, packs the suppression
+relation into bit rows by order position in shared memory and walks the
+order in chunks of 32 positions: the greedy in one launch with no host
+sync. Longer rows rank in a first launch, pack their bit rows into a global
+workspace in a second and walk them in a third; see the note at the top of
+the source.
 
-Both versions take the IoU matrix, the priority order and the candidates and
-give the keep mask of the greedy: walking ``order``, box i is kept iff it is
-a candidate and no kept box before it has IoU strictly above ``thr`` with
-it. :func:`nms3d_greedy_plain` walks the order one position at a time, as
-the kernel does; the plain version of ``ops.nms3d`` on the CPU is the JAX
-package's Jacobi fixpoint (``ops/nms3d.py``), which reaches the same mask.
+The kernel takes the IoU matrix, the scores and the objectness logits. Its
+plain version is ``ops/nms3d.py``'s CPU route: the candidates, the stable
+argsort and the Jacobi fixpoint (``nms3d_jacobi_plain``). Walking
+``order``, box i is kept iff it is a candidate and no kept box before it has
+IoU strictly above ``thr`` with it; :func:`nms3d_greedy_plain` walks the
+order one position at a time and reaches the fixpoint's mask.
 """
 
 from __future__ import annotations
@@ -51,31 +52,38 @@ def nms3d_greedy_plain(iou: torch.Tensor, order: torch.Tensor, cand: torch.Tenso
     return keep
 
 
-def nms3d_greedy_cuda(iou: torch.Tensor, order: torch.Tensor, cand: torch.Tensor, thr: float) -> torch.Tensor:
-    """Launch the greedy kernel: iou (B, N, N) f32, order (B, N) int, cand
-    (B, N) bool, all on one CUDA device -> keep (B, N) bool, bit-equal to
-    :func:`nms3d_greedy_plain`, at any N (above ``NMS_SMEM_BOXES`` through
-    a (B, N, ceil(N / 32)) int32 workspace). No host sync. Raises
-    RuntimeError for a tensor that is not on a CUDA device (it never
-    computes the plain version). Adds one to ``nms3d_greedy_cuda.launches``
-    per call."""
-    B, N = cand.shape
-    if not all(isinstance(t, torch.Tensor) and t.device.type == "cuda" for t in (iou, order, cand)):
+def nms3d_greedy_cuda(iou: torch.Tensor, scores: torch.Tensor, objectness: torch.Tensor, thr: float) -> torch.Tensor:
+    """Launch the greedy kernel: iou (B, N, N), scores (B, N) and objectness
+    (B, N, 2) f32, all on one CUDA device (objectness may be a view with any
+    strides but the last) -> keep (B, N) bool, the greedy over the order
+    ``torch.argsort(scores, dim=1, descending=True, stable=True)`` of the
+    candidates ``objectness[..., 1] > objectness[..., 0]``: bit-equal to
+    :func:`nms3d_greedy_plain` and the fixpoint on that order, at any N
+    (above ``NMS_SMEM_BOXES`` through a workspace of
+    ``votenet_nms3d_workspace_words`` words). The kernel ranks the scores
+    and reads the candidates itself: no sort is launched, and there is no
+    host sync. Raises RuntimeError for a tensor that is not on a CUDA device
+    (it never computes the plain version). Adds one to
+    ``nms3d_greedy_cuda.launches`` per call."""
+    if not all(isinstance(t, torch.Tensor) and t.device.type == "cuda" for t in (iou, scores, objectness)):
         raise RuntimeError("nms3d_greedy_cuda: the CUDA kernel needs CUDA tensors, got "
-                           f"{[getattr(t, 'device', type(t)) for t in (iou, order, cand)]}")
-    if tuple(iou.shape) != (B, N, N) or tuple(order.shape) != (B, N) or B < 1 or N < 1:
-        raise ValueError(f"nms3d_greedy_cuda: iou {tuple(iou.shape)}, order {tuple(order.shape)} and "
-                         f"cand {tuple(cand.shape)} do not fit (B, N, N), (B, N), (B, N)")
-    iou = iou.float().contiguous()
-    order = order.to(torch.int32).contiguous()
-    cand = cand.to(torch.bool).contiguous()
+                           f"{[getattr(t, 'device', type(t)) for t in (iou, scores, objectness)]}")
+    B, N = scores.shape
+    if (tuple(iou.shape) != (B, N, N) or tuple(objectness.shape) != (B, N, 2) or B < 1 or N < 1
+            or any(t.dtype != torch.float32 for t in (iou, scores, objectness))):
+        raise ValueError(f"nms3d_greedy_cuda: iou {tuple(iou.shape)} {iou.dtype}, scores {tuple(scores.shape)} "
+                         f"{scores.dtype} and objectness {tuple(objectness.shape)} {objectness.dtype} do not fit "
+                         "f32 (B, N, N), (B, N), (B, N, 2)")
+    iou, scores = iou.contiguous(), scores.contiguous()
+    if objectness.stride(-1) != 1:
+        objectness = objectness.contiguous()
     keep = torch.empty((B, N), dtype=torch.bool, device=iou.device)
-    workspace = (torch.empty((B, N, -(-N // 32)), dtype=torch.int32, device=iou.device)
-                 if N > NMS_SMEM_BOXES else None)
     lib = library()
+    words = lib.votenet_nms3d_workspace_words(B, N)
+    workspace = torch.empty(words, dtype=torch.int32, device=iou.device) if words else None
     with torch.cuda.device(iou.device):
-        err = lib.votenet_nms3d(iou.data_ptr(), order.data_ptr(), cand.data_ptr(), B, N,
-                                float(np.float32(thr)), keep.data_ptr(),
+        err = lib.votenet_nms3d(iou.data_ptr(), scores.data_ptr(), objectness.data_ptr(), objectness.stride(0),
+                                objectness.stride(1), B, N, float(np.float32(thr)), keep.data_ptr(),
                                 None if workspace is None else workspace.data_ptr(),
                                 torch.cuda.current_stream().cuda_stream)
     check_launch(err, "nms3d_greedy_cuda")

@@ -142,12 +142,13 @@ def box3d_iou_matrix_plain(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
 def box3d_iou_matrix(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
     """Full pairwise IoU matrix: (..., N, 8, 3), (..., M, 8, 3) -> (..., N, M)
     f32. A CPU tensor runs :func:`box3d_iou_matrix_plain`, a CUDA tensor the
-    kernel of ``csrc/iou3d.cu`` (equal floats); any other device raises."""
+    kernel of ``csrc/iou3d.cu`` (equal floats; ``c1 is c2`` computes one
+    triangle of the symmetric matrix); any other device raises."""
     if kernel_route(c1, "box3d_iou_matrix") == "cuda":
         lead = torch.broadcast_shapes(c1.shape[:-3], c2.shape[:-3])
         N, M = c1.shape[-3], c2.shape[-3]
         a = c1.float().expand(*lead, N, 8, 3).reshape(-1, N, 8, 3).contiguous()
-        b = c2.float().expand(*lead, M, 8, 3).reshape(-1, M, 8, 3).contiguous()
+        b = a if c2 is c1 else c2.float().expand(*lead, M, 8, 3).reshape(-1, M, 8, 3).contiguous()
         return box3d_iou_matrix_cuda(a, b).reshape(*lead, N, M)
     return box3d_iou_matrix_plain(c1.float(), c2.float())
 

@@ -9,14 +9,16 @@ Both routes build the dense (B, N, N) IoU matrix with ``box3d_iou_matrix``:
 on a CUDA tensor the kernel of ``csrc/iou3d.cu``, on a CPU tensor its plain
 version, which compute equal floats, so the threshold test sees the same
 IoU on either device and the keep masks are equal. On a CUDA tensor the
-greedy is the kernel of ``csrc/nms3d.cu``, for any N: no host sync
-(``ops/cuda/nms3d.py``). On a CPU tensor it is the JAX package's
-Jacobi fixpoint, one host sync a round. The JAX package picks a compaction
+greedy is the kernel of ``csrc/nms3d.cu``, for any N: it ranks the scores
+in the argsort's order itself, with no host sync (``ops/cuda/nms3d.py``).
+On a CPU tensor it is the stable argsort and the JAX package's Jacobi
+fixpoint, one host sync a round. The JAX package picks a compaction
 tier (64, 160 or dense) with ``lax.cond`` on the candidate count; the tiers
 give the same keep mask by construction (suppression flows only from higher
 to lower priority among candidates), so they only save IoU work. Choosing a
 tier here would need the count on the host, one sync a call, which is what
-the kernel removes: the port has no tiers.
+the kernel removes: the port has no tiers; the kernel compacts the
+candidates inside its CTA instead, for the same reason.
 """
 
 from __future__ import annotations
@@ -38,15 +40,16 @@ def nms3d(
     """Greedy oriented 3D NMS -> keep (B, N) bool.
 
     corners (B, N, 8, 3), scores (B, N), objectness (B, N, 2). A CUDA tensor
-    runs the IoU and greedy kernels and syncs with the host nowhere; a CPU
-    tensor runs the IoU's plain version and :func:`nms3d_jacobi_plain`; any
-    other device raises.
+    runs two kernels, the IoU matrix (one triangle of the self-matrix) and
+    the greedy, which ranks the scores and reads the candidates itself: no
+    host sync, no sort. A CPU tensor runs the IoU's plain version, the
+    stable argsort and :func:`nms3d_jacobi_plain`; any other device raises.
     """
-    cand = objectness[..., 1] > objectness[..., 0]
     iou = box3d_iou_matrix(corners, corners)  # (B, N, N)
-    order = torch.argsort(scores, dim=1, descending=True, stable=True)
     if kernel_route(scores, "nms3d") == "cuda":
-        return nms3d_greedy_cuda(iou, order, cand, iou_threshold)
+        return nms3d_greedy_cuda(iou, scores.float(), objectness.float(), iou_threshold)
+    cand = objectness[..., 1] > objectness[..., 0]
+    order = torch.argsort(scores, dim=1, descending=True, stable=True)
     return nms3d_jacobi_plain(iou, order, cand, iou_threshold)
 
 
