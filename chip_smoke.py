@@ -4,18 +4,24 @@ paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of the repository
     python3 chip_smoke.py --profile  # also: torch.profiler over 3 training steps and one eval pass, each mode
-    python3 chip_smoke.py --kernel-times  # phases 1-3, 9, 16-18, 23, 31, 22's and 26's kernels alone (no final line)
+    python3 chip_smoke.py --kernel-times  # phases 1-3, 32, 9, 16-18, 23, 31, 22's and 26's kernels alone (no final line)
     python3 chip_smoke.py --head-times  # the detection head's times alone, public names only (no final line)
     python3 chip_smoke.py --multi-device  # phases 1-2 and 19-21 alone (no final line)
+    python3 chip_smoke.py --e2e-times  # serving, training and eval times alone, public names only (no final line)
 
 ``--kernel-times`` also runs from a copy of this file placed at the root of
 another checkout of the port (an earlier commit's archive), so that both
 commits' kernels are timed by the same code in one call: phase 3 then skips
 the ball query's route rows where that checkout has one route, and phases
 16-18, 23 and 31, 22 and 26 where it lacks the kernel (or, for the last
-three, this file's decode kernel). ``--head-times`` runs from such a copy
+three, this file's decode kernel), and phase 32 where it lacks the
+batch-norm kernels. ``--head-times`` runs from such a copy
 too: it times the decode, the IoU matrix, ``ops.nms3d`` and
-``predict_boxes`` through names every checkout since the NMS kernel has.
+``predict_boxes`` through names every checkout since the NMS kernel has;
+so does ``--e2e-times`` (B=8 serving requests, B=1 ``detect()``, B=8
+training steps in f32, bf16 and mixed with their peak memory and profiles,
+the eval with samlp off and on), through names every checkout with the
+precision presets has.
 
 Phases, each checked; any failure exits non-zero without the final line:
 
@@ -232,6 +238,22 @@ Phases, each checked; any failure exits non-zero without the final line:
    output equal bit for bit to its plain version's on the card and on the
    CPU; device us of the kernel and of the plain version's eager passes
    beside the bound. It runs before phase 22.
+32. Batch norm + ReLU's four kernels (``csrc/batchnorm.cu``: the sums, the
+   normalisation with the ReLU, the backward's sums, the input's
+   cotangent) against their plain versions (``ops/batchnorm.py``) on the
+   card, at every batch-norm site of a full-width forward and training
+   step (23, ``bn_sites``) at B=8 in f32 and bf16 and at B=1 in f32, and
+   at sa1's sites at B=64 (8.4M rows) in f32 and bf16: the normalisation
+   bit-equal, the sums within BN_SUM_TOL of each channel's sum of |terms|,
+   the input's cotangent within BN_GRAD_TOL, each kernel's two runs
+   bit-identical; device us of each kernel, its plain version and its
+   stage's own PyTorch call (``torch.batch_norm_stats``, ``_elemt``,
+   ``_backward_reduce``, ``_backward_elemt``; no ReLU), beside the bytes
+   bound, and ``F.batch_norm``'s whole training forward and backward beside
+   K1 + K2 and K3 + K4 over a B=8 step's sites. It runs after
+   phase 3. Every other phase's launch checks count the four kernels too
+   (``bn_launches``: a forward applies 23 times, fewer where samlp fuses;
+   a step launches each 23 times, the forward two 35 under remat).
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
@@ -248,9 +270,12 @@ and the fixpoint), ``iou3d`` (``launches`` phase 4's, ``ms`` and
 ``plain_ms`` the kernel's triangle and its eager plain version's on the
 trained checkpoint's B=8 boxes, phase 26), ``decode`` (``launches`` phase
 4's, ``ms`` and ``plain_ms`` on the trained checkpoint's B=8 end points,
-phase 31) and ``ballquery_fast_bf16``
+phase 31), ``ballquery_fast_bf16``
 (``launches`` phase 23's serving forward; ``production_ms`` the exact
-kernel's).
+kernel's) and the four batch-norm kernels (``launches`` phase 7's training
+path, beside serving's, eval's and ``run_train``'s; ``ms``, ``plain_ms``,
+``bound_ms`` and ``library_ms`` sums over the 23 sites of a B=8 step in
+f32, phase 32).
 Kernel times are device times:
 ``cuda_ms`` queues its timed calls behind a sleep kernel, so the wrappers'
 host time between launches does not count (a call whose kernel is shorter
@@ -279,13 +304,16 @@ IOU_PAIR_OPS f32 operations a pair and IOU_BOX_OPS a box (counted from the
 kernel's formulation, below), the corners read and the matrix written; the
 self-matrix NMS asks for needs N (N + 1) / 2 pairs. The decode: the head's
 channels and centres read and its 34 words a proposal written;
-DECODE_OPS and 2 a compared score a proposal.
+DECODE_OPS and 2 a compared score a proposal. Batch norm: the (R, C) input
+(and cotangent) read and the output written, a few f32 operations an
+element (``bn_bounds``): bound by bytes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import importlib.util
 import io
 import json
 import os
@@ -550,37 +578,69 @@ def calibrate_head(predictor, scenes):
         predictor.model.proposal.mlp2.dense2.bias[1] -= margin
 
 
+def launch_counts(counters):
+    """{name: launches} of kernel wrappers ({} for none)."""
+    return {k: c.launches for k, c in counters.items()}
+
+
+def zero_counts(counters):
+    import torch
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+
+
+def timed_calls(fn, n, counters=None):
+    """Each of n calls ``fn(i)`` on the host clock through a device sync:
+    [(ms, launches, output)], launches the change of ``counters``' counts
+    over the call ({} without counters)."""
+    import torch
+
+    counters = counters or {}
+    res = []
+    for i in range(n):
+        c0 = launch_counts(counters)
+        t0 = time.perf_counter()
+        out = fn(i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        c1 = launch_counts(counters)
+        res.append((ms, {k: c1[k] - c0[k] for k in c1}, out))
+    return res
+
+
+def serve_times(predictor, scenes, n, counters=None):
+    """Serving through public names, after a warm-up (cuBLAS handles, the
+    allocator) and with ``counters`` set to 0 after it: n B=8 requests of
+    scenes[:8], outputs fetched to the host, then n ``detect()`` calls at
+    B=1 on scenes[i], each as :func:`timed_calls` gives it. The one
+    measurement of phases 4 and 14 and of ``--e2e-times``."""
+    batch = np.stack([s["points"] for s in scenes[:8]])
+    predictor(batch)
+    predictor.detect(scenes[0]["points"])
+    zero_counts(counters or {})
+    requests = timed_calls(lambda i: {k: v.cpu() for k, v in predictor(batch).items()}, n, counters)
+    detects = timed_calls(lambda i: predictor.detect(scenes[i % len(scenes)]["points"]), n, counters)
+    return requests, detects
+
+
 def phase_serve(cfg, scenes, predictor, label="phase 4"):
     """3 batch requests at B=8 and 3 detect() calls at B=1, counting launches."""
     import torch
 
-    batch = np.stack([s["points"] for s in scenes[:8]])
     P, NC = cfg.proposal_num, cfg.num_class
-    predictor(batch)  # warm-up: cuBLAS handles, allocator
-    predictor.detect(scenes[0]["points"])
-    torch.cuda.synchronize()
     counters = {k: c for k, c in eval_counters().items()
-                if k in ("fps", "ballquery", "ballquery_fast_bf16", "nms", "iou3d", "decode")}
+                if k in ("fps", "ballquery", "ballquery_fast_bf16", "nms", "iou3d", "decode", *bn_counters())}
     bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
-    per_forward = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "nms": 1, "iou3d": 1, "decode": 1} | {bq: 5}
-
-    def counts():
-        return {k: c.launches for k, c in counters.items()}
-
-    def check_five(before):
-        got = {k: v - before[k] for k, v in counts().items()}
+    per_forward = ({"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "nms": 1, "iou3d": 1, "decode": 1} | {bq: 5}
+                   | bn_launches(cfg, train=False, samlp=cfg.samlp == "on"))
+    requests, detects = serve_times(predictor, scenes, 3, counters)
+    launches = launch_counts(counters)
+    for _, got, _ in requests + detects:
         if got != per_forward:
             raise AssertionError(f"a forward launched {got}, not {per_forward}")
-
-    for c in counters.values():
-        c.launches = 0
-    batch_s, single_s = [], []
-    for _ in range(3):
-        before = counts()
-        t0 = time.perf_counter()
-        out = {k: v.cpu() for k, v in predictor(batch).items()}
-        batch_s.append(time.perf_counter() - t0)
-        check_five(before)
+    for _, _, out in requests:
         shapes = {k: tuple(v.shape) for k, v in out.items()}
         want = {"bboxes": (8, P, 8, 3), "class_scores": (8, P, NC), "keep": (8, P), "objectness": (8, P, 2)}
         if shapes != want:
@@ -588,21 +648,14 @@ def phase_serve(cfg, scenes, predictor, label="phase 4"):
         for k in ("bboxes", "class_scores", "objectness"):
             if not torch.isfinite(out[k]).all():
                 raise AssertionError(f"non-finite {k}")
-    n_kept = []
-    for i in range(3):
-        before = counts()
-        t0 = time.perf_counter()
-        dets = predictor.detect(scenes[i]["points"])
-        single_s.append(time.perf_counter() - t0)
-        check_five(before)
-        n_kept.append(len(dets))
+    for _, _, dets in detects:
         for name, corners, score in dets:
             if corners.shape != (8, 3) or not np.isfinite(corners).all() or not np.isfinite(score):
                 raise AssertionError(f"bad detection {name} {corners.shape} {score}")
-    launches = counts()
+    batch_s, single_s = [ms / 1e3 for ms, _, _ in requests], [ms / 1e3 for ms, _, _ in detects]
     print(f"{label}: served 3 x B=8 and 3 x B=1: launches {launches} over 6 forwards, {per_forward} each")
     print(f"  B=8 request seconds {batch_s}; scenes/s {[8 / s for s in batch_s]}")
-    print(f"  B=1 detect() seconds {single_s}; detections {n_kept}")
+    print(f"  B=1 detect() seconds {single_s}; detections {[len(d) for _, _, d in detects]}")
     return launches
 
 
@@ -731,6 +784,13 @@ def phase_scatter_fast(cfg, scenes, report):
                   f"vs the exact variant: max diff {rounding:.3g} (the rounding, > 0)")
 
 
+def bn_counters():
+    from votenet_tpu_torch.ops.cuda import batchnorm as bn
+
+    return {"bn_stats": bn.bn_stats_cuda, "bn_apply": bn.bn_apply_cuda, "bn_bwd_reduce": bn.bn_bwd_reduce_cuda,
+            "bn_bwd_apply": bn.bn_bwd_apply_cuda}
+
+
 def train_counters():
     from votenet_tpu_torch.ops.cuda.ballquery import query_ball_point_cuda
     from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda
@@ -738,7 +798,30 @@ def train_counters():
 
     return {"fps": farthest_point_sample_cuda, "ballquery": query_ball_point_cuda,
             "ballquery_fast_bf16": query_ball_point_cuda.fast_bf16, "scatter": scatter_add_cuda,
-            "scatter_fast_bf16": scatter_add_cuda.fast_bf16}
+            "scatter_fast_bf16": scatter_add_cuda.fast_bf16, **bn_counters()}
+
+
+def bn_launches(cfg, train: bool, samlp: bool = False) -> dict:
+    """The batch-norm kernels' launches of one forward (eval) or training
+    step under ``cfg``, from the layer list. The sites: each width of
+    sa1-sa4's MLPs, of the FP layers' and of the proposal layer's, the
+    voting module's hidden layers and the proposal head's (mlp2's) hidden
+    layers; 23 at the reference widths. Eval: one apply a site, none in an
+    SA layer whose MLP samlp fuses (``samlp``: the f32 layers, all five in
+    f32, sa1 and the proposal layer under mixed precision, none in bf16). A
+    step: stats and apply a site, again for sa1-sa4 under remat (whose
+    backward recomputes them), and both backward kernels once a site."""
+    sa = [len(m) for m in cfg.sa_mlps]
+    sites = (sum(sa) + sum(len(m) for m in cfg.fp_mlps) + len(cfg.vote_units) - 1 + len(cfg.proposal_mlp)
+             + len(cfg.proposal_mlp2_hidden))
+    if train:
+        fwd = sites + (sum(sa) if cfg.remat else 0)
+        return {"bn_stats": fwd, "bn_apply": fwd, "bn_bwd_reduce": sites, "bn_bwd_apply": sites}
+    f32 = cfg.compute_dtype == "float32"
+    fused = 0
+    if samlp and f32:
+        fused = (sa[0] if cfg.mixed_precision else sum(sa)) + len(cfg.proposal_mlp)
+    return {"bn_stats": 0, "bn_apply": sites - fused, "bn_bwd_reduce": 0, "bn_bwd_apply": 0}
 
 
 def step_launches(cfg) -> dict:
@@ -747,70 +830,78 @@ def step_launches(cfg) -> dict:
     backward), the ball query on the Config's variant; 4 scatters (sa2-sa4,
     proposal), each in the Config's mode where its cotangent is f32, and
     exact where it is bf16 (mixed precision's sa2-sa4 feature gathers, and
-    the packed ones of ``gather_packing="bf16_hilo"``)."""
+    the packed ones of ``gather_packing="bf16_hilo"``); the batch-norm
+    kernels as :func:`bn_launches` counts them."""
     mixed = cfg.mixed_precision and cfg.compute_dtype == "float32"
     fast = cfg.scatter_precision == "fast_bf16"
     n_f32 = 1 if mixed or cfg.gather_packing == "bf16_hilo" else 4
     n_bq = 9 if cfg.remat else 5
     bq_fast = cfg.bq_precision == "fast_bf16"
     return {"fps": n_bq, "ballquery": 0 if bq_fast else n_bq, "ballquery_fast_bf16": n_bq if bq_fast else 0,
-            "scatter": 4 - n_f32 * fast, "scatter_fast_bf16": n_f32 * fast}
+            "scatter": 4 - n_f32 * fast, "scatter_fast_bf16": n_f32 * fast, **bn_launches(cfg, train=True)}
+
+
+def train_times(cfg, scenes, n, counters=None):
+    """``Trainer.train_epoch`` through public names: a full-width state from
+    seed SEED, one warm-up step (cuBLAS handles, the allocator), then n
+    steps on one B=8 batch of scenes[:8], ``counters`` set to 0 between.
+    Returns (trainer, batch, [(step ms, launches)], peak GiB of the warm-up
+    and the steps, the parameter leaves the n steps left unmoved). The one
+    measurement of phases 7 and 15 and of ``--e2e-times``."""
+    import torch
+
+    from votenet_tpu_torch.data.dataflow import batch_scenes
+    from votenet_tpu_torch.train import Trainer, create_train_state
+
+    counters = counters or {}
+    batch = next(batch_scenes(iter(scenes[:8]), 8, cfg.max_gt_boxes))
+    state = create_train_state(cfg, 512, torch.Generator().manual_seed(SEED), device="cuda")
+    trainer = Trainer(cfg, state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the steps' peak, not an earlier phase's
+    trainer.train_epoch([batch], metrics_every=1)
+    before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+    zero_counts(counters)
+    marks = []
+
+    def timed():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), launch_counts(counters)))
+            yield batch
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), launch_counts(counters)))
+
+    trainer.train_epoch(timed(), metrics_every=1)
+    steps = [((t1 - t0) * 1e3, {k: c1[k] - c0[k] for k in c0}) for (t0, c0), (t1, c1) in zip(marks, marks[1:])]
+    still = [k for k, p in state.model.named_parameters() if torch.equal(p, before[k])]
+    return trainer, batch, steps, torch.cuda.max_memory_allocated() / 2**30, still
 
 
 def phase_train(cfg, scenes, profile=False, step_ms=None, label="phase 7"):
     """Trainer.train_epoch: 3 full-width steps at B=8 after one warm-up
     (their ms appended to ``step_ms`` where given), each launching exactly
     ``step_launches(cfg)``."""
-    import torch
-
-    from votenet_tpu_torch.data.dataflow import batch_scenes
-    from votenet_tpu_torch.train import Trainer, create_train_state
-
     counters = train_counters()
-    batch = next(batch_scenes(iter(scenes[:8]), 8, cfg.max_gt_boxes))
-    state = create_train_state(cfg, 512, torch.Generator().manual_seed(SEED), device="cuda")
-    trainer = Trainer(cfg, state)
-    trainer.train_epoch([batch], metrics_every=1)  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
-    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
-    marks = []
-
-    def counts():
-        return {k: c.launches for k, c in counters.items()}
-
-    def timed(n):
-        for _ in range(n):
-            torch.cuda.synchronize()
-            marks.append((time.perf_counter(), counts()))
-            yield batch
-        torch.cuda.synchronize()
-        marks.append((time.perf_counter(), counts()))
-
-    for c in counters.values():
-        c.launches = 0
-    trainer.train_epoch(timed(3), metrics_every=1)
-    launches = counts()
-    step_s, per_step = [], []
-    for (t0, c0), (t1, c1) in zip(marks, marks[1:]):
-        step_s.append(t1 - t0)
-        per_step.append({k: c1[k] - c0[k] for k in c0})
+    trainer, batch, steps, peak_gib, still = train_times(cfg, scenes, 3, counters)
+    launches = launch_counts(counters)
     want = step_launches(cfg)
-    for i, d in enumerate(per_step):
+    for i, (_, d) in enumerate(steps):
         if d != want:
             raise AssertionError(f"train step {i} launched {d}, not {want}")
     losses = {k: list(v) for k, v in trainer.logger.moving.buffers.items()}
     if not all(np.isfinite(v).all() for v in losses.values()):
         raise AssertionError(f"non-finite metrics {losses}")
-    still = [n for n, p in state.model.named_parameters() if torch.equal(p, before[n])]
     if still:
         raise AssertionError(f"parameters that did not move in 3 steps: {still}")
+    n_leaves = len(list(trainer.state.model.parameters()))
     print(f"{label}: Trainer.train_epoch, 3 full-width steps at B=8 (after 1 warm-up): launches {launches}, "
-          f"per step {per_step[0]}; all {len(before)} parameter leaves moved")
-    print(f"  step ms {[s * 1e3 for s in step_s]}; scenes/s {[8 / s for s in step_s]}")
+          f"per step {steps[0][1]}; all {n_leaves} parameter leaves moved")
+    print(f"  step ms {[ms for ms, _ in steps]}; scenes/s {[8e3 / ms for ms, _ in steps]}")
     if step_ms is not None:
-        step_ms.extend(s * 1e3 for s in step_s)
+        step_ms.extend(ms for ms, _ in steps)
     print(f"  total_cost over the 4 steps {losses['total_cost']}")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  peak device memory {peak_gib:.2f} GiB")
     if profile:
         profile_device(lambda: trainer.train_epoch([batch] * 3, metrics_every=3), f"3 training steps, {label}")
     return launches
@@ -842,7 +933,9 @@ def profile_device(run, label):
                else "ballquery" if "ballquery_kernel" in low or "bq_merge_kernel" in low
                else "scatter" if "namespace)::scatter_" in low
                else "samlp" if "samlp_kernel" in low or "samlp_split_weights" in low
-               else "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "sm90_")) else "other")
+               else "batchnorm" if any(w in low for w in ("bn_stats_kernel", "bn_apply_kernel", "bn_bwd_"))
+               else "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "sm90_"))
+               else "elementwise" if "elementwise" in low or "reduce_kernel" in low else "other")
         groups[key] = groups.get(key, 0.0) + ms
     print(f"profile ({label}): wall {wall_ms:.1f} ms, kernel time {total:.1f} ms, "
           f"busy share {total / wall_ms:.3f}")
@@ -1003,6 +1096,35 @@ def same_detections(a, b):
     return worst <= REL_TOL, f"worst float gap {worst:.3g} of scale <= {REL_TOL}"
 
 
+def eval_passes(ev, predict, cache, n, counters=None):
+    """``ev.predictions_for_scenes(predict, cache)`` through public names:
+    one warm-up pass, ``counters`` set to 0, then n passes on the host clock
+    through a device sync. Returns (seconds of each pass, each forward's
+    launches, the last pass's predictions). The one measurement of phases
+    10, 14 and 16 and of ``--e2e-times``."""
+    import torch
+
+    counters = counters or {}
+    per_forward = []
+
+    def counted(points):
+        c0 = launch_counts(counters)
+        out = predict(points)
+        c1 = launch_counts(counters)
+        per_forward.append({k: c1[k] - c0[k] for k in c1})
+        return out
+
+    ev.predictions_for_scenes(predict, cache)
+    zero_counts(counters)
+    seconds, pred = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        pred = ev.predictions_for_scenes(counted, cache)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds, per_forward, pred
+
+
 def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, label="phase 10", beside=None,
                samlp_counter="samlp"):
     """Evaluator over 16 scenes on the card, samlp off then on, each forward
@@ -1035,45 +1157,26 @@ def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, l
         model.load_state_dict(state_dict)
         model.cuda()
         predict = make_packed_predict_fn(model, cfg)
-        per_forward = []
-
-        def counted(points):
-            before = {k: c.launches for k, c in counters.items()}
-            out = predict(points)
-            per_forward.append({k: c.launches - before[k] for k, c in counters.items()})
-            return out
-
         ev = Evaluator(cfg, gt_all, batch_size=8)
-        ev.predictions_for_scenes(predict, cache)  # warm-up
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        pred = ev.predictions_for_scenes(counted, cache)
-        torch.cuda.synchronize()
-        seconds = [time.perf_counter() - t0]
-        launches = {k: c.launches for k, c in counters.items()}
+        seconds, per_forward, pred = eval_passes(ev, predict, cache, 3, counters)
+        launches = launch_counts(counters)
         bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
         want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "samlp": 0, "samlp_bf16": 0, "nms": 1,
                 "iou3d": 1, "decode": 1}
         want[bq] = 5
         want[samlp_counter] = samlp_per_forward if mode == "on" else 0
+        want |= bn_launches(cfg, train=False, samlp=mode == "on")
         for i, d in enumerate(per_forward):
             if d != want:
                 raise AssertionError(f"samlp={mode}: forward {i} launched {d}, not {want}")
-        for _ in range(2):  # two more timed passes, for the spread
-            t0 = time.perf_counter()
-            ev.predictions_for_scenes(predict, cache)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
         scores = {iou: Evaluator(cfg, gt_all, ovthresh=iou, batch_size=8).score(pred) for iou in (0.25, 0.5)}
         runs[mode] = (pred, scores, launches)
         if maps is not None:
             maps[mode] = {iou: r["mAP"] for iou, r in scores.items()}
         checks[f"samlp={mode}: mAP finite"] = all(np.isfinite(r["mAP"]) for r in scores.values())
         n_det = sum(len(v) for v in pred.values())
-        print(f"  samlp={mode}: launches {launches} over {len(per_forward)} forwards, per forward {per_forward[0]}; "
-              f"{n_det} detections; seconds {[round(s, 6) for s in seconds]}, "
+        print(f"  samlp={mode}: launches {launches} over 3 passes' {len(per_forward)} forwards, per forward "
+              f"{per_forward[0]}; {n_det} detections; seconds {[round(s, 6) for s in seconds]}, "
               f"eval scenes/s {[round(EVAL_SCENES / s, 2) for s in seconds]}")
         for iou, r in scores.items():
             aps = ", ".join(f"{c} {r['ap'][c]:.4f}" for c in sorted(r["ap"]))
@@ -1577,6 +1680,7 @@ def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label=
                                              "scatter_fast_bf16")}
     want = want | {"fps": want["fps"] + 5 * fwd, bq: want[bq] + 5 * fwd, "samlp": 5 * fwd, "samlp_bf16": 0,
                    "nms": fwd, "iou3d": fwd, "decode": fwd}
+    want |= {k: per_step[k] * steps + n * fwd for k, n in bn_launches(run_cfg, train=False, samlp=True).items()}
     records = stats[0] + stats[1]
     checks = {
         "resumed from epoch 2": "resumed from epoch 2" in outs[1][0],
@@ -1945,10 +2049,13 @@ def phase_two_ranks(cfg, scenes, preset="full", device="cuda"):
         gaps = {k: scale_err(res["sp_forward"][k], v) for k, v in ep.items()}
         checks[f"rank {r} sp forward end points within {REL_TOL} of scale (max gaps "
                f"{ {k: f'{e:.3g}' for k, (e, _) in gaps.items()} })"] = all(e <= tol for e, tol in gaps.values())
-        want_sp = {"fps": 4, "ballquery": 5, "ballquery_fast_bf16": 0, "scatter": 0,
-                   "scatter_fast_bf16": 0}  # sa1's FPS: a torch loop
+        no_bn = dict.fromkeys(bn_counters(), 0)
+        # sa1's FPS: a torch loop; batch norm's training forward, no backward
+        want_sp = {"fps": 4, "ballquery": 5, "ballquery_fast_bf16": 0, "scatter": 0, "scatter_fast_bf16": 0,
+                   **no_bn, **{k: bn_launches(cfg, train=True)[k] for k in ("bn_stats", "bn_apply")}}
         checks[f"rank {r} sp forward launches {want_sp}"] = res["sp_forward_launches"] == want_sp
-        want_ops = {"fps": 0, "ballquery": 1, "ballquery_fast_bf16": 0, "scatter": 1, "scatter_fast_bf16": 0}
+        want_ops = {"fps": 0, "ballquery": 1, "ballquery_fast_bf16": 0, "scatter": 1, "scatter_fast_bf16": 0,
+                    **no_bn}
         checks[f"rank {r} sharded ops launches {want_ops}"] = res["sp_ops_launches"] == want_ops
     print(f"phase 21: sp=2 over gloo at B=2, sa1's shape ({cfg.point_num} -> {npoint} points, r={radius}, "
           f"K={nsample}), each rank a {cfg.point_num // 2}-point slab, against the single-device kernels")
@@ -2373,7 +2480,7 @@ def phase_bq_fast(cfg, scenes, report, production_ms, state_dict=None, f32_maps=
     out = {k: v.cpu() for k, v in predictor(batch).items()}
     paths = {"serve_bq_fast_bf16": {k: c.launches for k, c in counters.items()}}
     want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 5, "samlp": 0, "samlp_bf16": 0, "nms": 1, "iou3d": 1,
-            "decode": 1}
+            "decode": 1, **bn_launches(fcfg, train=False)}
     checks[f"one B=8 serving forward launches {paths['serve_bq_fast_bf16']} == {want}"] = (
         paths["serve_bq_fast_bf16"] == want)
     checks["its outputs finite"] = all(torch.isfinite(out[k]).all() for k in ("bboxes", "class_scores"))
@@ -2983,6 +3090,317 @@ def phase_dispatch(n_points=24000, batch_size=2, k=4, epochs=2):
     return finish(checks, "steps_per_dispatch checks", {"fit_steps_per_dispatch_4": launches})
 
 
+# ---------------------------------------------------------------- phase 32
+
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
+# Batch norm's per-channel sums (K1, K3) against torch.sum on the card: two
+# f32 orders of the same R terms (the kernel: ~R / 4000 terms a thread in
+# sequence, then 8-64 row groups and up to 528 CTAs in sequence; torch: its
+# own tree). Each rounding errs by at most 2^-24 of a partial sum; over
+# these orders the sums part by ~1e-6 of the channel's sum of |terms| at
+# R = 8.4M (random-walk estimate, sqrt(2500) roundings). Allowed: 1e-5 of
+# that sum of |terms|, channel by channel.
+BN_SUM_TOL = 1e-5
+# K4 against its plain version on the card: the same operations in the same
+# order (each rounding once), so equal floats are expected; held to 1e-6 of
+# the output's scale. K2 is held bit-equal.
+BN_GRAD_TOL = 1e-6
+
+
+def bn_sites(cfg):
+    """(layer, rows a scene, channels) of each batch norm + ReLU of a
+    forward, in the layer list's order (``bn_launches`` counts them)."""
+    sites = []
+    for i, mlp in enumerate(cfg.sa_mlps):
+        sites += [(f"sa{i + 1}", cfg.sa_npoints[i] * cfg.sa_nsamples[i], w) for w in mlp]
+    for i, mlp in enumerate(cfg.fp_mlps):  # fp1 at sa3's points, fp2 at sa2's
+        sites += [(f"fp{i + 1}", cfg.sa_npoints[2 - i], w) for w in mlp]
+    sites += [("voting", cfg.sa_npoints[1], w) for w in cfg.vote_units[:-1]]
+    sites += [("proposal", cfg.proposal_num * cfg.proposal_nsample, w) for w in cfg.proposal_mlp]
+    sites += [("mlp2", cfg.proposal_num, w) for w in cfg.proposal_mlp2_hidden]
+    return sites
+
+
+def bn_bounds(R, C, es_in, es_out):
+    """(ops ms, bytes ms) of K1-K4 at R x C: each input read once, each
+    output written once (the per-channel vectors 4 bytes a channel); f32
+    operations an element: K1 3 (an add, a square, an add), K2 4 (subtract,
+    multiply, add, max), K3 and K4 9 (K2's three, the mask's compare and
+    select, and the subtract, multiply and two adds of the sums or of dx)."""
+    n = float(R) * C
+    return {"bn_stats": bound_ms(3 * n, n * es_in + 8 * C),
+            "bn_apply": bound_ms(4 * n, n * (es_in + es_out) + 12 * C),
+            "bn_bwd_reduce": bound_ms(9 * n, n * (es_in + es_out) + 20 * C),
+            "bn_bwd_apply": bound_ms(9 * n, n * (2 * es_in + es_out) + 20 * C)}
+
+
+def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda"):
+    """K1-K4 at R x C in ``dtype`` (the input's and output's) against their
+    plain versions on the card, the train form's vectors from K1's sums;
+    each kernel run twice. Returns {kernel: (ok, err, kernel ms, plain ms,
+    library ms or None)}, err the largest absolute difference from the plain
+    version, the library ms that of the stage's own PyTorch call
+    (``batch_norm_stats``, ``batch_norm_elemt``, ``batch_norm_backward_reduce``,
+    ``batch_norm_backward_elemt``), and with ``library`` also {"whole":
+    {"forward": ms, "backward": ms}} of ``F.batch_norm``'s training forward
+    and autograd backward; the message of each gate that failed; all gates'
+    readings."""
+    import torch
+    import torch.nn.functional as F
+
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((R, C), generator=g, device=device) * 3 + 1).to(dtype)
+    dy = torch.randn((R, C), generator=g, device=device).to(dtype)
+    weight = torch.rand(C, generator=g, device=device) + 0.5
+    bias = torch.randn(C, generator=g, device=device)
+    out, bad = {}, []
+
+    def twice(fn):
+        a, b = fn(), fn()
+        same = all(torch.equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple) else torch.equal(a, b)
+        return a, same
+
+    def sum_gap(got, want, terms):  # (max abs difference, max of it over the channel's sum of |terms|)
+        d = (got - want).abs()
+        return float(d.max()), float((d / terms.clamp_min(1e-30)).max())
+
+    (s, sq), same1 = twice(lambda: bnc.bn_stats_cuda(x))
+    ps, psq = bn.bn_stats_plain(x)
+    xf = x.float()
+    (a1, e1), (b1, f1) = sum_gap(s, ps, xf.abs().sum(0)), sum_gap(sq, psq, (xf * xf).sum(0))
+    abs1, e1 = max(a1, b1), max(e1, f1)
+    mean = s / R
+    var_raw = sq / R - mean * mean
+    inv = torch.rsqrt(torch.clamp(var_raw, min=0.0) + 1e-5)
+    mul = inv * weight
+    y, same2 = twice(lambda: bnc.bn_apply_cuda(x, mean, mul, bias, dtype, True))
+    py = bn.bn_apply_plain(x, mean, mul, bias, dtype, True)
+    eq2 = torch.equal(y, py)
+    (sg, sgx), same3 = twice(lambda: bnc.bn_bwd_reduce_cuda(x, dy, mean, mul, bias, True))
+    psg, psgx = bn.bn_bwd_reduce_plain(x, dy, mean, mul, bias, True)
+    gm = torch.where(py <= 0, 0, dy).float()
+    (a3, e3), (b3, f3) = sum_gap(sg, psg, gm.abs().sum(0)), sum_gap(sgx, psgx, (gm * (xf - mean)).abs().sum(0))
+    abs3, e3 = max(a3, b3), max(e3, f3)
+    a, b = bn.bn_input_coefficients(sg, sgx, mean, mul, inv, weight, var_raw, R)
+    dx, same4 = twice(lambda: bnc.bn_bwd_apply_cuda(x, dy, mean, mul, bias, a, b, True))
+    pdx = bn.bn_bwd_apply_plain(x, dy, mean, mul, bias, a, b, True)
+    e4 = float((dx.float() - pdx.float()).abs().max())
+    tol4 = BN_GRAD_TOL * max(1.0, float(pdx.float().abs().max()))
+    gates = {
+        "bn_stats": (e1 <= BN_SUM_TOL and same1, abs1,
+                     f"K1 sums {e1:.3g} of sum|x| (<= {BN_SUM_TOL}), rerun equal {same1}"),
+        "bn_apply": (eq2 and same2, 0.0 if eq2 else float((y.float() - py.float()).abs().max()),
+                     f"K2 bit-equal to plain {eq2}, rerun equal {same2}"),
+        "bn_bwd_reduce": (e3 <= BN_SUM_TOL and same3, abs3,
+                          f"K3 sums {e3:.3g} of sum|terms| (<= {BN_SUM_TOL}), rerun equal {same3}"),
+        "bn_bwd_apply": (e4 <= tol4 and same4, e4,
+                         f"K4 max diff {e4:.3g} (<= {tol4:.3g}; equal {torch.equal(dx, pdx)}), rerun equal {same4}"),
+    }
+    bad = [msg for ok, _, msg in gates.values() if not ok]
+    summary = "; ".join(msg for _, _, msg in gates.values())
+    for k, (ok, err, _) in gates.items():
+        out[k] = [ok, err, None, None, None]
+    if times:
+        reps = 20 if R * C <= 1 << 27 else 5
+        calls = {
+            "bn_stats": (lambda: bnc.bn_stats_cuda(x), lambda: bn.bn_stats_plain(x)),
+            "bn_apply": (lambda: bnc.bn_apply_cuda(x, mean, mul, bias, dtype, True),
+                         lambda: bn.bn_apply_plain(x, mean, mul, bias, dtype, True)),
+            "bn_bwd_reduce": (lambda: bnc.bn_bwd_reduce_cuda(x, dy, mean, mul, bias, True),
+                              lambda: bn.bn_bwd_reduce_plain(x, dy, mean, mul, bias, True)),
+            "bn_bwd_apply": (lambda: bnc.bn_bwd_apply_cuda(x, dy, mean, mul, bias, a, b, True),
+                             lambda: bn.bn_bwd_apply_plain(x, dy, mean, mul, bias, a, b, True)),
+        }
+        for k, (kern, plain) in calls.items():
+            out[k][2] = cuda_ms(kern, reps)
+            out[k][3] = cuda_ms(plain, max(2, reps // 4))
+        if library:  # each stage's own PyTorch call on the same (R, C) inputs, no ReLU in any
+            eps = 1e-5
+            count = torch.tensor([R], dtype=torch.int32, device=device)
+            l_mean, l_inv = torch.batch_norm_stats(x, eps)
+            l_sg, l_sgx, _, _ = torch.batch_norm_backward_reduce(dy, x, l_mean, l_inv, weight, True, True, True)
+            library_calls = {
+                "bn_stats": lambda: torch.batch_norm_stats(x, eps),
+                "bn_apply": lambda: torch.batch_norm_elemt(x, weight, bias, l_mean, l_inv, eps),
+                "bn_bwd_reduce": lambda: torch.batch_norm_backward_reduce(dy, x, l_mean, l_inv, weight, True, True,
+                                                                          True),
+                "bn_bwd_apply": lambda: torch.batch_norm_backward_elemt(dy, x, l_mean, l_inv, weight, l_sg, l_sgx,
+                                                                        count),
+            }
+            for k, call in library_calls.items():
+                out[k][4] = cuda_ms(call, reps)
+            # beside K1 + K2 and K3 + K4: F.batch_norm's whole training forward and its autograd backward
+            rm, rv = torch.zeros(C, device=device), torch.ones(C, device=device)
+            xl = x.detach().requires_grad_(True)
+            wl, bl = weight.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+            yl = F.batch_norm(xl, rm, rv, wl, bl, training=True, eps=eps)
+            whole = {"forward": cuda_ms(lambda: F.batch_norm(x, rm, rv, weight, bias, training=True, eps=eps), reps),
+                     "backward": cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True),
+                                         reps)}
+            summary += (f"; F.batch_norm whole training forward {whole['forward'] * 1e3:.1f} us against K1 + K2's "
+                        f"{(out['bn_stats'][2] + out['bn_apply'][2]) * 1e3:.1f}, its backward "
+                        f"{whole['backward'] * 1e3:.1f} against K3 + K4's "
+                        f"{(out['bn_bwd_reduce'][2] + out['bn_bwd_apply'][2]) * 1e3:.1f}")
+            out["whole"] = whole
+    return out, bad, summary
+
+
+def phase_batchnorm(cfg, report, device="cuda"):
+    """Phase 32: batch norm + ReLU's four kernels (``csrc/batchnorm.cu``)
+    against their plain versions on the card at every batch-norm site of a
+    full-width forward and step, B=8 in f32 (the per-step sums) and bf16,
+    B=1 in f32, and sa1's sites at B=64 in f32 and bf16: K2 bit-equal, K1
+    and K3 within BN_SUM_TOL, K4 within BN_GRAD_TOL, every kernel's two runs
+    bit-identical; device us of each kernel, of its plain version and of
+    its stage's own PyTorch call (no ReLU), the bytes bound; over the B=8
+    f32 sites also ``F.batch_norm``'s whole training forward and backward
+    beside K1 + K2 and K3 + K4."""
+    import torch
+
+    print("phase 32: batch norm + ReLU kernels vs their plain versions on the card (CUDA events, warm L2); "
+          "library: each stage's own call, torch.batch_norm_stats, batch_norm_elemt, batch_norm_backward_reduce, "
+          "batch_norm_backward_elemt (no ReLU in them)")
+    print(TABLE_HEAD)
+    sites = bn_sites(cfg)
+    n_sites = bn_launches(cfg, train=True)["bn_apply"]
+    checks = {f"{len(sites)} sites in the layer list == bn_launches' {n_sites}": len(sites) == n_sites}
+    cache = {}
+    step = dict.fromkeys(("forward", "backward", "K1 + K2", "K3 + K4"), 0.0)  # B=8 f32 sums, ms
+
+    def run_case(B, R, C, dtype, library, layers):
+        key = (R, C, dtype)
+        if key not in cache:
+            cache[key] = bn_check(R, C, dtype, seed=R + C, library=library, device=device)
+            print(f"    {R}x{C} {str(dtype)[6:]}: {cache[key][2]}")
+            torch.cuda.empty_cache()
+        res, bad, _ = cache[key]
+        for msg in bad:
+            checks[f"B={B} {R}x{C} {dtype}: {msg}"] = False
+        checks[f"B={B} {R}x{C} {str(dtype)[6:]}: every gate"] = not bad
+        es = torch.tensor([], dtype=dtype).element_size()
+        bounds = bn_bounds(R, C, es, es)
+        if B == 8 and "whole" in res:
+            step["forward"] += res["whole"]["forward"] * len(layers)
+            step["backward"] += res["whole"]["backward"] * len(layers)
+            step["K1 + K2"] += (res["bn_stats"][2] + res["bn_apply"][2]) * len(layers)
+            step["K3 + K4"] += (res["bn_bwd_reduce"][2] + res["bn_bwd_apply"][2]) * len(layers)
+        for layer in layers:
+            for k in BN_KERNELS:
+                ok, err, k_ms, p_ms, l_ms = res[k]
+                report(k, layer, B, f"{R}x{C} {str(dtype)[6:]}", ok, err, k_ms, p_ms, bounds[k], l_ms,
+                       total=dtype == torch.float32)
+
+    for B, dtypes in ((8, (torch.float32, torch.bfloat16)), (1, (torch.float32,))):
+        for dtype in dtypes:
+            for layer, rows, C in sites:  # every site (B=8 f32: the step's sums), each shape measured once
+                run_case(B, B * rows, C, dtype, library=dtype == torch.float32, layers=[layer])
+    for dtype in (torch.float32, torch.bfloat16):
+        for C in sorted({c for layer, _, c in sites if layer == "sa1"}):
+            run_case(64, 64 * cfg.sa_npoints[0] * cfg.sa_nsamples[0], C, dtype, library=False, layers=["sa1"])
+            cache.clear()
+            torch.cuda.empty_cache()
+    print(f"  B=8 f32 step, {len(sites)} sites (us): F.batch_norm training forward {step['forward'] * 1e3:.1f} "
+          f"against K1 + K2 {step['K1 + K2'] * 1e3:.1f}; its backward {step['backward'] * 1e3:.1f} against K3 + K4 "
+          f"{step['K3 + K4'] * 1e3:.1f}")
+    return finish(checks, "batch-norm kernel checks", None)
+
+
+def bn_eval_host_us(cfg, n=100):
+    """Host us a call of the eval batch norm + ReLU, summed over the sites
+    that samlp leaves to it in an f32 forward (fp1, fp2, voting, mlp2) at
+    B=8, under ``torch.inference_mode``: the call as the model makes it,
+    ``bn(x, relu=True)`` where ``BatchNorm.forward`` takes ``relu`` (the
+    fused op), else ``torch.relu(bn(x))`` (earlier checkouts), beside
+    the eager formula written out here, which every checkout runs alike (the
+    host's speed in this run). n calls queued after a warm-up, the clock
+    stopped before the sync: the enqueueing's cost."""
+    import inspect
+
+    import torch
+
+    from votenet_tpu_torch.models.pointnet2 import BatchNorm
+
+    res = {"model_call": 0.0, "eager_formula": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for layer, rows, C in bn_sites(cfg):
+        if layer not in ("fp1", "fp2", "voting", "mlp2"):
+            continue
+        bn = BatchNorm(C).cuda()
+        x = torch.randn((8, rows, C), generator=g, device="cuda")
+        fused = "relu" in inspect.signature(bn.forward).parameters
+        calls = {"model_call": (lambda: bn(x, relu=True)) if fused else (lambda: torch.relu(bn(x))),
+                 "eager_formula": lambda: torch.relu(
+                     ((x - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps) * bn.weight)) + bn.bias)}
+        with torch.inference_mode():
+            for k, call in calls.items():
+                call()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    call()
+                res[k] += (time.perf_counter() - t0) * 1e6 / n
+                torch.cuda.synchronize()
+    return res
+
+
+def e2e_times(cfg, scenes, state_dict, reps=3):
+    """``--e2e-times``: the end-to-end figures batch norm moves, through
+    public names only, so that a copy of this file at the root of an
+    earlier checkout times that checkout with the same code: B=8 serving
+    requests and B=1 ``detect()`` (host ms), B=8 training steps in f32 and
+    in phase 15's bf16 and mixed throughput presets (ms, peak device memory,
+    torch.profiler's kernel time by group over 3 steps), the 16-scene eval
+    at B=8 with samlp off and on (scenes/s, a profiled pass each), and the
+    host us of the batch norm + ReLU calls left in eval with samlp on. Each
+    through the helpers of phases 4, 7 and 10."""
+    import torch
+
+    from votenet_tpu_torch.config import throughput_config
+    from votenet_tpu_torch.data.synthetic import synthetic_gt_all, synthetic_scenes
+    from votenet_tpu_torch.eval import DeviceSceneCache, Evaluator, make_packed_predict_fn
+    from votenet_tpu_torch.models import VoteNet
+    from votenet_tpu_torch.predictor import VoteNetPredictor
+
+    res = {}
+    predictor = VoteNetPredictor(cfg, device="cuda", batch_size=8, generator=torch.Generator().manual_seed(SEED))
+    requests, detects = serve_times(predictor, scenes, 5 * reps)
+    res["serve_b8_ms"] = [ms for ms, _, _ in requests]
+    res["detect_b1_ms"] = [ms for ms, _, _ in detects]
+    del predictor
+    for name, tcfg in (("f32", cfg), *((m, throughput_config(**o)) for m, o in PRECISION_MODES.items())):
+        trainer, batch, steps, peak_gib, _ = train_times(tcfg, scenes, 5 * reps)
+        res[f"train_{name}_ms"] = [ms for ms, _ in steps]
+        res[f"train_{name}_peak_gib"] = peak_gib
+        profile_device(lambda: trainer.train_epoch([batch] * 3, metrics_every=3),
+                       f"3 training steps at B=8, {name} (--e2e-times)")
+        del trainer
+        torch.cuda.empty_cache()
+    eval_scenes = synthetic_scenes(SEED, cfg, EVAL_SCENES)
+    gt_all = synthetic_gt_all(eval_scenes)
+    cache = DeviceSceneCache([(int(s["data_idx"]), s["points"]) for s in eval_scenes], 8, "cuda")
+    ev = Evaluator(cfg, gt_all, batch_size=8)
+    for samlp in ("off", "on"):
+        model = VoteNet(cfg.replace(samlp=samlp))
+        model.load_state_dict(state_dict)
+        model.cuda()
+        predict = make_packed_predict_fn(model, cfg)
+        seconds, _, _ = eval_passes(ev, predict, cache, 3 * reps)
+        res[f"eval_samlp_{samlp}_scenes_s"] = [EVAL_SCENES / sec for sec in seconds]
+        profile_device(lambda: ev.predictions_for_scenes(predict, cache),
+                       f"eval, samlp {samlp}, {EVAL_SCENES} scenes at B=8 (--e2e-times)")
+    for k, us in bn_eval_host_us(cfg).items():
+        res[f"eval_bn_host_us_{k}"] = us
+    for k, v in res.items():
+        if isinstance(v, list):
+            print(f"  {k}: median {float(np.median(v)):.3f}, range {min(v):.3f}-{max(v):.3f}")
+        else:
+            print(f"  {k}: {v:.3f}")
+    print(json.dumps({"e2e_times": res}))
+
+
 def main() -> int:
     import torch
 
@@ -3015,7 +3433,7 @@ def main() -> int:
     stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0,
                  "bound_ms": 0.0}
              for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d", "iou3d", "decode")
-             + variants}
+             + variants + BN_KERNELS}
     production_ms = dict.fromkeys(variants, 0.0)  # phases 16-18: the production kernels' sums beside
 
     def report(kernel, layer, B, shape, equal, err, k_ms, p_ms, bound, l_ms=None, total=True):
@@ -3051,12 +3469,20 @@ def main() -> int:
             run("head times", lambda: head_times(cfg, scenes, state_dict))
         print(card)
         return 1 if failed else 0
+    if "--e2e-times" in sys.argv[1:]:  # serving, training and eval alone, public names only
+        state_dict = run("read checkpoint", trained_state_dict)
+        if state_dict is not None:
+            run("end-to-end times", lambda: e2e_times(cfg, scenes, state_dict))
+        print(card)
+        return 1 if failed else 0
     if "--multi-device" in sys.argv[1:]:  # phases 19-21 alone: their costs in a process that ran no other phase
         run("distributed path, one NCCL rank", lambda: phase_dp_world1(cfg, scenes))
         run("two ranks on one card", lambda: phase_two_ranks(cfg, scenes))
         print(card)
         return 1 if failed else 0
     run("kernels", lambda: phase_kernels(cfg, scenes, report))
+    if importlib.util.find_spec("votenet_tpu_torch.ops.cuda.batchnorm") is not None:  # absent in earlier checkouts
+        run("batch-norm kernels", lambda: phase_batchnorm(cfg, report))
     if "--kernel-times" in sys.argv[1:]:  # phases 1-3, 9 and 16-18's kernels: to set beside another checkout's
         from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
         from votenet_tpu_torch.ops.cuda import fps as fps_mod
@@ -3158,7 +3584,7 @@ def main() -> int:
 
     # launches: the training path's count (phase 7, 3 steps); the serving
     # path's (phase 4, 6 forwards) and the eval path's (phase 10, samlp on,
-    # 2 forwards) stand beside it for FPS and the ball query; samlp's is the
+    # 3 passes of 2 forwards) stand beside it for FPS and the ball query; samlp's is the
     # eval path's; launches_fit: run_train's (phase 11, 6 steps and 1 eval
     # forward); launches_paths: the paths of phases 14-15 (bf16 and mixed
     # serving, eval and training; run_train --preset=throughput) and 19-21
@@ -3266,6 +3692,27 @@ def main() -> int:
             "production_ms": production_ms["ballquery_fast_bf16"], "tolerance": 0,
             "ms_is": "sum over the 5 main-path shapes at B=8",
         },
+    ]
+    # batch norm + ReLU (phase 32): launches on the training path (phase 7,
+    # 3 steps), serving (phase 4, 6 forwards), eval with samlp on and off
+    # (phase 10, 3 passes of 2 forwards each), run_train (phase 11) and the other paths
+    bn_tolerance = {"bn_stats": f"{BN_SUM_TOL} of each channel's sum of |x|", "bn_apply": 0,
+                    "bn_bwd_reduce": f"{BN_SUM_TOL} of each channel's sum of |terms|",
+                    "bn_bwd_apply": f"{BN_GRAD_TOL} of scale"}
+    bn_library = {"bn_stats": "torch.batch_norm_stats (mean and invstd)",
+                  "bn_apply": "torch.batch_norm_elemt (no ReLU)",
+                  "bn_bwd_reduce": "torch.batch_norm_backward_reduce (no ReLU mask)",
+                  "bn_bwd_apply": "torch.batch_norm_backward_elemt (no ReLU mask)"}
+    kernels += [
+        {
+            "name": k, "route": "cuda", "source": "votenet_tpu_torch/csrc/batchnorm.cu",
+            "replaces": "votenet_tpu/models/pointnet2.py:166 nn.BatchNorm + nn.relu (flax, XLA; no Pallas kernel)",
+            "launches": train_launches[k], "launches_serve": launches[k], "launches_eval": eval_launches["on"][k],
+            "launches_eval_samlp_off": eval_launches["off"][k], "launches_fit": fit_launches[k],
+            "launches_paths": path_launches(k), **measured(k), "tolerance": bn_tolerance[k],
+            "library_is": bn_library[k], "ms_is": "sum over the 23 batch-norm sites of a B=8 training step, f32",
+        }
+        for k in BN_KERNELS
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1257,3 +1257,162 @@ def test_dead_paths_on_the_card_match_cpu(cuda):
     from votenet_tpu_torch.data.synthetic import synthetic_scenes
 
     chip_smoke.phase_dead_paths(synthetic_scenes(0, default_config(), 2))
+
+
+# ------------------------------------------------------ batch norm + ReLU
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(1, 16), (7, 13), (2048, 128), (4096, 259), (131072, 64), (262144, 256),
+                                 (100003, 36), (33, 1024)])
+def test_bn_kernels_match_plain(cuda, dtype, R, C):
+    """chip_smoke.py's phase-32 gates at other shapes: K2 bit-equal to its
+    plain version on the card, K1 and K3 within BN_SUM_TOL of each
+    channel's sum of |terms|, K4 within BN_GRAD_TOL of scale, each kernel's
+    two runs bit-identical; odd C takes the scalar lanes, C = 1024 four
+    channel tiles."""
+    import chip_smoke
+
+    _, bad, _ = chip_smoke.bn_check(R, C, dtype, seed=R + C, times=False)
+    assert bad == []
+
+
+def test_bn_kernels_unaligned_rows_take_the_scalar_lanes(cuda):
+    """A contiguous view that starts one element into its storage: the
+    wrappers give the kernels V = 1 and the results are the plain stages'."""
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(64 * 32 + 1, generator=g, device="cuda") * 2 + 1)[1:].view(64, 32)
+    dy = torch.randn(64 * 32 + 1, generator=g, device="cuda")[1:].view(64, 32)
+    assert x.is_contiguous() and not bnc._vec(32, x)
+    mean, mul, bias = x.mean(0), torch.rand(32, device="cuda") + 0.5, torch.randn(32, device="cuda")
+    assert torch.equal(bnc.bn_apply_cuda(x, mean, mul, bias, torch.float32, True),
+                       bn.bn_apply_plain(x, mean, mul, bias, torch.float32, True))
+    a, b = torch.randn(32, device="cuda"), torch.randn(32, device="cuda")
+    got = bnc.bn_bwd_apply_cuda(x, dy, mean, mul, bias, a, b, True)
+    want = bn.bn_bwd_apply_plain(x, dy, mean, mul, bias, a, b, True)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    s, sq = bnc.bn_stats_cuda(x)
+    ps, psq = bn.bn_stats_plain(x)
+    assert torch.allclose(s, ps, rtol=0, atol=1e-5 * float(x.abs().sum(0).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_edge_cases_match_plain_on_the_card(cuda, dtype):
+    """NaN inputs and outputs of exactly +0 and -0 (x at the mean, a
+    negative scale, a -0 bias): K2 equal to the plain stage on the card bit
+    for bit (NaNs where it has them, zeros with torch.relu's signs on the
+    card), K3's sums and K4's cotangent with the same NaNs, equal
+    elsewhere (K4) or within BN_SUM_TOL (K3)."""
+    import chip_smoke
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    R, C = 256, 8
+    rng = np.random.RandomState(9)
+    mean = torch.from_numpy(rng.randn(C).astype(np.float32)).to(dtype).float().cuda()
+    x = torch.from_numpy((rng.randn(R, C) * 3).astype(np.float32)).cuda()
+    x[:40, 2], x[:40, 3] = mean[2], mean[3]
+    x[17, 5] = float("nan")
+    x = x.to(dtype)
+    dy = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dtype).cuda()
+    mul = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.randn(C).astype(np.float32)).cuda()
+    mul[2], bias[2], bias[3] = -1.0, -0.0, 0.0
+    y = bnc.bn_apply_cuda(x, mean, mul, bias, dtype, True)
+    py = bn.bn_apply_plain(x, mean, mul, bias, dtype, True)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    nan = torch.isnan(py)
+    assert torch.equal(torch.isnan(y), nan) and int(nan.sum()) == 1
+    assert torch.equal(y[~nan].view(bits), py[~nan].view(bits))
+    sg, sgx = bnc.bn_bwd_reduce_cuda(x, dy, mean, mul, bias, True)
+    psg, psgx = bn.bn_bwd_reduce_plain(x, dy, mean, mul, bias, True)
+    # each channel's sum of |terms| is at most R * max|dy| * (1 + max|x - mean|)
+    bound = R * float(dy.float().abs().max()) * (1 + float((x.float() - mean).abs().nan_to_num().max()))
+    for got, want in ((sg, psg), (sgx, psgx)):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        assert float((got[ok] - want[ok]).abs().max()) <= chip_smoke.BN_SUM_TOL * bound
+    a, b = torch.randn(C, device="cuda"), torch.randn(C, device="cuda")
+    dx = bnc.bn_bwd_apply_cuda(x, dy, mean, mul, bias, a, b, True)
+    pdx = bn.bn_bwd_apply_plain(x, dy, mean, mul, bias, a, b, True)
+    nan = torch.isnan(pdx)
+    assert torch.equal(torch.isnan(dx), nan) and torch.equal(dx[~nan], pdx[~nan])
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("shape", [(4, 64, 16, 24), (8, 1024, 64, 64), (2, 333, 7)], ids=["sa-like", "sa2-B8", "odd"])
+def test_bn_op_on_the_card_against_f64(cuda, training, shape):
+    """``ops.batch_norm_relu`` on the card (K1-K4) against the same formula
+    in f64 on the CPU: tests/test_torch_batchnorm.py's F64_TOL (forward and
+    running statistics 1e-6 of scale, gradients 1e-5 norm-wise); each stage
+    launched once."""
+    from tests.test_torch_batchnorm import F64_TOL, case, close, f64_reference, norm_gap
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    x, w, params, stats = case(sum(shape), shape)
+    weight = torch.from_numpy(params["scale"]).cuda().requires_grad_(True)
+    bias = torch.from_numpy(params["bias"]).cuda().requires_grad_(True)
+    rm, rv = torch.from_numpy(stats["mean"]).cuda(), torch.from_numpy(stats["var"]).cuda()
+    xt = torch.from_numpy(x).cuda().requires_grad_(True)
+    counters = (bnc.bn_stats_cuda, bnc.bn_apply_cuda, bnc.bn_bwd_reduce_cuda, bnc.bn_bwd_apply_cuda)
+    before = [c.launches for c in counters]
+    y = ops.batch_norm_relu(xt, weight, bias, rm, rv, training=training)
+    (y * torch.from_numpy(w).cuda()).sum().backward()
+    assert [c.launches - n for c, n in zip(counters, before)] == [int(training), 1, 1, 1]
+    ry, rgx, rgs, rgb, rrm, rrv = f64_reference(x, w, params, stats, training)
+    close(y.cpu(), ry.detach().numpy(), F64_TOL["forward"])
+    close(rm.cpu(), rrm.numpy(), F64_TOL["forward"])
+    close(rv.cpu(), rrv.numpy(), F64_TOL["forward"])
+    for got, want in ((xt.grad, rgx), (weight.grad, rgs), (bias.grad, rgb)):
+        assert norm_gap(got.cpu(), want) <= F64_TOL["grad"]
+
+
+@pytest.mark.parametrize("C", [301, 1028], ids=["scalar-2-tiles", "vec-2-tiles"])
+def test_bn_reductions_reuse_their_tickets(cuda, C):
+    """K1 and K3 over two channel tiles, three times in the current stream
+    and once in a side stream: the kernels set the cached tickets back to 0,
+    so every run gives the same bits (within BN_SUM_TOL of the plain
+    stages) and every ticket reads 0 afterwards."""
+    import chip_smoke
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    R = 4096
+    g = torch.Generator(device="cuda").manual_seed(C)
+    x = torch.randn((R, C), generator=g, device="cuda") * 2 + 1
+    dy = torch.randn((R, C), generator=g, device="cuda")
+    mean, mul, bias = x.mean(0), torch.rand(C, device="cuda") + 0.5, torch.randn(C, device="cuda")
+    assert bnc.bn_plan(R, C, bnc._vec(C, x), bnc.sm_count(0), "reduce")[2] == 2
+
+    def both():
+        return (*bnc.bn_stats_cuda(x), *bnc.bn_bwd_reduce_cuda(x, dy, mean, mul, bias, True))
+
+    first = both()
+    for got in (both(), both()):
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = both()
+    torch.cuda.current_stream().wait_stream(side)
+    assert all(torch.equal(a, b) for a, b in zip(got, first))
+    plain = (*bn.bn_stats_plain(x), *bn.bn_bwd_reduce_plain(x, dy, mean, mul, bias, True))
+    gm = torch.where(bn.bn_apply_plain(x, mean, mul, bias, torch.float32, False) <= 0, 0, dy)
+    terms = (x.abs().sum(0), (x * x).sum(0), gm.abs().sum(0), (gm * (x - mean)).abs().sum(0))
+    for a, b, t in zip(first, plain, terms):
+        assert bool(((a - b).abs() <= chip_smoke.BN_SUM_TOL * t).all())
+    torch.cuda.synchronize()
+    assert all(int(t.abs().sum()) == 0 for t in bnc._tickets.values())
+
+
+def test_bn_op_refuses_a_strided_card_tensor(cuda):
+    """A non-contiguous CUDA input raises; it is not copied."""
+    from votenet_tpu_torch import ops
+
+    x = torch.randn(16, 8, 12, device="cuda").transpose(0, 1)
+    v = torch.ones(12, device="cuda")
+    with pytest.raises((RuntimeError, ValueError)):
+        ops.batch_norm_relu(x, v, v, v.clone(), v.clone(), training=True)

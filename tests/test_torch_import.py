@@ -15,6 +15,7 @@ import torch
 from votenet_tpu_torch.config import tiny_config
 from votenet_tpu_torch import ops
 from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
+from votenet_tpu_torch.ops.cuda import batchnorm as bn_mod
 from votenet_tpu_torch.ops.cuda import decode as decode_mod
 from votenet_tpu_torch.ops.cuda import fps as fps_mod
 from votenet_tpu_torch.ops.cuda import iou3d as iou_mod
@@ -75,7 +76,8 @@ def test_cpu_tensors_launch_no_kernel():
     def counts():
         return (fps_mod.farthest_point_sample_cuda.launches, bq_mod.query_ball_point_cuda.launches,
                 bq_mod.query_ball_point_cuda.fast_bf16.launches, nms_mod.nms3d_greedy_cuda.launches,
-                iou_mod.box3d_iou_matrix_cuda.launches, decode_mod.decode_proposals_cuda.launches)
+                iou_mod.box3d_iou_matrix_cuda.launches, decode_mod.decode_proposals_cuda.launches,
+                bn_mod.bn_apply_cuda.launches)
 
     before = counts()
     xyz = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 3).astype(np.float32))
@@ -85,11 +87,11 @@ def test_cpu_tensors_launch_no_kernel():
     from votenet_tpu_torch.predictor import VoteNetPredictor
 
     VoteNetPredictor(tiny_config(), device="cpu", batch_size=1).detect(xyz[0].numpy())
-    assert counts() == before == (0, 0, 0, 0, 0, 0)
+    assert counts() == before == (0, 0, 0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("kernel", ["fps", "ballquery", "scatter", "samlp", "ballquery_fast_bf16", "nms3d", "iou3d",
-                                    "decode"])
+                                    "decode", "bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply"])
 def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     """Given a CPU tensor, the wrapper raises: it neither computes the plain
     version nor builds the library."""
@@ -104,7 +106,9 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     monkeypatch.setattr(nms_mod, "library", no_build)
     monkeypatch.setattr(iou_mod, "library", no_build)
     monkeypatch.setattr(decode_mod, "library", no_build)
+    monkeypatch.setattr(bn_mod, "library", no_build)
     xyz = torch.zeros(1, 16, 3)
+    rows, v = torch.zeros(8, 4), torch.zeros(4)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         if kernel == "fps":
             fps_mod.farthest_point_sample_cuda(4, xyz)
@@ -120,6 +124,14 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
             iou_mod.box3d_iou_matrix_cuda(torch.zeros(1, 4, 8, 3), torch.zeros(1, 5, 8, 3))
         elif kernel == "scatter":
             scatter_mod.scatter_add_cuda(xyz, torch.zeros(1, 16, dtype=torch.int32), 4)
+        elif kernel == "bn_stats":
+            bn_mod.bn_stats_cuda(rows)
+        elif kernel == "bn_apply":
+            bn_mod.bn_apply_cuda(rows, v, v, v, torch.float32, True)
+        elif kernel == "bn_bwd_reduce":
+            bn_mod.bn_bwd_reduce_cuda(rows, rows, v, v, v, True)
+        elif kernel == "bn_bwd_apply":
+            bn_mod.bn_bwd_apply_cuda(rows, rows, v, v, v, v, v, True)
         else:
             layer = (torch.zeros(3, 5), torch.ones(5), torch.zeros(5))
             samlp_mod.fused_sa_mlp_pool_cuda(
@@ -131,6 +143,7 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     assert samlp_mod.fused_sa_mlp_pool_cuda.launches == 0
     assert bq_mod.query_ball_point_cuda.fast_bf16.launches == nms_mod.nms3d_greedy_cuda.launches == 0
     assert iou_mod.box3d_iou_matrix_cuda.launches == decode_mod.decode_proposals_cuda.launches == 0
+    assert [getattr(bn_mod, f"bn_{k}_cuda").launches for k in ("stats", "apply", "bwd_reduce", "bwd_apply")] == [0] * 4
 
 
 def test_cpu_eval_launches_no_kernel():

@@ -69,7 +69,9 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 class BatchNorm(nn.Module):
     """Batch norm over the last axis, in flax's order:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, through
+    ``ops.batch_norm_relu`` (four hand-written kernels on the card, their
+    plain versions on the CPU; see ``ops/batchnorm.py``).
 
     In training mode (``self.training``) mean and var are the batch's, taken
     over every axis but the last as flax 0.12 does (``_compute_stats`` with
@@ -82,14 +84,16 @@ class BatchNorm(nn.Module):
 
     As flax's ``_compute_stats`` and ``_normalize``: statistics and the
     normalisation run in f32 whatever the input's dtype, and the output is
-    cast to ``dtype``.
+    cast to ``dtype``. ``forward(x, relu=True)`` also applies the ReLU, in
+    the same op (the MLP stacks' and the voting module's call).
 
     ``group`` (set by :func:`batch_norm_group`) makes it synced batch norm
     over a data-parallel group: the sums of x and x^2 and the row count are
-    all-reduced over its ranks (``comm.psum_varying``: each rank normalises
-    its own rows, so the backward sums the cotangents), and the statistics
-    are the whole batch's, identical on every rank, as the JAX package's
-    are over its mesh. In one process the sums are the same ones.
+    all-reduced over its ranks (each rank normalises its own rows, so the
+    backward sums the sums' cotangents, ``comm.psum_varying``'s rule), and
+    the statistics are the whole batch's, identical on every rank, as the
+    JAX package's are over its mesh. In one process the sums are the same
+    ones.
 
     ``frozen`` (set by :func:`frozen_running_stats`) keeps the running
     statistics where they are in training.
@@ -111,25 +115,12 @@ class BatchNorm(nn.Module):
         self.frozen = False  # set by frozen_running_stats
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        if self.training:
-            axes = tuple(range(x.dim() - 1))
-            count = x.numel() // x.shape[-1] * comm.size(self.group)
-            s, sq = x.sum(dim=axes), (x * x).sum(dim=axes)
-            if self.group is not None:
-                s, sq = comm.psum_varying(torch.cat([s, sq]), self.group).chunk(2)
-            mean = s / count
-            var = torch.clamp(sq / count - mean * mean, min=0.0)
-            if not self.frozen:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean) * mul + self.bias).to(self.dtype)
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        return ops.batch_norm_relu(
+            x, self.weight, self.bias, self.running_mean, self.running_var, training=self.training,
+            momentum=self.momentum, eps=self.eps, group=self.group, update_stats=not self.frozen, dtype=self.dtype,
+            relu=relu,
+        )
 
 
 @contextlib.contextmanager
@@ -225,7 +216,7 @@ class MLPStack(nn.Module):
             else:
                 x = dense(layer, x, dt)
             if self.final_activation or i < self.n - 1:
-                x = torch.relu(getattr(self, f"bn{i}")(x) if self.use_bn else x)
+                x = getattr(self, f"bn{i}")(x, relu=True) if self.use_bn else torch.relu(x)
         return x
 
     def _split_dense0(self, xyz: torch.Tensor, feat: torch.Tensor, center: torch.Tensor,

@@ -95,7 +95,7 @@ class VotingModule(nn.Module):
         for i in range(self.n):
             x = dense(getattr(self, f"voting{i}"), x, self.dtype)
             if i < self.n - 1:
-                x = torch.relu(getattr(self, f"voting{i}_bn")(x))
+                x = getattr(self, f"voting{i}_bn")(x, relu=True)
         return x
 
 

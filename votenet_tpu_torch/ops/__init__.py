@@ -9,7 +9,9 @@ ports of the JAX package's benchmark prototypes: the ball query that also
 returns the grouped coordinates (``query_ball_point_emit_xyz``) and FPS
 with an 8-byte candidate exchange (``fps_rowwise_noscalar``). NMS's greedy
 and its IoU matrix run kernels of the port's own on a CUDA tensor
-(``nms3d``, ``box3d_iou_matrix``). The reference's other ops, on no path
+(``nms3d``, ``box3d_iou_matrix``), and so does batch norm + ReLU, one
+autograd op whose four stages are kernels on the card
+(``batch_norm_relu``). The reference's other ops, on no path
 (``knn_point``, ``select_top_k``, ``query_ball_point_topk``,
 ``prob_sample``), the ball query's dense and streaming forms
 (``query_ball_point_dense``, ``query_ball_point_streaming``), three_nn's
@@ -17,6 +19,7 @@ and its IoU matrix run kernels of the port's own on a CUDA tensor
 (``box3d_iou_pairwise``) are plain PyTorch everywhere.
 """
 
+from votenet_tpu_torch.ops.batchnorm import batch_norm_relu
 from votenet_tpu_torch.ops.common import pairwise_sqdist
 from votenet_tpu_torch.ops.grouping import (
     finalize_first_k,
@@ -43,5 +46,5 @@ __all__ = [
     "merge_first_k", "finalize_first_k", "group_point", "scatter_add",
     "three_nn", "three_nn_dense", "three_nn_streaming", "three_interpolate",
     "box3d_iou_pairwise", "box3d_iou_matrix", "nms3d", "nms3d_indices", "fused_sa_mlp_pool",
-    "knn_point", "select_top_k", "query_ball_point_topk", "prob_sample",
+    "knn_point", "select_top_k", "query_ball_point_topk", "prob_sample", "batch_norm_relu",
 ]

@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "build"
 # (the distance sums and samlp's affine steps are also written with
 # __fmul_rn/__fadd_rn; samlp's matmuls run on wgmma, which the flag does not
 # touch); see the notes in csrc/fps.cu, csrc/ballquery.cu, csrc/samlp.cu,
-# csrc/iou3d.cu and csrc/decode.cu.
+# csrc/iou3d.cu, csrc/decode.cu and csrc/batchnorm.cu.
 # -Xptxas=-v puts each kernel's registers, shared memory and spills into the
 # build log.
 NVCC_FLAGS = (
@@ -122,6 +122,14 @@ def library() -> ctypes.CDLL:
             lib.votenet_decode.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr,
                                            ptr, ptr]
             lib.votenet_decode.restype = i32
+            bn_plan = [i64, i32, i32, i32, i32, i32, i64]  # R, C, vec, W, ctas, tiles, rows a CTA
+            lib.votenet_bn_stats.argtypes = [ptr, i32, *bn_plan, ptr, ptr, ptr, ptr, ptr, ptr]
+            lib.votenet_bn_apply.argtypes = [ptr, i32, ptr, i32, *bn_plan, ptr, ptr, ptr, i32, ptr]
+            lib.votenet_bn_bwd_reduce.argtypes = [ptr, i32, ptr, i32, *bn_plan, ptr, ptr, ptr, i32,
+                                                  ptr, ptr, ptr, ptr, ptr, ptr]
+            lib.votenet_bn_bwd_apply.argtypes = [ptr, i32, ptr, i32, ptr, *bn_plan, ptr, ptr, ptr, ptr, ptr, i32, ptr]
+            for fn in (lib.votenet_bn_stats, lib.votenet_bn_apply, lib.votenet_bn_bwd_reduce, lib.votenet_bn_bwd_apply):
+                fn.restype = i32
             lib.votenet_error_string.argtypes = [i32]
             lib.votenet_error_string.restype = ctypes.c_char_p
             _lib = lib
