@@ -8,6 +8,7 @@ paths on one NVIDIA GPU.
     python3 chip_smoke.py --head-times  # the detection head's times alone, public names only (no final line)
     python3 chip_smoke.py --multi-device  # phases 1-2 and 19-21 alone (no final line)
     python3 chip_smoke.py --e2e-times  # serving, training and eval times alone, public names only (no final line)
+    python3 chip_smoke.py --bn-library  # batch norm's K1 and K3 beside their library calls alone (no final line)
 
 ``--kernel-times`` also runs from a copy of this file placed at the root of
 another checkout of the port (an earlier commit's archive), so that both
@@ -21,7 +22,8 @@ too: it times the decode, the IoU matrix, ``ops.nms3d`` and
 so does ``--e2e-times`` (B=8 serving requests, B=1 ``detect()``, B=8
 training steps in f32, bf16 and mixed with their peak memory and profiles,
 the eval with samlp off and on), through names every checkout with the
-precision presets has.
+precision presets has; and ``--bn-library``, through names every checkout
+with the batch-norm kernels has.
 
 Phases, each checked; any failure exits non-zero without the final line:
 
@@ -238,22 +240,31 @@ Phases, each checked; any failure exits non-zero without the final line:
    output equal bit for bit to its plain version's on the card and on the
    CPU; device us of the kernel and of the plain version's eager passes
    beside the bound. It runs before phase 22.
-32. Batch norm + ReLU's four kernels (``csrc/batchnorm.cu``: the sums, the
-   normalisation with the ReLU, the backward's sums, the input's
-   cotangent) against their plain versions (``ops/batchnorm.py``) on the
-   card, at every batch-norm site of a full-width forward and training
-   step (23, ``bn_sites``) at B=8 in f32 and bf16 and at B=1 in f32, and
-   at sa1's sites at B=64 (8.4M rows) in f32 and bf16: the normalisation
-   bit-equal, the sums within BN_SUM_TOL of each channel's sum of |terms|,
-   the input's cotangent within BN_GRAD_TOL, each kernel's two runs
-   bit-identical; device us of each kernel, its plain version and its
-   stage's own PyTorch call (``torch.batch_norm_stats``, ``_elemt``,
-   ``_backward_reduce``, ``_backward_elemt``; no ReLU), beside the bytes
-   bound, and ``F.batch_norm``'s whole training forward and backward beside
-   K1 + K2 and K3 + K4 over a B=8 step's sites. It runs after
-   phase 3. Every other phase's launch checks count the four kernels too
-   (``bn_launches``: a forward applies 23 times, fewer where samlp fuses;
-   a step launches each 23 times, the forward two 35 under remat).
+32. Batch norm + ReLU's kernels with the layer around them
+   (``csrc/batchnorm.cu``: the sums, the normalisation with the ReLU, the
+   backward's sums, the input's cotangent; each reading the dense layer's
+   output h and forming x = ``(h - corr) + b`` itself; at an SA layer's
+   last width K2's pool variant, the max over the ball's slots and the tie
+   counts, and K3 and K4 on the pooled cotangent) against their plain
+   versions (``ops/batchnorm.py``) on the card, at every batch-norm site of
+   a full-width forward and training step (23, ``bn_sites``, each with its
+   prologue and pool) at B=8 and B=1 in f32 and bf16, and at sa1's sites
+   at B=64 (8.4M rows) in f32 and bf16, on inputs padded as
+   the ball query pads a ball: K2 (the pool's maxima and counts too) and K4
+   bit-equal, the sums within BN_SUM_TOL of each channel's sum of |terms|
+   and within an f32 ulp of torch's f64 sum of the same terms,
+   each kernel's two runs bit-identical; device us of each kernel, its
+   plain version, the eager passes it replaces (``eager_ms``: the
+   prologue's, and K2 + ``torch.amax`` at a pool) and its stage's own
+   PyTorch call on the old inputs (``torch.batch_norm_stats``, ``_elemt``,
+   ``_backward_reduce``, ``_backward_elemt`` on x and a full dy; no ReLU,
+   no pool), beside the bytes bound, a per-site table of K1-K4 against
+   each site's bound, and ``F.batch_norm``'s whole training forward and
+   backward beside K1 + K2 and K3 + K4 over a B=8 step's sites. It runs
+   after phase 3. Every other phase's launch checks count the kernels too
+   (``bn_launches``: a forward applies 23 times, 5 of them pooled, fewer
+   where samlp fuses; a step launches each 23 times, the forward two 35
+   under remat; the launches that took the centred or the bias prologue).
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
@@ -272,10 +283,10 @@ trained checkpoint's B=8 boxes, phase 26), ``decode`` (``launches`` phase
 4's, ``ms`` and ``plain_ms`` on the trained checkpoint's B=8 end points,
 phase 31), ``ballquery_fast_bf16``
 (``launches`` phase 23's serving forward; ``production_ms`` the exact
-kernel's) and the four batch-norm kernels (``launches`` phase 7's training
-path, beside serving's, eval's and ``run_train``'s; ``ms``, ``plain_ms``,
-``bound_ms`` and ``library_ms`` sums over the 23 sites of a B=8 step in
-f32, phase 32).
+kernel's) and the batch-norm kernels and their pooled variants (``launches`` phase
+7's training path, beside serving's, eval's and ``run_train``'s; ``ms``,
+``plain_ms``, ``bound_ms``, ``library_ms`` and ``eager_ms`` sums over the
+sites of a B=8 step in f32 that take each, phase 32).
 Kernel times are device times:
 ``cuda_ms`` queues its timed calls behind a sleep kernel, so the wrappers'
 host time between launches does not count (a call whose kernel is shorter
@@ -305,8 +316,10 @@ kernel's formulation, below), the corners read and the matrix written; the
 self-matrix NMS asks for needs N (N + 1) / 2 pairs. The decode: the head's
 channels and centres read and its 34 words a proposal written;
 DECODE_OPS and 2 a compared score a proposal. Batch norm: the (R, C) input
-(and cotangent) read and the output written, a few f32 operations an
-element (``bn_bounds``): bound by bytes.
+(and cotangent) read and the output written, the prologue's centre rows
+and bias read, at a pool the maxima, counts and pooled cotangent in place
+of the full output or cotangent, a few f32 operations an element
+(``bn_bounds``): bound by bytes.
 """
 
 from __future__ import annotations
@@ -784,11 +797,20 @@ def phase_scatter_fast(cfg, scenes, report):
                   f"vs the exact variant: max diff {rounding:.3g} (the rounding, > 0)")
 
 
+BN_COUNTS = ("bn_stats", "bn_apply", "bn_apply_pool", "bn_bwd_reduce", "bn_bwd_reduce_pooled", "bn_bwd_apply",
+             "bn_bwd_apply_pooled", "bn_prologue_centre", "bn_prologue_bias")
+
+
 def bn_counters():
+    """The batch-norm site's counts: each kernel's launches over full rows,
+    K2's pool variant's and K3's and K4's at a pooled site, and the
+    launches (of any stage) that took the centred or the bias prologue."""
     from votenet_tpu_torch.ops.cuda import batchnorm as bn
 
-    return {"bn_stats": bn.bn_stats_cuda, "bn_apply": bn.bn_apply_cuda, "bn_bwd_reduce": bn.bn_bwd_reduce_cuda,
-            "bn_bwd_apply": bn.bn_bwd_apply_cuda}
+    return {"bn_stats": bn.bn_stats_cuda, "bn_apply": bn.bn_apply_cuda, "bn_apply_pool": bn.bn_apply_cuda.pool,
+            "bn_bwd_reduce": bn.bn_bwd_reduce_cuda, "bn_bwd_reduce_pooled": bn.bn_bwd_reduce_cuda.pooled,
+            "bn_bwd_apply": bn.bn_bwd_apply_cuda, "bn_bwd_apply_pooled": bn.bn_bwd_apply_cuda.pooled,
+            "bn_prologue_centre": bn.PROLOGUE_LAUNCHES["centre"], "bn_prologue_bias": bn.PROLOGUE_LAUNCHES["bias"]}
 
 
 def train_counters():
@@ -801,27 +823,41 @@ def train_counters():
             "scatter_fast_bf16": scatter_add_cuda.fast_bf16, **bn_counters()}
 
 
-def bn_launches(cfg, train: bool, samlp: bool = False) -> dict:
-    """The batch-norm kernels' launches of one forward (eval) or training
-    step under ``cfg``, from the layer list. The sites: each width of
-    sa1-sa4's MLPs, of the FP layers' and of the proposal layer's, the
-    voting module's hidden layers and the proposal head's (mlp2's) hidden
-    layers; 23 at the reference widths. Eval: one apply a site, none in an
-    SA layer whose MLP samlp fuses (``samlp``: the f32 layers, all five in
-    f32, sa1 and the proposal layer under mixed precision, none in bf16). A
-    step: stats and apply a site, again for sa1-sa4 under remat (whose
-    backward recomputes them), and both backward kernels once a site."""
-    sa = [len(m) for m in cfg.sa_mlps]
-    sites = (sum(sa) + sum(len(m) for m in cfg.fp_mlps) + len(cfg.vote_units) - 1 + len(cfg.proposal_mlp)
-             + len(cfg.proposal_mlp2_hidden))
-    if train:
-        fwd = sites + (sum(sa) if cfg.remat else 0)
-        return {"bn_stats": fwd, "bn_apply": fwd, "bn_bwd_reduce": sites, "bn_bwd_apply": sites}
-    f32 = cfg.compute_dtype == "float32"
-    fused = 0
-    if samlp and f32:
-        fused = (sa[0] if cfg.mixed_precision else sum(sa)) + len(cfg.proposal_mlp)
-    return {"bn_stats": 0, "bn_apply": sites - fused, "bn_bwd_reduce": 0, "bn_bwd_apply": 0}
+def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True) -> dict:
+    """The batch-norm counts (``bn_counters``) of one forward (eval) or
+    training step under ``cfg``, from the layer list (``bn_sites``): 23
+    sites at the reference widths. Eval: one apply a site, the pool variant
+    at an SA layer's last width, none in an SA layer whose MLP samlp fuses
+    (``samlp``: the f32 layers, all five in f32, sa1 and the proposal layer
+    under mixed precision, none in bf16). A step: stats and apply a site,
+    again for sa1-sa4 under remat (whose backward recomputes them), and both
+    backward kernels once a site, pooled at the pools. Every launch at a
+    site takes its prologue: the centred one at an SA layer's first width
+    (but the split first layers of sa2-sa4 under mixed precision and, in
+    training, of sa1-sa4 under ``gather_packing="bf16_hilo"``, which add
+    their bias themselves), the bias elsewhere. ``backward=False``: a
+    training forward alone (stats and apply)."""
+    mixed = cfg.mixed_precision and cfg.compute_dtype == "float32"
+    split = {"sa2", "sa3", "sa4"} if mixed else set()
+    if train and cfg.gather_packing == "bf16_hilo":  # the backbone's packed gathers (sa1's features are its xyz)
+        split = {"sa1", "sa2", "sa3", "sa4"}
+    fused = set()
+    if samlp and not train and cfg.compute_dtype == "float32":
+        fused = {"sa1", "proposal"} if mixed else {"sa1", "sa2", "sa3", "sa4", "proposal"}
+    n = dict.fromkeys(BN_COUNTS, 0)
+    for layer, _, _, prologue, pooled in bn_sites(cfg):
+        if layer in fused:
+            continue
+        fwd = 1 + (train and cfg.remat and layer in ("sa1", "sa2", "sa3", "sa4"))
+        bwd = int(train and backward)
+        if train:
+            n["bn_stats"] += fwd
+            n["bn_bwd_reduce_pooled" if pooled else "bn_bwd_reduce"] += bwd
+            n["bn_bwd_apply_pooled" if pooled else "bn_bwd_apply"] += bwd
+        n["bn_apply_pool" if pooled else "bn_apply"] += fwd
+        if not (prologue == "centre" and layer in split):
+            n[f"bn_prologue_{prologue}"] += (2 * fwd + 2 * bwd) if train else 1
+    return n
 
 
 def step_launches(cfg) -> dict:
@@ -933,7 +969,7 @@ def profile_device(run, label):
                else "ballquery" if "ballquery_kernel" in low or "bq_merge_kernel" in low
                else "scatter" if "namespace)::scatter_" in low
                else "samlp" if "samlp_kernel" in low or "samlp_split_weights" in low
-               else "batchnorm" if any(w in low for w in ("bn_stats_kernel", "bn_apply_kernel", "bn_bwd_"))
+               else "batchnorm" if any(w in low for w in ("bn_stats_kernel", "bn_apply_", "bn_bwd_"))
                else "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "sm90_"))
                else "elementwise" if "elementwise" in low or "reduce_kernel" in low else "other")
         groups[key] = groups.get(key, 0.0) + ms
@@ -941,8 +977,8 @@ def profile_device(run, label):
           f"busy share {total / wall_ms:.3f}")
     print("  by group (ms, share of kernel time): " + ", ".join(
         f"{k} {v:.1f} ({v / total:.3f})" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
-    for ms, count, name in sorted(kernels, reverse=True)[:15]:
-        print(f"  {ms:9.2f} ms  x{count:<5} {name[:110]}")
+    for ms, count, name in sorted(kernels, reverse=True)[:25]:
+        print(f"  {ms:9.2f} ms  x{count:<5} {name[:160]}")
 
 
 def phase_train_cpu_parity(cfg, scenes):
@@ -2052,7 +2088,7 @@ def phase_two_ranks(cfg, scenes, preset="full", device="cuda"):
         no_bn = dict.fromkeys(bn_counters(), 0)
         # sa1's FPS: a torch loop; batch norm's training forward, no backward
         want_sp = {"fps": 4, "ballquery": 5, "ballquery_fast_bf16": 0, "scatter": 0, "scatter_fast_bf16": 0,
-                   **no_bn, **{k: bn_launches(cfg, train=True)[k] for k in ("bn_stats", "bn_apply")}}
+                   **bn_launches(cfg, train=True, backward=False)}
         checks[f"rank {r} sp forward launches {want_sp}"] = res["sp_forward_launches"] == want_sp
         want_ops = {"fps": 0, "ballquery": 1, "ballquery_fast_bf16": 0, "scatter": 1, "scatter_fast_bf16": 0,
                     **no_bn}
@@ -3093,111 +3129,196 @@ def phase_dispatch(n_points=24000, batch_size=2, k=4, epochs=2):
 # ---------------------------------------------------------------- phase 32
 
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
-# Batch norm's per-channel sums (K1, K3) against torch.sum on the card: two
-# f32 orders of the same R terms (the kernel: ~R / 4000 terms a thread in
-# sequence, then 8-64 row groups and up to 528 CTAs in sequence; torch: its
-# own tree). Each rounding errs by at most 2^-24 of a partial sum; over
-# these orders the sums part by ~1e-6 of the channel's sum of |terms| at
-# R = 8.4M (random-walk estimate, sqrt(2500) roundings). Allowed: 1e-5 of
-# that sum of |terms|, channel by channel.
+# the kernels and variants of the JSON line: K2's pool variant, K3 and K4 at a pooled site
+BN_VARIANTS = {"bn_apply": "bn_apply_pool", "bn_bwd_reduce": "bn_bwd_reduce_pooled",
+               "bn_bwd_apply": "bn_bwd_apply_pooled"}
+BN_ROWS = BN_KERNELS + tuple(BN_VARIANTS.values())
+# Batch norm's per-channel sums (K1, K3) against torch.sum on the card: the
+# kernels add exact terms in f64 and round once (within an f32 ulp of the
+# exact sum); torch adds in f32 in its own tree, each rounding erring by at
+# most 2^-24 of a partial sum: ~1e-6 of the channel's sum of |terms| at R =
+# 8.4M (random-walk estimate). Allowed: 1e-5 of that sum of |terms|,
+# channel by channel. K2 and K4 against their plain versions: the same
+# operations in the same order (each rounding once), held bit for bit.
 BN_SUM_TOL = 1e-5
-# K4 against its plain version on the card: the same operations in the same
-# order (each rounding once), so equal floats are expected; held to 1e-6 of
-# the output's scale. K2 is held bit-equal.
-BN_GRAD_TOL = 1e-6
+# And against torch's f64 sum of the same exact terms: the f32 sums (K1's
+# f64 ones rounded as the op rounds them) within 2^-23 of |sum| (an f32 ulp
+# at most; correct rounding errs by half that) plus 2^-40 of the sum of
+# |terms| (two f64 sums in different orders, ~1e-13 of it at worst at R =
+# 8.4M). A row lost or added moves a sum by a term, 1e-7 of the sum of
+# |terms| or more at the model's sites: far outside.
+BN_F64_ULPS, BN_F64_FLOOR = 2.0 ** -23, 2.0 ** -40
 
 
 def bn_sites(cfg):
-    """(layer, rows a scene, channels) of each batch norm + ReLU of a
-    forward, in the layer list's order (``bn_launches`` counts them)."""
+    """(layer, rows a scene, channels, prologue, pooled) of each batch norm
+    + ReLU of a forward, in the layer list's order (``bn_launches`` counts
+    them): an SA layer's first width takes the centred prologue ("centre"),
+    every other site the dense bias ("bias"); an SA layer's last width is
+    pooled over its ``nsample`` slots."""
     sites = []
+
+    def sa(name, rows, mlp):
+        sites.extend((name, rows, w, "centre" if j == 0 else "bias", j == len(mlp) - 1) for j, w in enumerate(mlp))
+
     for i, mlp in enumerate(cfg.sa_mlps):
-        sites += [(f"sa{i + 1}", cfg.sa_npoints[i] * cfg.sa_nsamples[i], w) for w in mlp]
+        sa(f"sa{i + 1}", cfg.sa_npoints[i] * cfg.sa_nsamples[i], mlp)
     for i, mlp in enumerate(cfg.fp_mlps):  # fp1 at sa3's points, fp2 at sa2's
-        sites += [(f"fp{i + 1}", cfg.sa_npoints[2 - i], w) for w in mlp]
-    sites += [("voting", cfg.sa_npoints[1], w) for w in cfg.vote_units[:-1]]
-    sites += [("proposal", cfg.proposal_num * cfg.proposal_nsample, w) for w in cfg.proposal_mlp]
-    sites += [("mlp2", cfg.proposal_num, w) for w in cfg.proposal_mlp2_hidden]
+        sites += [(f"fp{i + 1}", cfg.sa_npoints[2 - i], w, "bias", False) for w in mlp]
+    sites += [("voting", cfg.sa_npoints[1], w, "bias", False) for w in cfg.vote_units[:-1]]
+    sa("proposal", cfg.proposal_num * cfg.proposal_nsample, cfg.proposal_mlp)
+    sites += [("mlp2", cfg.proposal_num, w, "bias", False) for w in cfg.proposal_mlp2_hidden]
     return sites
 
 
-def bn_bounds(R, C, es_in, es_out):
-    """(ops ms, bytes ms) of K1-K4 at R x C: each input read once, each
-    output written once (the per-channel vectors 4 bytes a channel); f32
+def bn_slots(cfg, layer):
+    """The slots a ball (S) of an SA layer's pool."""
+    return cfg.proposal_nsample if layer == "proposal" else cfg.sa_nsamples[int(layer[2:]) - 1]
+
+
+def bn_bounds(R, C, es_in, es_out, S=1, prologue=None, pooled=False):
+    """(ops ms, bytes ms) of K1-K4 at R x C (units of S rows): each input read
+    once, each output written once (the per-channel vectors 4 bytes a
+    channel); the prologue reads the dense bias (C) and the centre's rows
+    (R / S x C) and adds one operation an element for each; at a pooled
+    site K2 writes the maxima and int32 counts (R / S x C) in place of y and
+    K3 and K4 read them and the pooled cotangent in place of dy. f32
     operations an element: K1 3 (an add, a square, an add), K2 4 (subtract,
-    multiply, add, max), K3 and K4 9 (K2's three, the mask's compare and
-    select, and the subtract, multiply and two adds of the sums or of dx)."""
+    multiply, add, max; pooled 2 more, the compare and the count), K3 and
+    K4 9 (K2's three, the mask's compare and select, and the subtract,
+    multiply and two adds of the sums or of dx; pooled 3 more: the compare,
+    the division by the count, the select)."""
     n = float(R) * C
-    return {"bn_stats": bound_ms(3 * n, n * es_in + 8 * C),
-            "bn_apply": bound_ms(4 * n, n * (es_in + es_out) + 12 * C),
-            "bn_bwd_reduce": bound_ms(9 * n, n * (es_in + es_out) + 20 * C),
-            "bn_bwd_apply": bound_ms(9 * n, n * (2 * es_in + es_out) + 20 * C)}
+    G = float(R) // S
+    pro_ops = n * ((prologue == "centre") + (prologue is not None))
+    pro_bytes = (G * C * es_in if prologue == "centre" else 0) + (C * es_in if prologue else 0)
+    pool_out = G * C * (es_out + 4)
+    dy = G * C * (2 * es_out + 4) if pooled else n * es_out
+    return {"bn_stats": bound_ms(3 * n + pro_ops, n * es_in + pro_bytes + 8 * C),
+            "bn_apply": bound_ms((6 if pooled else 4) * n + pro_ops,
+                                 n * es_in + (pool_out if pooled else n * es_out) + pro_bytes + 12 * C),
+            "bn_bwd_reduce": bound_ms((12 if pooled else 9) * n + pro_ops, n * es_in + dy + pro_bytes + 20 * C),
+            "bn_bwd_apply": bound_ms((12 if pooled else 9) * n + pro_ops, 2 * n * es_in + dy + pro_bytes + 20 * C)}
 
 
-def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda"):
+def bn_site_inputs(R, C, dtype, seed, prologue=None, S=1, pooled=False, device="cuda"):
+    """A site's random inputs on the card: h (R, C) (scale 3, mean 1), at a
+    pooled site with the ball query's padding (each unit of S rows keeps a
+    random count of its rows and repeats its first in the rest, so the
+    pool's ties are many), the centre's rows (R / S, C) and the dense bias
+    where the prologue takes them, the BN weight and bias, and dy: (R, C),
+    or the pooled cotangent (R / S, C)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn((R, C), generator=g, device=device) * 3 + 1
+    if pooled:
+        h3 = h.view(R // S, S, C)
+        keep = torch.randint(1, S + 1, (R // S, 1, 1), generator=g, device=device)
+        h = torch.where(torch.arange(S, device=device)[None, :, None] >= keep, h3[:, :1], h3).view(R, C)
+    h = h.to(dtype)
+    corr = (torch.randn((R // S, C), generator=g, device=device) * 2).to(dtype) if prologue == "centre" else None
+    dense_bias = torch.randn(C, generator=g, device=device).to(dtype) if prologue else None
+    weight = torch.rand(C, generator=g, device=device) + 0.5
+    bias = torch.randn(C, generator=g, device=device)
+    dy = torch.randn((R // S if pooled else R, C), generator=g, device=device).to(dtype)
+    return h, corr, dense_bias, weight, bias, dy
+
+
+def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda", prologue=None, S=1, pooled=False):
     """K1-K4 at R x C in ``dtype`` (the input's and output's) against their
-    plain versions on the card, the train form's vectors from K1's sums;
-    each kernel run twice. Returns {kernel: (ok, err, kernel ms, plain ms,
-    library ms or None)}, err the largest absolute difference from the plain
-    version, the library ms that of the stage's own PyTorch call
-    (``batch_norm_stats``, ``batch_norm_elemt``, ``batch_norm_backward_reduce``,
-    ``batch_norm_backward_elemt``), and with ``library`` also {"whole":
-    {"forward": ms, "backward": ms}} of ``F.batch_norm``'s training forward
-    and autograd backward; the message of each gate that failed; all gates'
-    readings."""
+    plain versions on the card, with the site's prologue ("centre": corr
+    and the dense bias, units of S rows; "bias"; None) and, with
+    ``pooled``, K2's pool variant and K3 and K4 on the pooled cotangent; the
+    train form's vectors from K1's sums; each kernel run twice. Returns
+    ({kernel: [ok, err, kernel ms, plain ms, library ms or None]}, the
+    message of each gate that failed, all gates' readings); err the largest
+    absolute difference from the plain version. K2 and K4 are held bit for
+    bit (the pool's maxima and counts too), K1 and K3 within BN_SUM_TOL of
+    each channel's sum of |terms| and within BN_F64_ULPS of torch's f64 sum
+    of the same terms (plus BN_F64_FLOOR of the sum of |terms|). With
+    ``times`` also "eager_ms": the eager passes each launch's fusion replaces on the same inputs (the
+    prologue's two or one, and at a pooled site K2 over full rows plus
+    ``torch.amax``), and with ``library`` each stage's own PyTorch call on
+    the old inputs, x and a full dy (``batch_norm_stats``,
+    ``batch_norm_elemt``, ``batch_norm_backward_reduce``,
+    ``batch_norm_backward_elemt``), and {"whole": {"forward": ms,
+    "backward": ms}} of ``F.batch_norm``'s training forward and autograd
+    backward there."""
     import torch
     import torch.nn.functional as F
 
     from votenet_tpu_torch.ops import batchnorm as bn
     from votenet_tpu_torch.ops.cuda import batchnorm as bnc
 
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = (torch.randn((R, C), generator=g, device=device) * 3 + 1).to(dtype)
-    dy = torch.randn((R, C), generator=g, device=device).to(dtype)
-    weight = torch.rand(C, generator=g, device=device) + 0.5
-    bias = torch.randn(C, generator=g, device=device)
-    out, bad = {}, []
+    h, corr, db, weight, bias, dy = bn_site_inputs(R, C, dtype, seed, prologue, S, pooled, device)
+    pro = dict(corr=corr, dense_bias=db)
+    out = {}
 
     def twice(fn):
         a, b = fn(), fn()
         same = all(torch.equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple) else torch.equal(a, b)
         return a, same
 
+    def bits_equal(a, b):
+        if a.dtype == torch.int32:
+            return torch.equal(a, b)
+        ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        return a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
     def sum_gap(got, want, terms):  # (max abs difference, max of it over the channel's sum of |terms|)
         d = (got - want).abs()
         return float(d.max()), float((d / terms.clamp_min(1e-30)).max())
 
-    (s, sq), same1 = twice(lambda: bnc.bn_stats_cuda(x))
-    ps, psq = bn.bn_stats_plain(x)
+    def f64_gap(got, term, scale):  # the largest |got - f64 sum| over its allowance (<= 1 passes)
+        want = sum(term(slice(i, i + (1 << 20))).sum(0) for i in range(0, R, 1 << 20))  # rows in slices: memory
+        d = (got.double() - want).abs()
+        return float((d / (BN_F64_ULPS * want.abs() + BN_F64_FLOOR * scale.double()).clamp_min(1e-300)).max())
+
+    x = bn.layer_rows_plain(h, corr, db)  # the old inputs: x as the eager prologue stores it
     xf = x.float()
-    (a1, e1), (b1, f1) = sum_gap(s, ps, xf.abs().sum(0)), sum_gap(sq, psq, (xf * xf).sum(0))
+    (s, sq), same1 = twice(lambda: bnc.bn_stats_cuda(h, **pro))
+    ps, psq = bn.bn_stats_plain(h, **pro)
+    s, sq = s.float(), sq.float()  # K1's f64 sums, rounded as the op rounds them
+    abs_s, abs_sq = xf.abs().sum(0), (xf * xf).sum(0)  # the channels' sums of |terms|
+    (a1, e1), (b1, f1) = sum_gap(s, ps, abs_s), sum_gap(sq, psq, abs_sq)
     abs1, e1 = max(a1, b1), max(e1, f1)
+    u1 = max(f64_gap(s, lambda r: x[r].double(), abs_s), f64_gap(sq, lambda r: x[r].double() ** 2, abs_sq))
     mean = s / R
     var_raw = sq / R - mean * mean
     inv = torch.rsqrt(torch.clamp(var_raw, min=0.0) + 1e-5)
     mul = inv * weight
-    y, same2 = twice(lambda: bnc.bn_apply_cuda(x, mean, mul, bias, dtype, True))
-    py = bn.bn_apply_plain(x, mean, mul, bias, dtype, True)
-    eq2 = torch.equal(y, py)
-    (sg, sgx), same3 = twice(lambda: bnc.bn_bwd_reduce_cuda(x, dy, mean, mul, bias, True))
-    psg, psgx = bn.bn_bwd_reduce_plain(x, dy, mean, mul, bias, True)
-    gm = torch.where(py <= 0, 0, dy).float()
-    (a3, e3), (b3, f3) = sum_gap(sg, psg, gm.abs().sum(0)), sum_gap(sgx, psgx, (gm * (xf - mean)).abs().sum(0))
+    pool = dict(pool=S) if pooled else {}
+    y, same2 = twice(lambda: bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True, **pro, **pool))
+    py = bn.bn_apply_plain(h, mean, mul, bias, dtype, True, **pro, **pool)
+    eq2 = all(bits_equal(u, v) for u, v in zip(y, py)) if pooled else bits_equal(y, py)
+    bwd = dict(pro, pooled=(y if pooled else None))
+    pbwd = dict(pro, pooled=(py if pooled else None))
+    (sg, sgx), same3 = twice(lambda: bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **bwd))
+    psg, psgx = bn.bn_bwd_reduce_plain(h, dy, mean, mul, bias, True, **pbwd)
+    gm = bn._masked(x, dy, mean, mul, bias, True, pbwd["pooled"])
+    abs_g, abs_gx = gm.abs().sum(0), (gm * (xf - mean)).abs().sum(0)
+    (a3, e3), (b3, f3) = sum_gap(sg, psg, abs_g), sum_gap(sgx, psgx, abs_gx)
     abs3, e3 = max(a3, b3), max(e3, f3)
+    u3 = max(f64_gap(sg, lambda r: gm[r].double(), abs_g),
+             f64_gap(sgx, lambda r: gm[r].double() * (xf[r] - mean).double(), abs_gx))
     a, b = bn.bn_input_coefficients(sg, sgx, mean, mul, inv, weight, var_raw, R)
-    dx, same4 = twice(lambda: bnc.bn_bwd_apply_cuda(x, dy, mean, mul, bias, a, b, True))
-    pdx = bn.bn_bwd_apply_plain(x, dy, mean, mul, bias, a, b, True)
+    dx, same4 = twice(lambda: bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **bwd))
+    pdx = bn.bn_bwd_apply_plain(h, dy, mean, mul, bias, a, b, True, **pbwd)
+    eq4 = bits_equal(dx, pdx)
+    e2 = 0.0 if eq2 else max(float((u.float() - v.float()).abs().max()) for u, v in zip(
+        y if pooled else (y,), py if pooled else (py,)))
     e4 = float((dx.float() - pdx.float()).abs().max())
-    tol4 = BN_GRAD_TOL * max(1.0, float(pdx.float().abs().max()))
+    k2, k3, k4 = ((BN_VARIANTS[k] if pooled else k) for k in ("bn_apply", "bn_bwd_reduce", "bn_bwd_apply"))
     gates = {
-        "bn_stats": (e1 <= BN_SUM_TOL and same1, abs1,
-                     f"K1 sums {e1:.3g} of sum|x| (<= {BN_SUM_TOL}), rerun equal {same1}"),
-        "bn_apply": (eq2 and same2, 0.0 if eq2 else float((y.float() - py.float()).abs().max()),
-                     f"K2 bit-equal to plain {eq2}, rerun equal {same2}"),
-        "bn_bwd_reduce": (e3 <= BN_SUM_TOL and same3, abs3,
-                          f"K3 sums {e3:.3g} of sum|terms| (<= {BN_SUM_TOL}), rerun equal {same3}"),
-        "bn_bwd_apply": (e4 <= tol4 and same4, e4,
-                         f"K4 max diff {e4:.3g} (<= {tol4:.3g}; equal {torch.equal(dx, pdx)}), rerun equal {same4}"),
+        "bn_stats": (e1 <= BN_SUM_TOL and u1 <= 1 and same1, abs1,
+                     f"K1 sums {e1:.3g} of sum|x| (<= {BN_SUM_TOL}), {u1:.3g} of the f64 sum's allowance (<= 1), "
+                     f"rerun equal {same1}"),
+        k2: (eq2 and same2, e2, f"K2{' pool' if pooled else ''} bit-equal to plain {eq2}, rerun equal {same2}"),
+        k3: (e3 <= BN_SUM_TOL and u3 <= 1 and same3, abs3,
+             f"K3 sums {e3:.3g} of sum|terms| (<= {BN_SUM_TOL}), {u3:.3g} of the f64 sum's allowance (<= 1), "
+             f"rerun equal {same3}"),
+        k4: (eq4 and same4, e4, f"K4 bit-equal to plain {eq4} (max diff {e4:.3g}), rerun equal {same4}"),
     }
     bad = [msg for ok, _, msg in gates.values() if not ok]
     summary = "; ".join(msg for _, _, msg in gates.values())
@@ -3206,29 +3327,37 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda"):
     if times:
         reps = 20 if R * C <= 1 << 27 else 5
         calls = {
-            "bn_stats": (lambda: bnc.bn_stats_cuda(x), lambda: bn.bn_stats_plain(x)),
-            "bn_apply": (lambda: bnc.bn_apply_cuda(x, mean, mul, bias, dtype, True),
-                         lambda: bn.bn_apply_plain(x, mean, mul, bias, dtype, True)),
-            "bn_bwd_reduce": (lambda: bnc.bn_bwd_reduce_cuda(x, dy, mean, mul, bias, True),
-                              lambda: bn.bn_bwd_reduce_plain(x, dy, mean, mul, bias, True)),
-            "bn_bwd_apply": (lambda: bnc.bn_bwd_apply_cuda(x, dy, mean, mul, bias, a, b, True),
-                             lambda: bn.bn_bwd_apply_plain(x, dy, mean, mul, bias, a, b, True)),
+            "bn_stats": (lambda: bnc.bn_stats_cuda(h, **pro), lambda: bn.bn_stats_plain(h, **pro)),
+            k2: (lambda: bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True, **pro, **pool),
+                 lambda: bn.bn_apply_plain(h, mean, mul, bias, dtype, True, **pro, **pool)),
+            k3: (lambda: bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **bwd),
+                 lambda: bn.bn_bwd_reduce_plain(h, dy, mean, mul, bias, True, **pbwd)),
+            k4: (lambda: bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **bwd),
+                 lambda: bn.bn_bwd_apply_plain(h, dy, mean, mul, bias, a, b, True, **pbwd)),
         }
         for k, (kern, plain) in calls.items():
             out[k][2] = cuda_ms(kern, reps)
             out[k][3] = cuda_ms(plain, max(2, reps // 4))
-        if library:  # each stage's own PyTorch call on the same (R, C) inputs, no ReLU in any
+        pro_ms = cuda_ms(lambda: bn.layer_rows_plain(h, corr, db), reps) if prologue else 0.0
+        eager = {"bn_stats": pro_ms, k3: pro_ms, k4: pro_ms}
+        if pooled:
+            eager[k2] = pro_ms + cuda_ms(
+                lambda: torch.amax(bnc.bn_apply_cuda(x, mean, mul, bias, dtype, True).view(R // S, S, C), dim=1), reps)
+        else:
+            eager[k2] = pro_ms
+        out["eager_ms"] = eager
+        if library:  # each stage's own PyTorch call on the old (R, C) inputs, no ReLU or pool in any
             eps = 1e-5
+            dy_full = (bn._slot_cotangent(bn.bn_apply_plain(x, mean, mul, bias, dtype, True), dy, *py)
+                       if pooled else dy)
             count = torch.tensor([R], dtype=torch.int32, device=device)
             l_mean, l_inv = torch.batch_norm_stats(x, eps)
-            l_sg, l_sgx, _, _ = torch.batch_norm_backward_reduce(dy, x, l_mean, l_inv, weight, True, True, True)
+            l_sg, l_sgx, _, _ = torch.batch_norm_backward_reduce(dy_full, x, l_mean, l_inv, weight, True, True, True)
             library_calls = {
                 "bn_stats": lambda: torch.batch_norm_stats(x, eps),
-                "bn_apply": lambda: torch.batch_norm_elemt(x, weight, bias, l_mean, l_inv, eps),
-                "bn_bwd_reduce": lambda: torch.batch_norm_backward_reduce(dy, x, l_mean, l_inv, weight, True, True,
-                                                                          True),
-                "bn_bwd_apply": lambda: torch.batch_norm_backward_elemt(dy, x, l_mean, l_inv, weight, l_sg, l_sgx,
-                                                                        count),
+                k2: lambda: torch.batch_norm_elemt(x, weight, bias, l_mean, l_inv, eps),
+                k3: lambda: torch.batch_norm_backward_reduce(dy_full, x, l_mean, l_inv, weight, True, True, True),
+                k4: lambda: torch.batch_norm_backward_elemt(dy_full, x, l_mean, l_inv, weight, l_sg, l_sgx, count),
             }
             for k, call in library_calls.items():
                 out[k][4] = cuda_ms(call, reps)
@@ -3238,82 +3367,158 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda"):
             wl, bl = weight.detach().requires_grad_(True), bias.detach().requires_grad_(True)
             yl = F.batch_norm(xl, rm, rv, wl, bl, training=True, eps=eps)
             whole = {"forward": cuda_ms(lambda: F.batch_norm(x, rm, rv, weight, bias, training=True, eps=eps), reps),
-                     "backward": cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True),
+                     "backward": cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy_full, retain_graph=True),
                                          reps)}
             summary += (f"; F.batch_norm whole training forward {whole['forward'] * 1e3:.1f} us against K1 + K2's "
-                        f"{(out['bn_stats'][2] + out['bn_apply'][2]) * 1e3:.1f}, its backward "
+                        f"{(out['bn_stats'][2] + out[k2][2]) * 1e3:.1f}, its backward "
                         f"{whole['backward'] * 1e3:.1f} against K3 + K4's "
-                        f"{(out['bn_bwd_reduce'][2] + out['bn_bwd_apply'][2]) * 1e3:.1f}")
+                        f"{(out[k3][2] + out[k4][2]) * 1e3:.1f}")
             out["whole"] = whole
     return out, bad, summary
 
 
 def phase_batchnorm(cfg, report, device="cuda"):
-    """Phase 32: batch norm + ReLU's four kernels (``csrc/batchnorm.cu``)
-    against their plain versions on the card at every batch-norm site of a
-    full-width forward and step, B=8 in f32 (the per-step sums) and bf16,
-    B=1 in f32, and sa1's sites at B=64 in f32 and bf16: K2 bit-equal, K1
-    and K3 within BN_SUM_TOL, K4 within BN_GRAD_TOL, every kernel's two runs
-    bit-identical; device us of each kernel, of its plain version and of
-    its stage's own PyTorch call (no ReLU), the bytes bound; over the B=8
-    f32 sites also ``F.batch_norm``'s whole training forward and backward
-    beside K1 + K2 and K3 + K4."""
+    """Phase 32: batch norm + ReLU's kernels (``csrc/batchnorm.cu``) with the
+    layer around them against their plain versions on the card at every
+    batch-norm site of a full-width forward and step, each with its
+    prologue (the centred first layer, or the dense bias) and, at an SA
+    layer's last width, the pool (K2's pool variant, K3 and K4 on the
+    pooled cotangent), B=8 in f32 (the per-step sums) and bf16, B=1 in f32
+    and bf16, and sa1's sites at B=64 in f32 and bf16: K2 and K4 bit-equal (the
+    pool's maxima and counts too), K1 and K3 within BN_SUM_TOL and an f32
+    ulp of torch's f64 sum (BN_F64_ULPS, BN_F64_FLOOR), every
+    kernel's two runs bit-identical; device us of each kernel, of its plain
+    version, of the eager passes it replaces and of its stage's own PyTorch
+    call on the old inputs (x and a full dy; no ReLU, no pool), the bytes
+    bound; a per-site table of K1-K4 against each site's bound; over the
+    B=8 f32 sites also ``F.batch_norm``'s whole training forward and
+    backward beside K1 + K2 and K3 + K4. Returns {kernel: {"ms_by_prologue",
+    "eager_ms"}} of the B=8 f32 step's sums."""
     import torch
 
-    print("phase 32: batch norm + ReLU kernels vs their plain versions on the card (CUDA events, warm L2); "
-          "library: each stage's own call, torch.batch_norm_stats, batch_norm_elemt, batch_norm_backward_reduce, "
-          "batch_norm_backward_elemt (no ReLU in them)")
+    print("phase 32: batch norm + ReLU kernels with their prologue and pool vs their plain versions on the card "
+          "(CUDA events, warm L2); library: each stage's own call on the old inputs (x and a full dy), "
+          "torch.batch_norm_stats, batch_norm_elemt, batch_norm_backward_reduce, batch_norm_backward_elemt "
+          "(no ReLU, no pool in them)")
     print(TABLE_HEAD)
     sites = bn_sites(cfg)
-    n_sites = bn_launches(cfg, train=True)["bn_apply"]
+    n_sites = sum(v for k, v in bn_launches(cfg, train=True).items() if k.startswith("bn_apply"))
     checks = {f"{len(sites)} sites in the layer list == bn_launches' {n_sites}": len(sites) == n_sites}
     cache = {}
     step = dict.fromkeys(("forward", "backward", "K1 + K2", "K3 + K4"), 0.0)  # B=8 f32 sums, ms
+    extra = {k: {"ms_by_prologue": {"centre": 0.0, "bias": 0.0}, "eager_ms": 0.0} for k in BN_ROWS}
+    table = []
 
-    def run_case(B, R, C, dtype, library, layers):
-        key = (R, C, dtype)
+    def run_case(B, layer, R, C, dtype, prologue, pooled, library):
+        S = bn_slots(cfg, layer) if layer.startswith(("sa", "proposal")) and (pooled or prologue == "centre") else 1
+        key = (R, C, dtype, prologue, S, pooled)
         if key not in cache:
-            cache[key] = bn_check(R, C, dtype, seed=R + C, library=library, device=device)
-            print(f"    {R}x{C} {str(dtype)[6:]}: {cache[key][2]}")
+            cache[key] = bn_check(R, C, dtype, seed=R + C, library=library, device=device, prologue=prologue, S=S,
+                                  pooled=pooled)
+            print(f"    {R}x{C} {str(dtype)[6:]} {prologue} prologue{', pooled over ' + str(S) if pooled else ''}: "
+                  f"{cache[key][2]}")
             torch.cuda.empty_cache()
         res, bad, _ = cache[key]
+        what = f"B={B} {layer} {R}x{C} {str(dtype)[6:]} {prologue}{' pool' if pooled else ''}"
         for msg in bad:
-            checks[f"B={B} {R}x{C} {dtype}: {msg}"] = False
-        checks[f"B={B} {R}x{C} {str(dtype)[6:]}: every gate"] = not bad
+            checks[f"{what}: {msg}"] = False
+        checks[f"{what}: every gate"] = not bad
         es = torch.tensor([], dtype=dtype).element_size()
-        bounds = bn_bounds(R, C, es, es)
+        bounds = bn_bounds(R, C, es, es, S, prologue, pooled)
         if B == 8 and "whole" in res:
-            step["forward"] += res["whole"]["forward"] * len(layers)
-            step["backward"] += res["whole"]["backward"] * len(layers)
-            step["K1 + K2"] += (res["bn_stats"][2] + res["bn_apply"][2]) * len(layers)
-            step["K3 + K4"] += (res["bn_bwd_reduce"][2] + res["bn_bwd_apply"][2]) * len(layers)
-        for layer in layers:
-            for k in BN_KERNELS:
-                ok, err, k_ms, p_ms, l_ms = res[k]
-                report(k, layer, B, f"{R}x{C} {str(dtype)[6:]}", ok, err, k_ms, p_ms, bounds[k], l_ms,
-                       total=dtype == torch.float32)
+            k2, k3, k4 = ((BN_VARIANTS[k] if pooled else k) for k in ("bn_apply", "bn_bwd_reduce", "bn_bwd_apply"))
+            step["forward"] += res["whole"]["forward"]
+            step["backward"] += res["whole"]["backward"]
+            step["K1 + K2"] += res["bn_stats"][2] + res[k2][2]
+            step["K3 + K4"] += res[k3][2] + res[k4][2]
+        row = [layer, f"{R}x{C}", f"{prologue}{' +pool' if pooled else ''}"]
+        for k in BN_KERNELS:
+            kk = BN_VARIANTS[k] if pooled and k in BN_VARIANTS else k
+            ok, err, k_ms, p_ms, l_ms = res[kk]
+            report(kk, layer, B, f"{R}x{C} {str(dtype)[6:]} {prologue[0]}{'p' if pooled else ''}", ok, err, k_ms,
+                   p_ms, bounds[k], l_ms, total=dtype == torch.float32)
+            if B == 8 and dtype == torch.float32 and k_ms is not None:
+                extra[kk]["ms_by_prologue"][prologue] += k_ms
+                extra[kk]["eager_ms"] += res["eager_ms"][kk]
+                row += [k_ms * 1e3, max(bounds[k]) * 1e3]
+        if len(row) > 3:
+            table.append(row)
 
-    for B, dtypes in ((8, (torch.float32, torch.bfloat16)), (1, (torch.float32,))):
+    for B, dtypes in ((8, (torch.float32, torch.bfloat16)), (1, (torch.float32, torch.bfloat16))):
         for dtype in dtypes:
-            for layer, rows, C in sites:  # every site (B=8 f32: the step's sums), each shape measured once
-                run_case(B, B * rows, C, dtype, library=dtype == torch.float32, layers=[layer])
+            for layer, rows, C, prologue, pooled in sites:  # every site; B=8 f32: the step's sums
+                run_case(B, layer, B * rows, C, dtype, prologue, pooled, library=B == 8 and dtype == torch.float32)
     for dtype in (torch.float32, torch.bfloat16):
-        for C in sorted({c for layer, _, c in sites if layer == "sa1"}):
-            run_case(64, 64 * cfg.sa_npoints[0] * cfg.sa_nsamples[0], C, dtype, library=False, layers=["sa1"])
-            cache.clear()
-            torch.cuda.empty_cache()
+        for layer, rows, C, prologue, pooled in sites:
+            if layer == "sa1":
+                run_case(64, layer, 64 * rows, C, dtype, prologue, pooled, library=False)
+                cache.clear()
+                torch.cuda.empty_cache()
+    print("  per site, B=8 f32, us against the bytes bound: K1 | K2 | K3 | K4")
+    for r in table:
+        print(f"    {r[0]:<9} {r[1]:>13} {r[2]:<12} " + " | ".join(f"{k:8.1f} /{b:7.1f}" for k, b in zip(r[3::2], r[4::2])))
     print(f"  B=8 f32 step, {len(sites)} sites (us): F.batch_norm training forward {step['forward'] * 1e3:.1f} "
           f"against K1 + K2 {step['K1 + K2'] * 1e3:.1f}; its backward {step['backward'] * 1e3:.1f} against K3 + K4 "
-          f"{step['K3 + K4'] * 1e3:.1f}")
-    return finish(checks, "batch-norm kernel checks", None)
+          f"{step['K3 + K4'] * 1e3:.1f} (on the old inputs: x and a full dy)")
+    for k, v in extra.items():
+        print(f"  {k}: us by prologue {({p: round(ms * 1e3, 1) for p, ms in v['ms_by_prologue'].items()})}, "
+              f"the eager passes it replaces {v['eager_ms'] * 1e3:.1f}")
+    finish(checks, "batch-norm kernel checks", None)
+    return extra
+
+
+def bn_library_sums(cfg):
+    """``--bn-library``: K1 and K3 through the calls every checkout's wrappers
+    take (x and dy alone: no prologue, no pool), device us at each
+    batch-norm site's shape of a B=8 step under the checkout's launch plan,
+    beside ``torch.batch_norm_stats`` and ``torch.batch_norm_backward_reduce``
+    and the bytes bound, summed over the 23 sites. A copy of this file at the
+    root of an earlier checkout times that checkout's kernels."""
+    import torch
+
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    res, seen = {"sites": {}}, {}
+    totals = dict.fromkeys(("k1", "k1_library", "k1_bound", "k3", "k3_library", "k3_bound"), 0.0)
+    print("bn library: K1 and K3 (x and dy alone) beside their library calls, device us, B=8 sites; CUDA events, "
+          "warm L2")
+    for layer, rows, C, _, _ in bn_sites(cfg):
+        R = 8 * rows
+        if (R, C) not in seen:
+            x = torch.randn((R, C), generator=g, device="cuda") * 3 + 1
+            dy = torch.randn((R, C), generator=g, device="cuda")
+            mean, mul = x.mean(0), torch.rand(C, generator=g, device="cuda") + 0.5
+            bias = torch.randn(C, generator=g, device="cuda")
+            lm, li = torch.batch_norm_stats(x, 1e-5)
+            w = torch.ones(C, device="cuda")
+            b = bn_bounds(R, C, 4, 4)
+            seen[(R, C)] = {
+                "k1": cuda_ms(lambda: bnc.bn_stats_cuda(x), 20) * 1e3,
+                "k1_library": cuda_ms(lambda: torch.batch_norm_stats(x, 1e-5), 20) * 1e3,
+                "k1_bound": max(b["bn_stats"]) * 1e3,
+                "k3": cuda_ms(lambda: bnc.bn_bwd_reduce_cuda(x, dy, mean, mul, bias, True), 20) * 1e3,
+                "k3_library": cuda_ms(lambda: torch.batch_norm_backward_reduce(dy, x, lm, li, w, True, True, True),
+                                      20) * 1e3,
+                "k3_bound": max(b["bn_bwd_reduce"]) * 1e3}
+            del x, dy
+        site = seen[(R, C)]
+        for k, v in site.items():
+            totals[k] += v
+        res["sites"][f"{layer} {R}x{C}"] = site
+        print(f"  {layer:<9} {R}x{C}: " + ", ".join(f"{k} {v:.1f}" for k, v in site.items()))
+    res["totals"] = totals
+    print("  sum over the sites: " + ", ".join(f"{k} {v:.1f}" for k, v in totals.items()))
+    print(json.dumps({"bn_library": res}))
 
 
 def bn_eval_host_us(cfg, n=100):
     """Host us a call of the eval batch norm + ReLU, summed over the sites
     that samlp leaves to it in an f32 forward (fp1, fp2, voting, mlp2) at
     B=8, under ``torch.inference_mode``: the call as the model makes it,
-    ``bn(x, relu=True)`` where ``BatchNorm.forward`` takes ``relu`` (the
-    fused op), else ``torch.relu(bn(x))`` (earlier checkouts), beside
+    ``bn(h, relu=True, dense_bias=b)`` where ``BatchNorm.forward`` takes
+    the dense bias, ``bn(x, relu=True)`` where it takes ``relu`` (the fused
+    op), else ``torch.relu(bn(x))`` (earlier checkouts), beside
     the eager formula written out here, which every checkout runs alike (the
     host's speed in this run). n calls queued after a warm-up, the clock
     stopped before the sync: the enqueueing's cost."""
@@ -3325,13 +3530,15 @@ def bn_eval_host_us(cfg, n=100):
 
     res = {"model_call": 0.0, "eager_formula": 0.0}
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    for layer, rows, C in bn_sites(cfg):
+    for layer, rows, C, _, _ in bn_sites(cfg):
         if layer not in ("fp1", "fp2", "voting", "mlp2"):
             continue
         bn = BatchNorm(C).cuda()
         x = torch.randn((8, rows, C), generator=g, device="cuda")
-        fused = "relu" in inspect.signature(bn.forward).parameters
-        calls = {"model_call": (lambda: bn(x, relu=True)) if fused else (lambda: torch.relu(bn(x))),
+        params = inspect.signature(bn.forward).parameters
+        db = torch.zeros(C, device="cuda")
+        calls = {"model_call": ((lambda: bn(x, relu=True, dense_bias=db)) if "dense_bias" in params
+                                else (lambda: bn(x, relu=True)) if "relu" in params else (lambda: torch.relu(bn(x)))),
                  "eager_formula": lambda: torch.relu(
                      ((x - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps) * bn.weight)) + bn.bias)}
         with torch.inference_mode():
@@ -3433,7 +3640,7 @@ def main() -> int:
     stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0,
                  "bound_ms": 0.0}
              for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d", "iou3d", "decode")
-             + variants + BN_KERNELS}
+             + variants + BN_ROWS}
     production_ms = dict.fromkeys(variants, 0.0)  # phases 16-18: the production kernels' sums beside
 
     def report(kernel, layer, B, shape, equal, err, k_ms, p_ms, bound, l_ms=None, total=True):
@@ -3475,14 +3682,19 @@ def main() -> int:
             run("end-to-end times", lambda: e2e_times(cfg, scenes, state_dict))
         print(card)
         return 1 if failed else 0
+    if "--bn-library" in sys.argv[1:]:  # K1 and K3 beside their library calls, through calls every checkout takes
+        run("bn library", lambda: bn_library_sums(cfg))
+        print(card)
+        return 1 if failed else 0
     if "--multi-device" in sys.argv[1:]:  # phases 19-21 alone: their costs in a process that ran no other phase
         run("distributed path, one NCCL rank", lambda: phase_dp_world1(cfg, scenes))
         run("two ranks on one card", lambda: phase_two_ranks(cfg, scenes))
         print(card)
         return 1 if failed else 0
     run("kernels", lambda: phase_kernels(cfg, scenes, report))
+    bn_extra = {}
     if importlib.util.find_spec("votenet_tpu_torch.ops.cuda.batchnorm") is not None:  # absent in earlier checkouts
-        run("batch-norm kernels", lambda: phase_batchnorm(cfg, report))
+        bn_extra = run("batch-norm kernels", lambda: phase_batchnorm(cfg, report)) or {}
     if "--kernel-times" in sys.argv[1:]:  # phases 1-3, 9 and 16-18's kernels: to set beside another checkout's
         from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
         from votenet_tpu_torch.ops.cuda import fps as fps_mod
@@ -3693,26 +3905,42 @@ def main() -> int:
             "ms_is": "sum over the 5 main-path shapes at B=8",
         },
     ]
-    # batch norm + ReLU (phase 32): launches on the training path (phase 7,
-    # 3 steps), serving (phase 4, 6 forwards), eval with samlp on and off
-    # (phase 10, 3 passes of 2 forwards each), run_train (phase 11) and the other paths
-    bn_tolerance = {"bn_stats": f"{BN_SUM_TOL} of each channel's sum of |x|", "bn_apply": 0,
-                    "bn_bwd_reduce": f"{BN_SUM_TOL} of each channel's sum of |terms|",
-                    "bn_bwd_apply": f"{BN_GRAD_TOL} of scale"}
-    bn_library = {"bn_stats": "torch.batch_norm_stats (mean and invstd)",
-                  "bn_apply": "torch.batch_norm_elemt (no ReLU)",
-                  "bn_bwd_reduce": "torch.batch_norm_backward_reduce (no ReLU mask)",
-                  "bn_bwd_apply": "torch.batch_norm_backward_elemt (no ReLU mask)"}
+    # batch norm + ReLU with its prologue and pool (phase 32): launches on
+    # the training path (phase 7, 3 steps), serving (phase 4, 6 forwards),
+    # eval with samlp on and off (phase 10, 3 passes of 2 forwards each),
+    # run_train (phase 11) and the other paths; the prologue's launches (any
+    # stage) are bn_prologue_centre and bn_prologue_bias in each path's counts
+    f64_tol = f"; and 2^-23 of |sum| + 2^-40 of the sum of |terms| from torch's f64 sum of the same terms"
+    bn_tolerance = {"bn_stats": f"{BN_SUM_TOL} of each channel's sum of |x|{f64_tol}", "bn_apply": 0,
+                    "bn_apply_pool": 0, "bn_bwd_reduce": f"{BN_SUM_TOL} of each channel's sum of |terms|{f64_tol}",
+                    "bn_bwd_reduce_pooled": f"{BN_SUM_TOL} of each channel's sum of |terms|{f64_tol}",
+                    "bn_bwd_apply": 0, "bn_bwd_apply_pooled": 0}
+    bn_library = {"bn_stats": "torch.batch_norm_stats on x (mean and invstd)",
+                  "bn_apply": "torch.batch_norm_elemt on x (no ReLU)",
+                  "bn_apply_pool": "torch.batch_norm_elemt on x (no ReLU, no pool)",
+                  "bn_bwd_reduce": "torch.batch_norm_backward_reduce on x and dy (no ReLU mask)",
+                  "bn_bwd_reduce_pooled": "torch.batch_norm_backward_reduce on x and the full dy (no mask, no pool)",
+                  "bn_bwd_apply": "torch.batch_norm_backward_elemt on x and dy (no ReLU mask)",
+                  "bn_bwd_apply_pooled": "torch.batch_norm_backward_elemt on x and the full dy (no mask, no pool)"}
+    bn_variant = {"bn_apply_pool": "K2 with the max over the ball's slots and the tie counts (bn_apply_pool_kernel)",
+                  "bn_bwd_reduce_pooled": "K3 on the pooled cotangent, the max and the counts",
+                  "bn_bwd_apply_pooled": "K4 on the pooled cotangent, the max and the counts"}
     kernels += [
         {
             "name": k, "route": "cuda", "source": "votenet_tpu_torch/csrc/batchnorm.cu",
-            "replaces": "votenet_tpu/models/pointnet2.py:166 nn.BatchNorm + nn.relu (flax, XLA; no Pallas kernel)",
+            "replaces": ("votenet_tpu/models/pointnet2.py:103,166 CenteredDense/nn.Dense bias + nn.BatchNorm + "
+                         "nn.relu" + (" + jnp.max (:540)" if k in bn_variant else "")
+                         + " (flax, XLA; no Pallas kernel)"),
+            **({"variant": bn_variant[k]} if k in bn_variant else {}),
             "launches": train_launches[k], "launches_serve": launches[k], "launches_eval": eval_launches["on"][k],
             "launches_eval_samlp_off": eval_launches["off"][k], "launches_fit": fit_launches[k],
             "launches_paths": path_launches(k), **measured(k), "tolerance": bn_tolerance[k],
-            "library_is": bn_library[k], "ms_is": "sum over the 23 batch-norm sites of a B=8 training step, f32",
+            "library_is": bn_library[k], **bn_extra.get(k, {}),
+            "ms_is": (f"sum over the {'5 pooled' if k in bn_variant else '23' if k == 'bn_stats' else '18'} "
+                      "batch-norm sites of a B=8 training step, f32, each with its prologue; eager_ms: the eager "
+                      "passes the fusion replaces there (the prologue's, and the pool's K2 + torch.amax)"),
         }
-        for k in BN_KERNELS
+        for k in BN_ROWS
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

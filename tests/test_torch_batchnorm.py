@@ -368,18 +368,26 @@ def test_synced_two_ranks_match_one_process():
 
 @pytest.mark.parametrize("R", [1, 7, 2048, 131072, 1048576, 8388608])
 @pytest.mark.parametrize("C,vec", [(16, True), (64, True), (256, True), (13, False), (259, False), (1024, True)])
-@pytest.mark.parametrize("kind", ["reduce", "apply"])
+@pytest.mark.parametrize("kind", list(bn_cuda.BN_CTAS_PER_SM))
 def test_launch_plan_covers_every_row_and_channel(R, C, vec, kind):
     """The CTAs cover the rows once (the last one ragged), the tiles the
     lanes, a CTA holds at most BN_THREADS lanes, the CTAs stay within
-    BN_CTAS_PER_SM a SM over all tiles, and a reduction's workspace (ctas x
-    C x 2 floats) below 2 MB at the model's widths."""
-    W, ctas, tiles, rows = bn_cuda.bn_plan(R, C, vec, 132, kind)
+    BN_CTAS_PER_SM a SM over all tiles, a reduction's two levels cover its
+    CTAs (blocks of fan_in, then the blocks; each at most ~sqrt(CTAs) + 1
+    partials a channel), and its workspace ((ctas + blocks) x C x 2 f64
+    partial sums) below 4 MB at the model's widths."""
+    W, ctas, tiles, rows, fan_in = bn_cuda.bn_plan(R, C, vec, 132, kind)
     lanes = C // 4 if vec else C
     assert 1 <= W <= bn_cuda.BN_THREADS and tiles * W >= lanes > (tiles - 1) * W
     assert (ctas - 1) * rows < R <= ctas * rows
     assert ctas * tiles <= max(tiles, bn_cuda.BN_CTAS_PER_SM[kind] * 132)
-    assert kind == "apply" or C > 259 or ctas * C * 2 * 4 <= 2 << 20
+    if not kind.startswith("reduce"):
+        assert fan_in == 0
+        return
+    blocks = bn_cuda.bn_reduce_levels(ctas, fan_in)
+    assert (blocks - 1) * fan_in < ctas <= blocks * fan_in
+    assert fan_in * fan_in >= ctas and max(fan_in, blocks) <= np.sqrt(ctas) + 1
+    assert C > 259 or (ctas + blocks) * C * 2 * 8 <= 4 << 20
 
 
 def test_other_devices_raise():
@@ -390,26 +398,39 @@ def test_other_devices_raise():
 
 
 def counted_stages(monkeypatch):
-    """Substitute counting wrappers for the plain stages; returns the counts."""
-    counts = dict.fromkeys(("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply"), 0)
-    for name in counts:
+    """Substitute counting wrappers for the plain stages; returns the counts,
+    keyed as ``chip_smoke.bn_counters``: each stage's calls over full rows,
+    K2's pool variant's and K3's and K4's at a pooled site, and the calls
+    that took the centred or the bias prologue."""
+    import chip_smoke
+
+    counts = dict.fromkeys(chip_smoke.BN_COUNTS, 0)
+    for name in ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply"):
         plain = getattr(bn_op, f"{name}_plain")
 
-        def counted(*a, _plain=plain, _name=name):
-            counts[_name] += 1
-            return _plain(*a)
+        def counted(*a, _plain=plain, _name=name, **kw):
+            counts[_name + ("_pool" if kw.get("pool") else "_pooled" if kw.get("pooled") is not None else "")] += 1
+            if kw.get("corr") is not None:
+                counts["bn_prologue_centre"] += 1
+            elif kw.get("dense_bias") is not None:
+                counts["bn_prologue_bias"] += 1
+            return _plain(*a, **kw)
 
         monkeypatch.setattr(bn_op, f"{name}_plain", counted)
     return counts
 
 
-@pytest.mark.parametrize("what", ["eval-samlp-off", "eval-samlp-on", "eval-mixed-samlp-on", "train", "train-remat"])
+@pytest.mark.parametrize("what", ["eval-samlp-off", "eval-samlp-on", "eval-mixed-samlp-on", "train", "train-remat",
+                                  "eval-mixed-samlp-off", "eval-bf16", "train-mixed", "train-bf16", "train-packed"])
 def test_stage_calls_follow_the_layer_list(monkeypatch, what):
     """The tiny model's forward and training step call each stage as often
     as chip_smoke.py's bn_launches counts from the layer list: one apply a
-    batch-norm site in eval (none where samlp fuses the layer); stats and
-    apply a site, and under remat again for sa1-sa4, and both backward
-    stages once a site in a step."""
+    batch-norm site in eval (none where samlp fuses the layer), the pool
+    variant at each SA layer's last width; stats and apply a site, and
+    under remat again for sa1-sa4, and both backward stages once a site
+    (pooled at the pools) in a step; every call with its site's prologue
+    (the centred one at an SA layer's first width but mixed precision's and
+    bf16_hilo's split ones, the dense bias elsewhere)."""
     import chip_smoke
     from votenet_tpu_torch.config import tiny_config
     from votenet_tpu_torch.data.dataflow import batch_scenes
@@ -418,7 +439,8 @@ def test_stage_calls_follow_the_layer_list(monkeypatch, what):
     from votenet_tpu_torch.train import create_train_state, make_train_step
 
     cfg = tiny_config(samlp="on" if "samlp-on" in what else "off", mixed_precision="mixed" in what,
-                      remat="remat" in what)
+                      remat="remat" in what, compute_dtype="bfloat16" if "bf16" in what else "float32",
+                      gather_packing="bf16_hilo" if "packed" in what else "none")
     scenes = synthetic_scenes(0, cfg, 2)
     counts = counted_stages(monkeypatch)
     if what.startswith("eval"):
@@ -430,4 +452,7 @@ def test_stage_calls_follow_the_layer_list(monkeypatch, what):
         make_train_step(cfg)(state, next(batch_scenes(iter(scenes), 2, cfg.max_gt_boxes)))
         want = chip_smoke.bn_launches(cfg, train=True)
     assert counts == want
-    assert want["bn_apply"] > 0
+    assert want["bn_apply"] > 0 and want["bn_prologue_bias"] > 0
+    assert want["bn_apply_pool"] == {"eval-samlp-on": 0, "eval-mixed-samlp-on": 3, "train-remat": 9}.get(what, 5)
+    if "mixed" not in what and "packed" not in what and what != "eval-samlp-on":
+        assert want["bn_prologue_centre"] > 0

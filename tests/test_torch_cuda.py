@@ -1267,7 +1267,7 @@ def test_dead_paths_on_the_card_match_cpu(cuda):
 def test_bn_kernels_match_plain(cuda, dtype, R, C):
     """chip_smoke.py's phase-32 gates at other shapes: K2 bit-equal to its
     plain version on the card, K1 and K3 within BN_SUM_TOL of each
-    channel's sum of |terms|, K4 within BN_GRAD_TOL of scale, each kernel's
+    channel's sum of |terms|, K4 bit-equal to its plain version, each kernel's
     two runs bit-identical; odd C takes the scalar lanes, C = 1024 four
     channel tiles."""
     import chip_smoke
@@ -1293,9 +1293,10 @@ def test_bn_kernels_unaligned_rows_take_the_scalar_lanes(cuda):
     got = bnc.bn_bwd_apply_cuda(x, dy, mean, mul, bias, a, b, True)
     want = bn.bn_bwd_apply_plain(x, dy, mean, mul, bias, a, b, True)
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
-    s, sq = bnc.bn_stats_cuda(x)
+    s, sq = bnc.bn_stats_cuda(x)  # f64 sums, which the op rounds to f32
     ps, psq = bn.bn_stats_plain(x)
-    assert torch.allclose(s, ps, rtol=0, atol=1e-5 * float(x.abs().sum(0).max()))
+    assert s.dtype == torch.float64
+    assert torch.allclose(s.float(), ps, rtol=0, atol=1e-5 * float(x.abs().sum(0).max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1416,3 +1417,120 @@ def test_bn_op_refuses_a_strided_card_tensor(cuda):
     v = torch.ones(12, device="cuda")
     with pytest.raises((RuntimeError, ValueError)):
         ops.batch_norm_relu(x, v, v, v.clone(), v.clone(), training=True)
+
+
+def test_bn_kernels_without_rows_count_nothing(cuda):
+    """No rows: K1 and K3 return zero sums, K2 and K4 empty tensors, and no
+    stage adds to its count or to the prologue's: nothing was launched."""
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    C = 64
+    x, dy = torch.empty((0, C), device="cuda"), torch.empty((0, C), device="cuda")
+    v, db = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
+    counters = (bnc.bn_stats_cuda, bnc.bn_apply_cuda, bnc.bn_bwd_reduce_cuda, bnc.bn_bwd_apply_cuda,
+                *bnc.PROLOGUE_LAUNCHES.values())
+    before = [c.launches for c in counters]
+    s, sq = bnc.bn_stats_cuda(x, dense_bias=db)
+    sg, sgx = bnc.bn_bwd_reduce_cuda(x, dy, v, v, v, True, dense_bias=db)
+    y = bnc.bn_apply_cuda(x, v, v, v, torch.float32, True, dense_bias=db)
+    dx = bnc.bn_bwd_apply_cuda(x, dy, v, v, v, v, v, True, dense_bias=db)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    assert all(int(t.count_nonzero()) == 0 and t.shape == (C,) for t in (s, sq, sg, sgx))
+    assert y.shape == dx.shape == (0, C)
+
+
+# ------------------------------------- batch norm with the layer around it
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C,S,prologue,pooled", [
+    (8 * 2048 * 64, 64, 64, "centre", False), (8 * 2048 * 64, 128, 64, "bias", True),
+    (8 * 256 * 64, 128, 64, "centre", True), (2048, 128, 1, "bias", False), (37 * 16, 13, 16, "centre", True),
+    (5 * 3, 36, 3, "bias", True), (4096, 259, 1, "bias", False), (64 * 7, 1024, 7, "centre", False)])
+def test_bn_layer_variants_match_plain(cuda, dtype, R, C, S, prologue, pooled):
+    """chip_smoke.py's phase-32 gates for the prologue and the pool: K2
+    (the pool's maxima and counts too) and K4 bit-equal to their plain
+    versions on the card, K1 and K3 within BN_SUM_TOL, every rerun
+    bit-identical; odd C the scalar lanes, C = 1024 four channel tiles."""
+    import chip_smoke
+
+    _, bad, _ = chip_smoke.bn_check(R, C, dtype, seed=R + C, times=False, prologue=prologue, S=S, pooled=pooled)
+    assert bad == []
+
+
+@pytest.mark.parametrize("R,C,S,prologue", [(7, 13, 1, None), (2048, 128, 1, "bias"), (8192, 256, 1, "bias"),
+                                            (32768, 64, 64, "centre"), (16384, 128, 64, "centre"),
+                                            (100003, 36, 1, None), (4096, 259, 1, "bias"),
+                                            (65536, 32, 16, "centre")])
+def test_bn_sums_follow_the_stated_order(cuda, R, C, S, prologue):
+    """K1's and K3's sums equal, bit for bit, the numpy transcription of
+    their order from the launch plan (tests/test_torch_bn_layer.py
+    ``kernel_sums``: f64, rounded once to f32) on this card's SM count, over
+    the terms as the kernels form them (x through the prologue and x * x;
+    the masked cotangent and its product with f32(x - mean)), at one CTA,
+    one block and two levels."""
+    from tests.test_torch_bn_layer import k1_terms, k3_terms, kernel_sums
+    import chip_smoke
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    h, corr, db, weight, bias, dy = chip_smoke.bn_site_inputs(R, C, torch.float32, R + C, prologue, S)
+    pro = dict(corr=corr, dense_bias=db)
+    x = bn.layer_rows_plain(h, corr, db)
+    vec = bnc._vec(C, h, corr, db, dy)
+    plan = bnc.bn_plan(R, C, vec, bnc.sm_count(0), "reduce", S)
+    plan_dy = bnc.bn_plan(R, C, vec, bnc.sm_count(0), "reduce_dy", S)  # K3's, over a full dy
+    s, sq = (v.float() for v in bnc.bn_stats_cuda(h, **pro))  # K1's f64 sums, rounded as the op rounds them
+    for got, terms in zip((s, sq), k1_terms(x.cpu().numpy())):
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), kernel_sums(terms, plan, S).view(np.uint32))
+    mean, mul = s / R, torch.rand(C, device="cuda") + 0.5
+    sg, sgx = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **pro)
+    g = bn._masked(x, dy, mean, mul, bias, True)
+    for got, terms in zip((sg, sgx), k3_terms(g.cpu().numpy(), x.cpu().numpy(), mean.cpu().numpy())):
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), kernel_sums(terms, plan_dy, S).view(np.uint32))
+    assert R < 50000 or bnc.bn_reduce_levels(plan[1], plan[4]) > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_bn_layer_op_on_the_card_matches_the_cpu(cuda, dtype, training):
+    """The fused site (centred prologue, BN, ReLU, max over 16 padded slots)
+    on the card against the same op on the CPU: the pooled output and the
+    cotangents of h, corr, the dense bias, the scale and the BN bias within
+    tests/test_torch_bn_layer.py's tolerances against flax (f32 2e-6 of
+    scale; bf16 2^-8 of scale, 2^-6 of each cotangent's norm; the dense
+    bias's in training, whose terms cancel, within 2e-6 (f32) or 2^-6
+    (bf16) of its terms' sum of |dh|, channel by channel); K1 (in
+    training), K2's pool variant and the pooled K3 and K4 each launched
+    once, every launch with the centred prologue."""
+    from tests.test_torch_bn_layer import close, norm_close, site
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    h, corr, db, gp, params, stats = site(3, shape=(4, 64, 16, 36))
+    outs = []
+    counters = (bnc.bn_stats_cuda, bnc.bn_apply_cuda.pool, bnc.bn_bwd_reduce_cuda.pooled,
+                bnc.bn_bwd_apply_cuda.pooled, bnc.PROLOGUE_LAUNCHES["centre"])
+    for dev in ("cuda", "cpu"):
+        before = [c.launches for c in counters]
+        ts = [torch.from_numpy(a).to(dev) for a in (h, corr, db)]
+        hh, cc, dd = (a.to(dtype).requires_grad_(True) for a in ts)
+        w = torch.from_numpy(params["scale"]).to(dev).requires_grad_(True)
+        b = torch.from_numpy(params["bias"]).to(dev).requires_grad_(True)
+        rm, rv = torch.from_numpy(stats["mean"]).to(dev), torch.from_numpy(stats["var"]).to(dev)
+        y = ops.batch_norm_relu(hh, w, b, rm, rv, training=training, dense_bias=dd, corr=cc, pool="max")
+        y.backward(torch.from_numpy(gp).to(dev).to(dtype))
+        outs.append([a.detach().cpu() for a in (y, hh.grad, cc.grad, dd.grad, w.grad, b.grad)])
+        if dev == "cuda":
+            assert [c.launches - n for c, n in zip(counters, before)] == [int(training), 1, 1, 1, 3 + training]
+    f32 = dtype == torch.float32
+    for i, (got, want) in enumerate(zip(*outs)):
+        if training and i == 3:  # the dense bias's cotangent: a sum whose terms (dh) cancel in training
+            terms = outs[1][1].float().abs().reshape(-1, want.shape[-1]).sum(0)
+            assert bool(((got.float() - want.float()).abs() <= (2e-6 if f32 else 2 ** -6) * terms).all())
+        elif f32:
+            close(got, want.numpy(), 2e-6)
+        elif i == 0:
+            close(got, want.float().numpy(), 2 ** -8)
+        else:
+            norm_close(got, want.float().numpy(), 2 ** -6)

@@ -61,10 +61,19 @@ def make_linear(cin: int, cout: int, generator: torch.Generator) -> nn.Linear:
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias promoted to
     ``dtype``, the product rounded to ``dtype``, then the bias added in
-    ``dtype``. In f32 that is the layer's own fused product and bias."""
+    ``dtype``. In f32 that is the layer's own fused product and bias. A
+    dense layer that a batch norm follows leaves its bias to the batch
+    norm's prologue instead (:func:`dense_product`)."""
     if dtype == torch.float32:
         return layer(x.float())
-    return x.to(dtype) @ layer.weight.t().to(dtype) + layer.bias.to(dtype)
+    return dense_product(layer, x, dtype) + layer.bias.to(dtype)
+
+
+def dense_product(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ W`` of ``nn.Dense(dtype=dtype)``, rounded to ``dtype``, without
+    its bias: the h of a batch-norm site, whose op adds the bias
+    (``BatchNorm.forward``'s ``dense_bias``)."""
+    return x.to(dtype) @ layer.weight.t().to(dtype)
 
 
 class BatchNorm(nn.Module):
@@ -84,8 +93,12 @@ class BatchNorm(nn.Module):
 
     As flax's ``_compute_stats`` and ``_normalize``: statistics and the
     normalisation run in f32 whatever the input's dtype, and the output is
-    cast to ``dtype``. ``forward(x, relu=True)`` also applies the ReLU, in
-    the same op (the MLP stacks' and the voting module's call).
+    cast to ``dtype``. ``forward(h, relu=True)`` also applies the ReLU, in
+    the same op (the MLP stacks' and the voting module's call), and takes
+    the layer around it: x = ``h + dense_bias``, or ``(h - corr[..., None,
+    :]) + dense_bias`` (the centred first layer), formed inside the op;
+    ``pool="max"`` returns the max over the slots (axis -2) of the output
+    (an SA layer's last width). See ``ops/batchnorm.py``.
 
     ``group`` (set by :func:`batch_norm_group`) makes it synced batch norm
     over a data-parallel group: the sums of x and x^2 and the row count are
@@ -115,11 +128,12 @@ class BatchNorm(nn.Module):
         self.frozen = False  # set by frozen_running_stats
         self.eval()
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False, *, dense_bias: Optional[torch.Tensor] = None,
+                corr: Optional[torch.Tensor] = None, pool: Optional[str] = None) -> torch.Tensor:
         return ops.batch_norm_relu(
             x, self.weight, self.bias, self.running_mean, self.running_var, training=self.training,
             momentum=self.momentum, eps=self.eps, group=self.group, update_stats=not self.frozen, dtype=self.dtype,
-            relu=relu,
+            relu=relu, dense_bias=dense_bias, corr=corr, pool=pool,
         )
 
 
@@ -173,6 +187,13 @@ class MLPStack(nn.Module):
     split path of ``CenteredDense._split_call``
     (``votenet_tpu/models/pointnet2.py:105-130``), coordinates in f32 and
     features in ``dtype``; see :meth:`_split_dense0`.
+
+    Each dense layer that a batch norm follows hands the batch norm its
+    product h and its bias (and the first layer its centre correction
+    ``center @ W[:3]``): the op forms x of them (``BatchNorm.forward``), so
+    x is never stored. The split first layer adds its own bias. ``pool="max"``
+    (an SA layer's max-pool; the last width must have its batch norm) makes
+    the last batch norm return the max over the slots (axis 2), (B, M, C).
     """
 
     def __init__(
@@ -202,21 +223,32 @@ class MLPStack(nn.Module):
         x,
         center: Optional[torch.Tensor] = None,
         idx: Optional[torch.Tensor] = None,
+        pool: Optional[str] = None,
     ) -> torch.Tensor:
         dt = self.dtype
+        if pool is not None and not hasattr(self, f"bn{self.n - 1}"):
+            raise ValueError("MLPStack: pool takes the last width's batch norm")
         for i in range(self.n):
             layer = getattr(self, f"dense{i}")
+            bn = getattr(self, f"bn{i}", None)
+            corr = b = None
             if i == 0 and isinstance(x, tuple):
-                x = self._split_dense0(*x, center, idx)
+                h = self._split_dense0(*x, center, idx)  # with its bias
             elif i == 0 and center is not None:
                 w = layer.weight.t().to(dt)  # (in, out)
                 x = x.to(dt)
                 h = x @ w if idx is None else ops.group_point(x @ w, idx)  # (B, M, S, out)
-                x = (h - (center.to(dt) @ w[:3])[:, :, None, :]) + layer.bias.to(dt)
+                corr, b = center.to(dt) @ w[:3], layer.bias.to(dt)
+            elif bn is not None:
+                h, b = dense_product(layer, x, dt), layer.bias.to(dt)
             else:
-                x = dense(layer, x, dt)
-            if self.final_activation or i < self.n - 1:
-                x = getattr(self, f"bn{i}")(x, relu=True) if self.use_bn else torch.relu(x)
+                h = dense(layer, x, dt)
+            if bn is not None:
+                x = bn(h, relu=True, dense_bias=b, corr=corr, pool=pool if i == self.n - 1 else None)
+            else:
+                x = h if corr is None else (h - corr[:, :, None, :]) + b
+                if self.final_activation or i < self.n - 1:
+                    x = torch.relu(x)
         return x
 
     def _split_dense0(self, xyz: torch.Tensor, feat: torch.Tensor, center: torch.Tensor,
@@ -324,7 +356,10 @@ class PointNetSAModule(nn.Module):
     proposal layer keeps ``True``: its xyz are votes, which carry gradient.
     Max pooling is ``torch.amax``, which, like ``jnp.max``, splits the
     gradient evenly among tied maxima (ties are common: the ball query fills
-    empty slots with the first hit).
+    empty slots with the first hit). On the fused and point-sharded paths
+    with batch norm (``mlp_pool``) the last batch norm of the MLP takes
+    it (``MLPStack``'s ``pool``): the full last layer is not stored; the
+    explicit path and the other poolings pool eagerly.
 
     ``samlp=True`` runs the eval forward's MLP and max-pool as one fused op,
     ``ops.fused_sa_mlp_pool`` (the kernel of ``csrc/samlp.cu`` on a CUDA
@@ -408,6 +443,7 @@ class PointNetSAModule(nn.Module):
         self.bq_precision = bq_precision
         self.fused = not group_all and use_xyz and pooling != "weighted_avg" and len(mlp) > 0
         self.coord_grad = coord_grad
+        self.mlp_pool = "max" if pooling == "max" and use_bn and len(mlp) > 0 else None  # the fused paths' pool
         self.samlp = (samlp and self.fused and pooling == "max" and use_bn and len(mlp) >= 2
                       and dtype == torch.float32)
         self.split_coords = split_coords
@@ -474,26 +510,31 @@ class PointNetSAModule(nn.Module):
             if self.training:
                 grouped = (ops.group_point(gather_xyz, idx, scatter=self.scatter),
                            ops.group_point(feat, idx, scatter=self.scatter))
-                new_points = self.mlp(grouped, center=new_xyz)
+                new_points = self.mlp(grouped, center=new_xyz, pool=self.mlp_pool)
             else:
-                new_points = self.mlp((gather_xyz, feat), center=new_xyz, idx=idx)
+                new_points = self.mlp((gather_xyz, feat), center=new_xyz, idx=idx, pool=self.mlp_pool)
         elif self.training and self.packed and points is not None:
             hi, lo = split_hilo(gather_xyz)
             table = torch.cat([hi, lo, points.to(torch.bfloat16)], dim=-1)
             g = ops.group_point(table, idx, grad_skip_prefix=6, scatter=self.scatter)
-            new_points = self.mlp((g[..., :3].float() + g[..., 3:6].float(), g[..., 6:]), center=new_xyz)
+            new_points = self.mlp((g[..., :3].float() + g[..., 3:6].float(), g[..., 6:]), center=new_xyz,
+                                  pool=self.mlp_pool)
         elif self.training:
             # torch.cat promotes f32 coordinates and bf16 features to f32, as jnp.concatenate does
             both = gather_xyz if points is None else torch.cat([gather_xyz, points], dim=-1)
             skip = 0 if self.coord_grad or points is None else 3
             grouped = ops.group_point(both, idx, grad_skip_prefix=skip, scatter=self.scatter)
-            new_points = self.mlp(grouped, center=new_xyz)
+            new_points = self.mlp(grouped, center=new_xyz, pool=self.mlp_pool)
         else:
             both = xyz if points is None else torch.cat([xyz, points], dim=-1)
             if self.samlp:  # pooled by the fused op
                 return new_xyz, self._fused_eval_mlp_pool(both, new_xyz, idx), idx
-            new_points = self.mlp(both, center=new_xyz, idx=idx)
-        return new_xyz, self._pool(new_points, None), idx
+            new_points = self.mlp(both, center=new_xyz, idx=idx, pool=self.mlp_pool)
+        return new_xyz, self._pool_rest(new_points), idx
+
+    def _pool_rest(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused paths' pool where the MLP has not taken it."""
+        return x if self.mlp_pool else self._pool(x, None)
 
     def _sharded_forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor], sample_xyz):
         """The forward over this rank's slabs of a point-sharded cloud (see
@@ -512,7 +553,7 @@ class PointNetSAModule(nn.Module):
         grouped = sp_ops.group_point_sharded(
             both, idx, g, grad_skip_prefix=0 if self.coord_grad or points is None else 3, scatter=self.scatter,
         )
-        return new_xyz, self._pool(self.mlp(grouped, center=new_xyz), None), idx
+        return new_xyz, self._pool_rest(self.mlp(grouped, center=new_xyz, pool=self.mlp_pool)), idx
 
     def _fused_eval_mlp_pool(self, both: torch.Tensor, new_xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """The eval MLP and max-pool through ``ops.fused_sa_mlp_pool``, with

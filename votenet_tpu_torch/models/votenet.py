@@ -25,6 +25,7 @@ from votenet_tpu_torch.models.pointnet2 import (
     PointNetFPModule,
     PointNetSAModule,
     dense,
+    dense_product,
     frozen_running_stats,
     make_linear,
 )
@@ -93,9 +94,12 @@ class VotingModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
-            x = dense(getattr(self, f"voting{i}"), x, self.dtype)
-            if i < self.n - 1:
-                x = getattr(self, f"voting{i}_bn")(x, relu=True)
+            layer = getattr(self, f"voting{i}")
+            if i < self.n - 1:  # the batch norm adds the dense bias
+                x = getattr(self, f"voting{i}_bn")(dense_product(layer, x, self.dtype), relu=True,
+                                                   dense_bias=layer.bias.to(self.dtype))
+            else:
+                x = dense(layer, x, self.dtype)
         return x
 
 

@@ -122,12 +122,16 @@ def library() -> ctypes.CDLL:
             lib.votenet_decode.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr,
                                            ptr, ptr]
             lib.votenet_decode.restype = i32
-            bn_plan = [i64, i32, i32, i32, i32, i32, i64]  # R, C, vec, W, ctas, tiles, rows a CTA
-            lib.votenet_bn_stats.argtypes = [ptr, i32, *bn_plan, ptr, ptr, ptr, ptr, ptr, ptr]
-            lib.votenet_bn_apply.argtypes = [ptr, i32, ptr, i32, *bn_plan, ptr, ptr, ptr, i32, ptr]
-            lib.votenet_bn_bwd_reduce.argtypes = [ptr, i32, ptr, i32, *bn_plan, ptr, ptr, ptr, i32,
+            # R, C, vec, W, ctas, tiles, units a CTA (after the prologue's corr, dense bias and S)
+            bn_plan = [i64, i32, i32, i32, i32, i32, i64]
+            bn_pro = [ptr, ptr, i32]
+            lib.votenet_bn_stats.argtypes = [ptr, i32, *bn_pro, *bn_plan, i32, ptr, ptr, ptr, ptr, ptr, ptr]
+            lib.votenet_bn_apply.argtypes = [ptr, i32, *bn_pro, ptr, i32, ptr, *bn_plan, ptr, ptr, ptr, i32, ptr]
+            bn_dy = [ptr, i32, ptr, ptr]  # dy, its bf16 flag, the pool's maxima and counts
+            lib.votenet_bn_bwd_reduce.argtypes = [ptr, i32, *bn_pro, *bn_dy, *bn_plan, i32, ptr, ptr, ptr, i32,
                                                   ptr, ptr, ptr, ptr, ptr, ptr]
-            lib.votenet_bn_bwd_apply.argtypes = [ptr, i32, ptr, i32, ptr, *bn_plan, ptr, ptr, ptr, ptr, ptr, i32, ptr]
+            lib.votenet_bn_bwd_apply.argtypes = [ptr, i32, *bn_pro, *bn_dy, ptr, *bn_plan, ptr, ptr, ptr, ptr, ptr,
+                                                 i32, ptr]
             for fn in (lib.votenet_bn_stats, lib.votenet_bn_apply, lib.votenet_bn_bwd_reduce, lib.votenet_bn_bwd_apply):
                 fn.restype = i32
             lib.votenet_error_string.argtypes = [i32]
