@@ -9,6 +9,10 @@ paths on one NVIDIA GPU.
     python3 chip_smoke.py --multi-device  # phases 1-2 and 19-21 alone (no final line)
     python3 chip_smoke.py --e2e-times  # serving, training and eval times alone, public names only (no final line)
     python3 chip_smoke.py --bn-library  # batch norm's K1 and K3 beside their library calls alone (no final line)
+    python3 chip_smoke.py --bn  # phase 32 alone (no final line)
+    python3 chip_smoke.py --sass  # SASS instructions an element of the batch-norm pool kernels' hot loops
+    python3 chip_smoke.py --outputs PATH  # serving, training-step and eval outputs saved for --compare-outputs
+    python3 chip_smoke.py --compare-outputs A B  # two checkouts' --outputs files: bit-equal, or each gradient's gap
 
 ``--kernel-times`` also runs from a copy of this file placed at the root of
 another checkout of the port (an earlier commit's archive), so that both
@@ -22,8 +26,11 @@ too: it times the decode, the IoU matrix, ``ops.nms3d`` and
 so does ``--e2e-times`` (B=8 serving requests, B=1 ``detect()``, B=8
 training steps in f32, bf16 and mixed with their peak memory and profiles,
 the eval with samlp off and on), through names every checkout with the
-precision presets has; and ``--bn-library``, through names every checkout
-with the batch-norm kernels has.
+precision presets has, with each B=8 training step's and serving forward's
+device launches (torch.profiler) and host ms until the call returns; and
+``--bn-library``, ``--bn``, ``--sass`` and ``--outputs``, through names every
+checkout with the batch-norm kernels has (phase 32's per-channel end and
+epilogue gates only where the checkout has them).
 
 Phases, each checked; any failure exits non-zero without the final line:
 
@@ -260,11 +267,20 @@ Phases, each checked; any failure exits non-zero without the final line:
    ``_backward_reduce``, ``_backward_elemt`` on x and a full dy; no ReLU,
    no pool), beside the bytes bound, a per-site table of K1-K4 against
    each site's bound, and ``F.batch_norm``'s whole training forward and
-   backward beside K1 + K2 and K3 + K4 over a B=8 step's sites. It runs
-   after phase 3. Every other phase's launch checks count the kernels too
-   (``bn_launches``: a forward applies 23 times, 5 of them pooled, fewer
-   where samlp fuses; a step launches each 23 times, the forward two 35
-   under remat; the launches that took the centred or the bias prologue).
+   backward beside K1 + K2 and K3 + K4 over a B=8 step's sites. The
+   per-channel end is bit-equal to the torch ops it replaces on the same
+   sums on the card (K1's and K3's last CTAs, ``bn_channels_cuda`` alone,
+   eval's K2 forming its own mul), K4's epilogue (``bn_bwd_apply_sums``: the
+   prologue's cotangents) within one ulp of the dtype of torch's f64 sums
+   of the same rounded dx plus BN_F64_FLOOR of the sums of |terms| (library
+   column: the two torch sums it replaces), and the bf16 pool kernels' sums
+   over the 5 pooled sites of a B=8 step are printed against twice their
+   bounds. It runs after phase 3. Every other phase's launch checks count
+   the kernels too (``bn_launches``: a forward applies 23 times, 5 of them
+   pooled, fewer where samlp fuses; a step launches each 23 times, the
+   forward two 35 under remat; the launches that took the centred or the
+   bias prologue; K4's with the epilogue; a data-parallel step's 23
+   statistics' ends).
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
@@ -286,7 +302,10 @@ phase 31), ``ballquery_fast_bf16``
 kernel's) and the batch-norm kernels and their pooled variants (``launches`` phase
 7's training path, beside serving's, eval's and ``run_train``'s; ``ms``,
 ``plain_ms``, ``bound_ms``, ``library_ms`` and ``eager_ms`` sums over the
-sites of a B=8 step in f32 that take each, phase 32).
+sites of a B=8 step in f32 that take each, phase 32; ``bf16_us`` and
+``bf16_bound_us`` of the pool kernels over the bf16 step's pooled sites),
+K4 with its epilogue (``bn_bwd_apply_sums``) and the statistics' end alone
+(``bn_channels``: ``launches`` phase 19's distributed step).
 Kernel times are device times:
 ``cuda_ms`` queues its timed calls behind a sleep kernel, so the wrappers'
 host time between launches does not count (a call whose kernel is shorter
@@ -798,19 +817,27 @@ def phase_scatter_fast(cfg, scenes, report):
 
 
 BN_COUNTS = ("bn_stats", "bn_apply", "bn_apply_pool", "bn_bwd_reduce", "bn_bwd_reduce_pooled", "bn_bwd_apply",
-             "bn_bwd_apply_pooled", "bn_prologue_centre", "bn_prologue_bias")
+             "bn_bwd_apply_pooled", "bn_prologue_centre", "bn_prologue_bias", "bn_bwd_apply_sums", "bn_channels")
 
 
 def bn_counters():
     """The batch-norm site's counts: each kernel's launches over full rows,
-    K2's pool variant's and K3's and K4's at a pooled site, and the
-    launches (of any stage) that took the centred or the bias prologue."""
+    K2's pool variant's and K3's and K4's at a pooled site, the launches
+    (of any stage) that took the centred or the bias prologue, K4's launches
+    with the epilogue (the prologue's cotangents) and the statistics' end's
+    own launches (a data-parallel group's, an eval backward's). A checkout
+    without the last two counts them 0."""
+    from types import SimpleNamespace
+
     from votenet_tpu_torch.ops.cuda import batchnorm as bn
 
+    none = SimpleNamespace(launches=0)
     return {"bn_stats": bn.bn_stats_cuda, "bn_apply": bn.bn_apply_cuda, "bn_apply_pool": bn.bn_apply_cuda.pool,
             "bn_bwd_reduce": bn.bn_bwd_reduce_cuda, "bn_bwd_reduce_pooled": bn.bn_bwd_reduce_cuda.pooled,
             "bn_bwd_apply": bn.bn_bwd_apply_cuda, "bn_bwd_apply_pooled": bn.bn_bwd_apply_cuda.pooled,
-            "bn_prologue_centre": bn.PROLOGUE_LAUNCHES["centre"], "bn_prologue_bias": bn.PROLOGUE_LAUNCHES["bias"]}
+            "bn_prologue_centre": bn.PROLOGUE_LAUNCHES["centre"], "bn_prologue_bias": bn.PROLOGUE_LAUNCHES["bias"],
+            "bn_bwd_apply_sums": getattr(bn.bn_bwd_apply_cuda, "sums", none),
+            "bn_channels": getattr(bn, "bn_channels_cuda", none)}
 
 
 def train_counters():
@@ -823,7 +850,7 @@ def train_counters():
             "scatter_fast_bf16": scatter_add_cuda.fast_bf16, **bn_counters()}
 
 
-def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True) -> dict:
+def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True, group: bool = False) -> dict:
     """The batch-norm counts (``bn_counters``) of one forward (eval) or
     training step under ``cfg``, from the layer list (``bn_sites``): 23
     sites at the reference widths. Eval: one apply a site, the pool variant
@@ -835,8 +862,11 @@ def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True) ->
     site takes its prologue: the centred one at an SA layer's first width
     (but the split first layers of sa2-sa4 under mixed precision and, in
     training, of sa1-sa4 under ``gather_packing="bf16_hilo"``, which add
-    their bias themselves), the bias elsewhere. ``backward=False``: a
-    training forward alone (stats and apply)."""
+    their bias themselves), the bias elsewhere; each backward K4 with a
+    dense bias writes the prologue's cotangents (``bn_bwd_apply_sums``).
+    ``group`` (a data-parallel group): each training forward's statistics'
+    end is its own launch after the all-reduce (``bn_channels``).
+    ``backward=False``: a training forward alone (stats and apply)."""
     mixed = cfg.mixed_precision and cfg.compute_dtype == "float32"
     split = {"sa2", "sa3", "sa4"} if mixed else set()
     if train and cfg.gather_packing == "bf16_hilo":  # the backbone's packed gathers (sa1's features are its xyz)
@@ -857,24 +887,28 @@ def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True) ->
         n["bn_apply_pool" if pooled else "bn_apply"] += fwd
         if not (prologue == "centre" and layer in split):
             n[f"bn_prologue_{prologue}"] += (2 * fwd + 2 * bwd) if train else 1
+            n["bn_bwd_apply_sums"] += bwd
+        n["bn_channels"] += fwd if train and group else 0
     return n
 
 
-def step_launches(cfg) -> dict:
+def step_launches(cfg, group: bool = False) -> dict:
     """The kernel launches of one full-width training step under ``cfg``:
     FPS and the ball query 5 each (9 under remat: sa1-sa4 run again in the
     backward), the ball query on the Config's variant; 4 scatters (sa2-sa4,
     proposal), each in the Config's mode where its cotangent is f32, and
     exact where it is bf16 (mixed precision's sa2-sa4 feature gathers, and
     the packed ones of ``gather_packing="bf16_hilo"``); the batch-norm
-    kernels as :func:`bn_launches` counts them."""
+    kernels as :func:`bn_launches` counts them (``group``: a data-parallel
+    step's)."""
     mixed = cfg.mixed_precision and cfg.compute_dtype == "float32"
     fast = cfg.scatter_precision == "fast_bf16"
     n_f32 = 1 if mixed or cfg.gather_packing == "bf16_hilo" else 4
     n_bq = 9 if cfg.remat else 5
     bq_fast = cfg.bq_precision == "fast_bf16"
     return {"fps": n_bq, "ballquery": 0 if bq_fast else n_bq, "ballquery_fast_bf16": n_bq if bq_fast else 0,
-            "scatter": 4 - n_f32 * fast, "scatter_fast_bf16": n_f32 * fast, **bn_launches(cfg, train=True)}
+            "scatter": 4 - n_f32 * fast, "scatter_fast_bf16": n_f32 * fast,
+            **bn_launches(cfg, train=True, group=group)}
 
 
 def train_times(cfg, scenes, n, counters=None):
@@ -1898,7 +1932,8 @@ def phase_dp_world1(cfg, scenes, device="cuda", backend="nccl"):
                 side[0] = None
         finally:
             gc.callbacks.remove(on_gc)
-        checks[f"one distributed step launches {step_launches(cfg)}"] = launches == step_launches(cfg)
+        want = step_launches(cfg, group=True)
+        checks[f"one distributed step launches {want}"] = launches == want
         diff = float(np.median(ms["dist"]) - np.median(ms["plain"]))
         q1, q3 = np.percentile(ms["plain"], [25, 75])
         spread = float(q3 - q1)
@@ -2052,7 +2087,8 @@ def phase_two_ranks(cfg, scenes, preset="full", device="cuda"):
                f"{[(f'{x:.3g}', n) for x, n in worst]} < {GRAD_TOL}"] = worst[0][0] < GRAD_TOL
         serr = max(scale_err(res["stats"][n], b)[0] / scale_err(res["stats"][n], b)[1] for n, b in stats.items())
         checks[f"rank {r} running statistics within {REL_TOL} of scale (worst {serr:.3g} of it)"] = serr <= 1
-        checks[f"rank {r} step launches {step_launches(cfg)}"] = res["dp_launches"] == step_launches(cfg)
+        want = step_launches(cfg, group=True)
+        checks[f"rank {r} step launches {want}"] = res["dp_launches"] == want
     l2 = [r["params_l2"] for r in ranks]
     checks[f"params_l2 bit-equal across the ranks {l2}"] = l2[0] == l2[1]
     print(f"phase 20: dp=2 over gloo, two ranks sharing one card, B=8 (4 rows a rank) against one process; "
@@ -3132,7 +3168,10 @@ BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
 # the kernels and variants of the JSON line: K2's pool variant, K3 and K4 at a pooled site
 BN_VARIANTS = {"bn_apply": "bn_apply_pool", "bn_bwd_reduce": "bn_bwd_reduce_pooled",
                "bn_bwd_apply": "bn_bwd_apply_pooled"}
-BN_ROWS = BN_KERNELS + tuple(BN_VARIANTS.values())
+# K4 with the epilogue (the prologue's cotangents: every K4 of a step at a
+# site with a dense bias) and the statistics' end's own launch
+BN_EXTRA = ("bn_bwd_apply_sums", "bn_channels")
+BN_ROWS = BN_KERNELS + tuple(BN_VARIANTS.values()) + BN_EXTRA
 # Batch norm's per-channel sums (K1, K3) against torch.sum on the card: the
 # kernels add exact terms in f64 and round once (within an f32 ulp of the
 # exact sum); torch adds in f32 in its own tree, each rounding erring by at
@@ -3148,6 +3187,25 @@ BN_SUM_TOL = 1e-5
 # 8.4M). A row lost or added moves a sum by a term, 1e-7 of the sum of
 # |terms| or more at the model's sites: far outside.
 BN_F64_ULPS, BN_F64_FLOOR = 2.0 ** -23, 2.0 ** -40
+# The epilogue's bf16 cotangents (corr's, the dense bias's): an f64 sum
+# rounded once to bf16 errs by half a bf16 ulp, 2^-8 of |sum| at most
+# (torch's f64 -> bf16 cast on the CPU goes through f32: a little more)
+BN_F64_ULPS_BF16 = 2.0 ** -7
+
+
+def device_kernel_names(fn) -> list[str]:
+    """The names of the device kernels (and memsets, memcpys) ``fn``
+    launches, in launch order, from torch.profiler's CUDA activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
 
 
 def bn_sites(cfg):
@@ -3187,18 +3245,26 @@ def bn_bounds(R, C, es_in, es_out, S=1, prologue=None, pooled=False):
     multiply, add, max; pooled 2 more, the compare and the count), K3 and
     K4 9 (K2's three, the mask's compare and select, and the subtract,
     multiply and two adds of the sums or of dx; pooled 3 more: the compare,
-    the division by the count, the select)."""
+    the division by the count, the select). K4 with the epilogue: 2 adds an
+    element more (the unit's sum, the bias's), and corr's cotangent (R / S x
+    C) and the dense bias's (C f32) written. The statistics' end alone:
+    two f64 sums, the weight and the running statistics read and written
+    and the (4, C) result, ~20 operations a channel."""
     n = float(R) * C
     G = float(R) // S
     pro_ops = n * ((prologue == "centre") + (prologue is not None))
     pro_bytes = (G * C * es_in if prologue == "centre" else 0) + (C * es_in if prologue else 0)
     pool_out = G * C * (es_out + 4)
     dy = G * C * (2 * es_out + 4) if pooled else n * es_out
+    k4_ops, k4_bytes = (12 if pooled else 9) * n + pro_ops, 2 * n * es_in + dy + pro_bytes + 20 * C
+    epi_bytes = (G * C * es_in if prologue == "centre" else 0) + (4 * C if prologue else 0)
     return {"bn_stats": bound_ms(3 * n + pro_ops, n * es_in + pro_bytes + 8 * C),
             "bn_apply": bound_ms((6 if pooled else 4) * n + pro_ops,
                                  n * es_in + (pool_out if pooled else n * es_out) + pro_bytes + 12 * C),
             "bn_bwd_reduce": bound_ms((12 if pooled else 9) * n + pro_ops, n * es_in + dy + pro_bytes + 20 * C),
-            "bn_bwd_apply": bound_ms((12 if pooled else 9) * n + pro_ops, 2 * n * es_in + dy + pro_bytes + 20 * C)}
+            "bn_bwd_apply": bound_ms(k4_ops, k4_bytes),
+            "bn_bwd_apply_sums": bound_ms(k4_ops + (2 * n if prologue else 0), k4_bytes + epi_bytes),
+            "bn_channels": bound_ms(20 * C, 48 * C)}
 
 
 def bn_site_inputs(R, C, dtype, seed, prologue=None, S=1, pooled=False, device="cuda"):
@@ -3207,7 +3273,8 @@ def bn_site_inputs(R, C, dtype, seed, prologue=None, S=1, pooled=False, device="
     random count of its rows and repeats its first in the rest, so the
     pool's ties are many), the centre's rows (R / S, C) and the dense bias
     where the prologue takes them, the BN weight and bias, and dy: (R, C),
-    or the pooled cotangent (R / S, C)."""
+    or the pooled cotangent (R / S, C). The dense bias is f32 (the layer's
+    own; the prologue rounds it to h's dtype)."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -3218,7 +3285,7 @@ def bn_site_inputs(R, C, dtype, seed, prologue=None, S=1, pooled=False, device="
         h = torch.where(torch.arange(S, device=device)[None, :, None] >= keep, h3[:, :1], h3).view(R, C)
     h = h.to(dtype)
     corr = (torch.randn((R // S, C), generator=g, device=device) * 2).to(dtype) if prologue == "centre" else None
-    dense_bias = torch.randn(C, generator=g, device=device).to(dtype) if prologue else None
+    dense_bias = torch.randn(C, generator=g, device=device) if prologue else None  # f32, as the layer's
     weight = torch.rand(C, generator=g, device=device) + 0.5
     bias = torch.randn(C, generator=g, device=device)
     dy = torch.randn((R // S if pooled else R, C), generator=g, device=device).to(dtype)
@@ -3252,12 +3319,14 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda", prologu
     from votenet_tpu_torch.ops.cuda import batchnorm as bnc
 
     h, corr, db, weight, bias, dy = bn_site_inputs(R, C, dtype, seed, prologue, S, pooled, device)
-    pro = dict(corr=corr, dense_bias=db)
+    ends = hasattr(bnc, "BnChannels")  # the per-channel end and the epilogue (absent in earlier checkouts)
+    pro = dict(corr=corr, dense_bias=db if ends or db is None else db.to(dtype))
     out = {}
 
     def twice(fn):
         a, b = fn(), fn()
-        same = all(torch.equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple) else torch.equal(a, b)
+        same = (all(u is v is None or torch.equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple)
+                else torch.equal(a, b))
         return a, same
 
     def bits_equal(a, b):
@@ -3275,7 +3344,7 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda", prologu
         d = (got.double() - want).abs()
         return float((d / (BN_F64_ULPS * want.abs() + BN_F64_FLOOR * scale.double()).clamp_min(1e-300)).max())
 
-    x = bn.layer_rows_plain(h, corr, db)  # the old inputs: x as the eager prologue stores it
+    x = bn.layer_rows_plain(h, corr, pro["dense_bias"])  # the old inputs: x as the eager prologue stores it
     xf = x.float()
     (s, sq), same1 = twice(lambda: bnc.bn_stats_cuda(h, **pro))
     ps, psq = bn.bn_stats_plain(h, **pro)
@@ -3310,15 +3379,66 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda", prologu
         y if pooled else (y,), py if pooled else (py,)))
     e4 = float((dx.float() - pdx.float()).abs().max())
     k2, k3, k4 = ((BN_VARIANTS[k] if pooled else k) for k in ("bn_apply", "bn_bwd_reduce", "bn_bwd_apply"))
+    end_gates, extra_gates, end_calls = "", {}, {}
+    if ends:
+        # the per-channel end: K1's and K3's last CTAs, the end alone and eval's K2 against the torch ops it
+        # replaces, run on this device on the same sums; the running statistics moved alike
+        rm0 = torch.randn(C, generator=torch.Generator(device=device).manual_seed(seed + 1), device=device)
+        rv0 = torch.rand(C, generator=torch.Generator(device=device).manual_seed(seed + 2), device=device) + 0.5
+
+        def channels(update=True):
+            return bnc.BnChannels(R, weight, 1e-5, 0.9, rm0.clone(), rv0.clone(), update)
+
+        ch_k, ch_p, ch_c = channels(), channels(), channels()
+        s64 = bnc.bn_stats_cuda(h, **pro)
+        st_k = bnc.bn_stats_cuda(h, **pro, channels=ch_k)
+        st_p = bn.bn_channel_stats_plain(s64, ch_p)
+        st_c = bnc.bn_channels_cuda(s64, ch_c)
+        eq_st = all(bits_equal(u, v) for u, v in ((st_k, st_p), (ch_k.running_mean, ch_p.running_mean),
+                                                   (ch_k.running_var, ch_p.running_var)))
+        eq_ch = all(bits_equal(u, v) for u, v in ((st_c, st_p), (ch_c.running_var, ch_p.running_var)))
+        cof = bnc.BnCoefficients(torch.stack([mean, mul, inv, var_raw]), weight, R, True)
+        co_k = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **bwd, coefficients=cof)
+        eq_co = bits_equal(co_k, bn.bn_channel_coefficients_plain((sg, sgx), cof))
+        ye = bnc.bn_apply_cuda(h, rm0, weight, bias, dtype, True, **pro, **pool, eval_var=rv0)
+        pye = bn.bn_apply_plain(h, rm0, weight, bias, dtype, True, **pro, **pool, eval_var=rv0)
+        eq_ev = all(bits_equal(u, v) for u, v in zip(ye, pye)) if pooled else bits_equal(ye, pye)
+        end_gates = (f"; the statistics' end (K1's last CTA) bit-equal to the torch ops {eq_st}, alone {eq_ch}; "
+                     f"K3's coefficients {eq_co}; eval K2's own mul {eq_ev}")
+        extra_gates["bn_channels"] = (eq_ch, 0.0, f"the statistics' end alone bit-equal to the torch ops {eq_ch}")
+        end_calls["bn_channels"] = (lambda: bnc.bn_channels_cuda(s64, channels()),
+                                    lambda: bn.bn_channel_stats_plain(s64, channels()), None)
+        if prologue:  # K4's epilogue: the prologue's cotangents within the f64 gate of the same rounded dx
+            epi = lambda: bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **bwd, sums=True)  # noqa: E731
+            (dxs, dcs, dds), same5 = twice(epi)
+            d = dxs.double()
+            ulps = BN_F64_ULPS if dtype == torch.float32 else BN_F64_ULPS_BF16
+            unit = (-d).view(-1, S, C)
+            pairs = [(dds, d.sum(0), d.abs().sum(0))] + (
+                [(dcs, unit.sum(1), unit.abs().sum(1))] if prologue == "centre" else [])
+            u5 = max(float(((got.double() - want).abs() / (ulps * want.abs() + BN_F64_FLOOR * terms)
+                            .clamp_min(1e-300)).max()) for got, want, terms in pairs)
+            eq5 = bits_equal(dxs, dx)
+            zero_b = float((d.sum(0).abs() / d.abs().sum(0).clamp_min(1e-300)).max())
+            extra_gates["bn_bwd_apply_sums"] = (
+                eq5 and u5 <= 1 and same5, 0.0,
+                f"K4's epilogue: dx bit-equal {eq5}, the dense bias's and corr's cotangents at {u5:.3g} of the f64 "
+                f"allowance (<= 1; |sum| / sum|terms| of the bias's <= {zero_b:.3g}), rerun equal {same5}")
+            G = R // S
+            end_calls["bn_bwd_apply_sums"] = (
+                epi, lambda: bn.bn_bwd_apply_plain(h, dy, mean, mul, bias, a, b, True, **pbwd, sums=True),
+                lambda: (dxs.sum(0), (-dxs).view(G, S, C).sum(1)) if prologue == "centre" else dxs.sum(0))
     gates = {
-        "bn_stats": (e1 <= BN_SUM_TOL and u1 <= 1 and same1, abs1,
+        "bn_stats": (e1 <= BN_SUM_TOL and u1 <= 1 and same1 and (not ends or eq_st), abs1,
                      f"K1 sums {e1:.3g} of sum|x| (<= {BN_SUM_TOL}), {u1:.3g} of the f64 sum's allowance (<= 1), "
                      f"rerun equal {same1}"),
-        k2: (eq2 and same2, e2, f"K2{' pool' if pooled else ''} bit-equal to plain {eq2}, rerun equal {same2}"),
-        k3: (e3 <= BN_SUM_TOL and u3 <= 1 and same3, abs3,
+        k2: (eq2 and same2 and (not ends or eq_ev), e2,
+             f"K2{' pool' if pooled else ''} bit-equal to plain {eq2}, rerun equal {same2}"),
+        k3: (e3 <= BN_SUM_TOL and u3 <= 1 and same3 and (not ends or eq_co), abs3,
              f"K3 sums {e3:.3g} of sum|terms| (<= {BN_SUM_TOL}), {u3:.3g} of the f64 sum's allowance (<= 1), "
              f"rerun equal {same3}"),
-        k4: (eq4 and same4, e4, f"K4 bit-equal to plain {eq4} (max diff {e4:.3g}), rerun equal {same4}"),
+        k4: (eq4 and same4, e4, f"K4 bit-equal to plain {eq4} (max diff {e4:.3g}), rerun equal {same4}{end_gates}"),
+        **extra_gates,
     }
     bad = [msg for ok, _, msg in gates.values() if not ok]
     summary = "; ".join(msg for _, _, msg in gates.values())
@@ -3338,6 +3458,10 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda", prologu
         for k, (kern, plain) in calls.items():
             out[k][2] = cuda_ms(kern, reps)
             out[k][3] = cuda_ms(plain, max(2, reps // 4))
+        for k, (kern, plain, lib) in end_calls.items():  # K4 with the epilogue, the end alone
+            out[k][2] = cuda_ms(kern, reps)
+            out[k][3] = cuda_ms(plain, max(2, reps // 4))
+            out[k][4] = None if lib is None else cuda_ms(lib, reps)  # the epilogue's: dx.sum, (-dx).sum(-2)
         pro_ms = cuda_ms(lambda: bn.layer_rows_plain(h, corr, db), reps) if prologue else 0.0
         eager = {"bn_stats": pro_ms, k3: pro_ms, k4: pro_ms}
         if pooled:
@@ -3407,6 +3531,7 @@ def phase_batchnorm(cfg, report, device="cuda"):
     cache = {}
     step = dict.fromkeys(("forward", "backward", "K1 + K2", "K3 + K4"), 0.0)  # B=8 f32 sums, ms
     extra = {k: {"ms_by_prologue": {"centre": 0.0, "bias": 0.0}, "eager_ms": 0.0} for k in BN_ROWS}
+    pools = {}  # (kernel, dtype) -> [us, bound us] over the B=8 pooled sites
     table = []
 
     def run_case(B, layer, R, C, dtype, prologue, pooled, library):
@@ -3441,6 +3566,20 @@ def phase_batchnorm(cfg, report, device="cuda"):
                 extra[kk]["ms_by_prologue"][prologue] += k_ms
                 extra[kk]["eager_ms"] += res["eager_ms"][kk]
                 row += [k_ms * 1e3, max(bounds[k]) * 1e3]
+            if B == 8 and pooled and kk in ("bn_apply_pool", "bn_bwd_reduce_pooled") and k_ms is not None:
+                acc = pools.setdefault((kk, str(dtype)[6:]), [0.0, 0.0])
+                acc[0] += k_ms * 1e3
+                acc[1] += max(bounds[k]) * 1e3
+        for k in BN_EXTRA:  # K4 with the epilogue, the statistics' end alone
+            if k not in res:
+                continue
+            ok, err, k_ms, p_ms, l_ms = res[k]
+            report(k, layer, B, f"{R}x{C} {str(dtype)[6:]} {prologue[0]}{'p' if pooled else ''}", ok, err, k_ms,
+                   p_ms, bounds[k], l_ms, total=dtype == torch.float32)
+            if B == 8 and dtype == torch.float32 and k_ms is not None:
+                extra[k]["ms_by_prologue"][prologue] += k_ms
+                if k == "bn_bwd_apply_sums":
+                    row += [k_ms * 1e3, max(bounds[k]) * 1e3]
         if len(row) > 3:
             table.append(row)
 
@@ -3454,7 +3593,7 @@ def phase_batchnorm(cfg, report, device="cuda"):
                 run_case(64, layer, 64 * rows, C, dtype, prologue, pooled, library=False)
                 cache.clear()
                 torch.cuda.empty_cache()
-    print("  per site, B=8 f32, us against the bytes bound: K1 | K2 | K3 | K4")
+    print("  per site, B=8 f32, us against the bytes bound: K1 | K2 | K3 | K4 | K4 with the epilogue")
     for r in table:
         print(f"    {r[0]:<9} {r[1]:>13} {r[2]:<12} " + " | ".join(f"{k:8.1f} /{b:7.1f}" for k, b in zip(r[3::2], r[4::2])))
     print(f"  B=8 f32 step, {len(sites)} sites (us): F.batch_norm training forward {step['forward'] * 1e3:.1f} "
@@ -3463,6 +3602,12 @@ def phase_batchnorm(cfg, report, device="cuda"):
     for k, v in extra.items():
         print(f"  {k}: us by prologue {({p: round(ms * 1e3, 1) for p, ms in v['ms_by_prologue'].items()})}, "
               f"the eager passes it replaces {v['eager_ms'] * 1e3:.1f}")
+    print("  the pool kernels over the B=8 step's pooled sites, us against the bound (half of the bound's rate: "
+          "at most twice it):")
+    for (k, dt), (us, bound) in sorted(pools.items()):
+        print(f"    {k} {dt}: {us:.1f} against {bound:.1f} ({bound / max(us, 1e-9):.2f} of the bound; "
+              f"{'within' if us <= 2 * bound else 'above'} twice it, {2 * bound:.1f})")
+        extra[k][f"{dt}_us"], extra[k][f"{dt}_bound_us"] = us, bound
     finish(checks, "batch-norm kernel checks", None)
     return extra
 
@@ -3512,6 +3657,84 @@ def bn_library_sums(cfg):
     print(json.dumps({"bn_library": res}))
 
 
+# The kernels whose SASS ``--sass`` reads (csrc/batchnorm.cu's pool kernels,
+# f32 and bf16 in and out): the rows a thread takes an iteration of its
+# innermost row loop, by the channels a lane (V)
+SASS_ROWS = {"bn_apply_pool": {4: 4, 8: 4}, "bn_bwd_reduce_pooled": {4: 2, 8: 4}}
+
+
+def sass_functions(text: str) -> dict:
+    """cuobjdump -sass's text as {mangled name: [(address, instruction)]}."""
+    import re
+
+    out = {}
+    for sec in text.split("Function : ")[1:]:
+        name, body = sec.split("\n", 1)
+        out[name.strip()] = [(int(m.group(1), 16), m.group(2).strip())
+                             for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body)]
+    return out
+
+
+def sass_hot_loop(ins) -> tuple[int, dict]:
+    """The innermost loop (a backward branch whose range holds no other) with
+    the most instructions: (its static instruction count, counts by opcode).
+    Static: a branch taken rarely inside it (a unit's reload) counts too."""
+    import collections
+    import re
+
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [lp for lp in loops if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    if not inner:
+        return 0, {}
+    lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
+    body = [t for a, t in ins if lo <= a <= hi]
+    ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in body)
+    return len(body), dict(ops)
+
+
+def bn_sass(lib_path=None) -> dict:
+    """``--sass``: SASS instructions an element of the pool kernels' hot row
+    loops (K2's pool variant, the pooled K3; f32 and bf16, as built for this
+    checkout): the innermost loop's static instructions over the elements an
+    iteration takes (``SASS_ROWS`` rows x V channels), and its conversions
+    (F2F: the conversion unit, 16 a clock an SM on Hopper; F2FP: the packed
+    bf16 rounding). A copy of this file at the root of an earlier checkout
+    reads that checkout's library."""
+    import re
+    import subprocess
+
+    from votenet_tpu_torch.ops.cuda import build
+
+    lib_path = lib_path or build()
+    cuobjdump = os.path.join(os.path.dirname(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    res = {}
+    for name, ins in sass_functions(text).items():
+        m = re.search(r"(bn_apply_pool|bn_bwd_reduce)_kernelI(ff|13__nv_bfloat16S1_)Li(\d)E(Lb1E)?", name)
+        if not m or (m.group(1) == "bn_bwd_reduce" and not m.group(4)):
+            continue
+        kernel = "bn_apply_pool" if m.group(1) == "bn_apply_pool" else "bn_bwd_reduce_pooled"
+        V = int(m.group(3))
+        if V == 1:
+            continue
+        n, ops = sass_hot_loop(ins)
+        elements = SASS_ROWS[kernel][V] * V
+        key = f"{kernel} {'f32' if m.group(2) == 'ff' else 'bf16'} V={V}"
+        res[key] = {"loop_instructions": n, "elements": elements, "per_element": n / elements,
+                    "f2f_per_element": sum(v for k, v in ops.items() if k.startswith("F2F.")) / elements,
+                    "f2fp_per_element": sum(v for k, v in ops.items() if k.startswith("F2FP")) / elements,
+                    "top": sorted(ops.items(), key=lambda kv: -kv[1])[:8]}
+        print(f"  {key}: {n} instructions in the hot loop / {elements} elements = {n / elements:.2f} an element "
+              f"(F2F {res[key]['f2f_per_element']:.2f}, F2FP {res[key]['f2fp_per_element']:.2f}); "
+              f"top {res[key]['top']}")
+    print(json.dumps({"bn_sass": res}))
+    return res
+
+
 def bn_eval_host_us(cfg, n=100):
     """Host us a call of the eval batch norm + ReLU, summed over the sites
     that samlp leaves to it in an f32 forward (fp1, fp2, voting, mlp2) at
@@ -3553,6 +3776,33 @@ def bn_eval_host_us(cfg, n=100):
     return res
 
 
+def launch_tally(names) -> dict:
+    """Device launches by short name (a kernel's function name, a memset's
+    or memcpy's), most first, and their total."""
+    import collections
+    import re
+
+    short = [(re.search(r"(\w+_kernel)\b", n) or re.search(r"(\w+)", n)).group(1) for n in names]
+    return {"total": len(short), "by_name": dict(collections.Counter(short).most_common())}
+
+
+def host_and_launches(fn, n=10):
+    """One call of ``fn`` under the profiler (its device launches), then n
+    calls each timed on the host clock until ``fn`` returns, before the
+    device sync: (launch_tally, [host ms]). The host's cost of enqueueing."""
+    import torch
+
+    tally = launch_tally(device_kernel_names(fn))
+    host = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return tally, host
+
+
 def e2e_times(cfg, scenes, state_dict, reps=3):
     """``--e2e-times``: the end-to-end figures batch norm moves, through
     public names only, so that a copy of this file at the root of an
@@ -3562,7 +3812,10 @@ def e2e_times(cfg, scenes, state_dict, reps=3):
     torch.profiler's kernel time by group over 3 steps), the 16-scene eval
     at B=8 with samlp off and on (scenes/s, a profiled pass each), and the
     host us of the batch norm + ReLU calls left in eval with samlp on. Each
-    through the helpers of phases 4, 7 and 10."""
+    through the helpers of phases 4, 7 and 10. Beside them the device
+    launches (torch.profiler) and the host ms until the call returns of one
+    B=8 training step in each mode (``make_train_step``) and of one B=8
+    serving forward (``VoteNet`` under ``torch.inference_mode``)."""
     import torch
 
     from votenet_tpu_torch.config import throughput_config
@@ -3570,17 +3823,29 @@ def e2e_times(cfg, scenes, state_dict, reps=3):
     from votenet_tpu_torch.eval import DeviceSceneCache, Evaluator, make_packed_predict_fn
     from votenet_tpu_torch.models import VoteNet
     from votenet_tpu_torch.predictor import VoteNetPredictor
+    from votenet_tpu_torch.train import make_train_step
 
     res = {}
     predictor = VoteNetPredictor(cfg, device="cuda", batch_size=8, generator=torch.Generator().manual_seed(SEED))
     requests, detects = serve_times(predictor, scenes, 5 * reps)
     res["serve_b8_ms"] = [ms for ms, _, _ in requests]
     res["detect_b1_ms"] = [ms for ms, _, _ in detects]
+    points = torch.as_tensor(np.stack([s["points"] for s in scenes[:8]])).cuda()
+    with torch.inference_mode():
+        tally, host = host_and_launches(lambda: predictor.model(points))
+    res["forward_b8_host_ms"] = host
+    res["forward_b8_launches"] = tally["total"]
+    print(f"  a B=8 serving forward: {tally['total']} device launches, by name {tally['by_name']}")
     del predictor
     for name, tcfg in (("f32", cfg), *((m, throughput_config(**o)) for m, o in PRECISION_MODES.items())):
         trainer, batch, steps, peak_gib, _ = train_times(tcfg, scenes, 5 * reps)
         res[f"train_{name}_ms"] = [ms for ms, _ in steps]
         res[f"train_{name}_peak_gib"] = peak_gib
+        step = make_train_step(tcfg)
+        tally, host = host_and_launches(lambda: step(trainer.state, batch))
+        res[f"train_{name}_host_ms"] = host
+        res[f"train_{name}_launches"] = tally["total"]
+        print(f"  a B=8 training step, {name}: {tally['total']} device launches, by name {tally['by_name']}")
         profile_device(lambda: trainer.train_epoch([batch] * 3, metrics_every=3),
                        f"3 training steps at B=8, {name} (--e2e-times)")
         del trainer
@@ -3606,6 +3871,150 @@ def e2e_times(cfg, scenes, state_dict, reps=3):
         else:
             print(f"  {k}: {v:.3f}")
     print(json.dumps({"e2e_times": res}))
+
+
+def dump_outputs(cfg, scenes, state_dict, path):
+    """``--outputs PATH``: what batch norm's kernels feed, through public
+    names, saved with torch.save for ``--compare-outputs`` against another
+    checkout's (a copy of this file at its root writes its own): in f32 and
+    in the bf16 and mixed throughput presets, a B=8 serving forward's end
+    points (seed-SEED weights); one B=8 training step from the seed-SEED
+    state (``forward_backward``): every gradient leaf, the running
+    statistics and the losses, twice from a fresh state (the rerun's bits),
+    and each batch norm's sum of |dh| a channel (h its input, the dense
+    layer's product: the terms of the dense bias's cotangent); and the
+    committed checkpoint's eval predictions of scenes[:8] (samlp off and
+    on). Deterministic algorithms on: the scatter's and the gather's library
+    backwards are atomic otherwise."""
+    import torch
+
+    from votenet_tpu_torch.config import throughput_config
+    from votenet_tpu_torch.data.dataflow import batch_scenes
+    from votenet_tpu_torch.eval import make_packed_predict_fn
+    from votenet_tpu_torch.models import VoteNet
+    from votenet_tpu_torch.train import create_train_state, forward_backward
+
+    out = {}
+    points = torch.as_tensor(np.stack([s["points"] for s in scenes[:8]])).cuda()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, c in (("f32", cfg), *((m, throughput_config(**o)) for m, o in PRECISION_MODES.items())):
+            model = VoteNet(c, torch.Generator().manual_seed(SEED)).cuda().eval()
+            with torch.inference_mode():
+                ep = model(points)
+            out.update({f"serve_{name}/{k}": v.cpu() for k, v in ep.items() if torch.is_tensor(v)})
+            del model
+            batch = next(batch_scenes(iter(scenes[:8]), 8, c.max_gt_boxes))
+            for run in ("", "_rerun"):
+                state = create_train_state(c, 512, torch.Generator().manual_seed(SEED), device="cuda")
+                hooks = []
+                for bn_name, mod in state.model.named_modules():
+                    if type(mod).__name__ == "BatchNorm":
+                        def pre(m, args, key=f"train_{name}{run}/terms/{bn_name}"):
+                            if args[0].requires_grad:
+                                args[0].register_hook(lambda g: out.__setitem__(
+                                    key, g.float().abs().reshape(-1, g.shape[-1]).sum(0).cpu()))
+                        hooks.append(mod.register_forward_pre_hook(pre))
+                losses = forward_backward(state.model, batch, c)
+                for hk in hooks:
+                    hk.remove()
+                out.update({f"train_{name}{run}/loss/{k}": v.detach().cpu() for k, v in losses._asdict().items()})
+                out.update({f"train_{name}{run}/grad/{n}": p.grad.cpu() for n, p in state.model.named_parameters()})
+                out.update({f"train_{name}{run}/stats/{n}": b.cpu() for n, b in state.model.named_buffers()
+                            if "running" in n})
+                del state
+        for samlp in ("off", "on"):
+            model = VoteNet(cfg.replace(samlp=samlp))
+            model.load_state_dict(state_dict)
+            pred = make_packed_predict_fn(model.cuda(), cfg)(points)
+            out.update({f"eval_samlp_{samlp}/{k}": v.cpu() for k, v in pred.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.save(out, path)
+    print(f"  {len(out)} tensors to {path}")
+
+
+def bit_equal(a, b) -> bool:
+    """The same shape, dtype and bits (NaNs at the same places)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
+
+
+def dense_bias_terms(key: str) -> str:
+    """The ``--outputs`` key of the sum of |dh| behind a dense bias's gradient
+    key (its batch norm's input's cotangent): ``...dense{i}.bias`` takes
+    ``...bn{i}``, ``voting.voting{i}.bias`` ``voting.voting{i}_bn``."""
+    import re
+
+    mode, leaf = key.split("/grad/")
+    m = re.fullmatch(r"(.*)\.(dense|voting)(\d+)\.bias", leaf)
+    if not m:
+        return ""
+    bn = f"{m.group(1)}.bn{m.group(3)}" if m.group(2) == "dense" else f"{m.group(1)}.voting{m.group(3)}_bn"
+    return f"{mode}/terms/{bn}"
+
+
+def compare_outputs(path_a, path_b):
+    """``--compare-outputs A B``: ``--outputs`` files of two checkouts (A the
+    earlier). Every serving end point, eval prediction, running statistic
+    and loss must be bit-equal; each gradient leaf is bit-equal or, where
+    the prologue's cotangents now sum in f64 (the centred first layers'
+    kernels and, through the proposal layer's centres, which are the votes,
+    every leaf the votes' cotangent reaches), within 1e-4 of its norm (f32;
+    2^-4 in bf16 and mixed, whose steps flip bf16 roundings and ReLU
+    decisions at one ulp). A dense bias ahead of a batch norm, whose
+    cotangent in training is a sum of terms that cancel (its norm is its
+    rounding noise), is held channel by channel within BN_SUM_TOL of its
+    terms' sum of |dh| (the tolerance phase 32 holds the f32 sums to) plus
+    an ulp of the dtype of |A|; in mixed, whose dh itself moves as its other
+    leaves do, within 2^-4 of that sum. The rerun's bits in B equal B's."""
+    import torch
+
+    a, b = torch.load(path_a), torch.load(path_b)
+    checks, moved = {}, {}
+    for k, va in a.items():
+        vb = b.get(k)
+        if vb is None:
+            checks[f"{k} in both"] = False
+            continue
+        if "/terms/" in k:
+            continue
+        if "/grad/" in k:
+            if not bit_equal(va, vb):
+                gap = float((va.double() - vb.double()).norm() / max(float(vb.double().norm()), 1e-30))
+                moved[k] = gap
+                terms = b.get(dense_bias_terms(k))
+                if terms is not None:  # a dense bias ahead of a batch norm: its sum's own scale
+                    ulps = BN_F64_ULPS if k.startswith("train_f32") else BN_F64_ULPS_BF16
+                    tol = 2 ** -4 if k.startswith("train_mixed") else BN_SUM_TOL
+                    reading = float(((va.double() - vb.double()).abs()
+                                     / (ulps * va.double().abs() + tol * terms.double()).clamp_min(1e-300)).max())
+                    checks[f"{k} within {tol:.3g} of its terms' sum of |dh| ({reading:.3g} of it)"] = reading <= 1
+                else:
+                    limit = 1e-4 if k.startswith("train_f32") else 2 ** -4
+                    checks[f"{k} within {limit:.3g} of its norm ({gap:.3g})"] = gap <= limit
+        else:
+            checks[f"{k} bit-equal"] = bit_equal(va, vb)
+    for k in b:
+        if "_rerun/" in k:
+            checks[f"{k} rerun bit-equal"] = bit_equal(b[k], b[k.replace("_rerun/", "/")])
+    by_mode = {}
+    for k in moved:
+        by_mode.setdefault(k.split("/")[0], []).append(k)
+    n_grads = {m: sum(1 for k in a if k.startswith(m + "/grad/")) for m in ("train_f32", "train_bf16", "train_mixed")}
+    print(f"  {sum(v for v in checks.values())} of {len(checks)} checks hold; gradient leaves not bit-equal by mode "
+          f"{ {m: f'{len(v)} of {n_grads.get(m, 0)}' for m, v in by_mode.items()} }")
+    for m, keys in by_mode.items():
+        worst = sorted(keys, key=lambda k: -moved[k])[:6]
+        print(f"    {m}: largest {[(k.split('/grad/')[1], f'{moved[k]:.3g}') for k in worst]}")
+    finish(checks, "outputs against the other checkout", None)
 
 
 def main() -> int:
@@ -3680,6 +4089,26 @@ def main() -> int:
         state_dict = run("read checkpoint", trained_state_dict)
         if state_dict is not None:
             run("end-to-end times", lambda: e2e_times(cfg, scenes, state_dict))
+        print(card)
+        return 1 if failed else 0
+    if "--bn" in sys.argv[1:]:  # phase 32 alone: batch norm's kernels, gates and times (also an earlier checkout's)
+        run("batch-norm kernels", lambda: phase_batchnorm(cfg, report))
+        print(json.dumps({"bn_times": {k: {"ms": stats[k]["ms"], "bound_ms": stats[k]["bound_ms"]} for k in BN_ROWS},
+                          "failed": failed}))
+        print(card)
+        return 1 if failed else 0
+    if "--outputs" in sys.argv[1:]:  # what batch norm feeds, saved for --compare-outputs
+        state_dict = run("read checkpoint", trained_state_dict)
+        if state_dict is not None:
+            run("outputs", lambda: dump_outputs(cfg, scenes, state_dict, sys.argv[sys.argv.index("--outputs") + 1]))
+        print(card)
+        return 1 if failed else 0
+    if "--compare-outputs" in sys.argv[1:]:
+        i = sys.argv.index("--compare-outputs")
+        run("compare outputs", lambda: compare_outputs(sys.argv[i + 1], sys.argv[i + 2]))
+        return 1 if failed else 0
+    if "--sass" in sys.argv[1:]:  # SASS instructions an element of the pool kernels' hot loops
+        run("sass", bn_sass)
         print(card)
         return 1 if failed else 0
     if "--bn-library" in sys.argv[1:]:  # K1 and K3 beside their library calls, through calls every checkout takes
@@ -3914,29 +4343,41 @@ def main() -> int:
     bn_tolerance = {"bn_stats": f"{BN_SUM_TOL} of each channel's sum of |x|{f64_tol}", "bn_apply": 0,
                     "bn_apply_pool": 0, "bn_bwd_reduce": f"{BN_SUM_TOL} of each channel's sum of |terms|{f64_tol}",
                     "bn_bwd_reduce_pooled": f"{BN_SUM_TOL} of each channel's sum of |terms|{f64_tol}",
-                    "bn_bwd_apply": 0, "bn_bwd_apply_pooled": 0}
+                    "bn_bwd_apply": 0, "bn_bwd_apply_pooled": 0,
+                    "bn_bwd_apply_sums": "dx 0; the prologue's cotangents 2^-23 (bf16 2^-7) of |sum| + 2^-40 of the "
+                                         "sum of |terms| from torch's f64 sum of the same rounded dx",
+                    "bn_channels": 0}
     bn_library = {"bn_stats": "torch.batch_norm_stats on x (mean and invstd)",
                   "bn_apply": "torch.batch_norm_elemt on x (no ReLU)",
                   "bn_apply_pool": "torch.batch_norm_elemt on x (no ReLU, no pool)",
                   "bn_bwd_reduce": "torch.batch_norm_backward_reduce on x and dy (no ReLU mask)",
                   "bn_bwd_reduce_pooled": "torch.batch_norm_backward_reduce on x and the full dy (no mask, no pool)",
                   "bn_bwd_apply": "torch.batch_norm_backward_elemt on x and dy (no ReLU mask)",
-                  "bn_bwd_apply_pooled": "torch.batch_norm_backward_elemt on x and the full dy (no mask, no pool)"}
+                  "bn_bwd_apply_pooled": "torch.batch_norm_backward_elemt on x and the full dy (no mask, no pool)",
+                  "bn_bwd_apply_sums": "the two torch sums the epilogue replaces, dx.sum(0) and (-dx).sum(-2), "
+                                       "beside K4 (bn_bwd_apply's ms)",
+                  "bn_channels": "none: no one PyTorch call computes the statistics' end"}
     bn_variant = {"bn_apply_pool": "K2 with the max over the ball's slots and the tie counts (bn_apply_pool_kernel)",
                   "bn_bwd_reduce_pooled": "K3 on the pooled cotangent, the max and the counts",
-                  "bn_bwd_apply_pooled": "K4 on the pooled cotangent, the max and the counts"}
+                  "bn_bwd_apply_pooled": "K4 on the pooled cotangent, the max and the counts",
+                  "bn_bwd_apply_sums": "K4 (either form) with the epilogue: corr's and the dense bias's cotangents",
+                  "bn_channels": "the statistics' end alone, one CTA (a data-parallel step's, after the all-reduce; "
+                                 "launches: phase 19's distributed step)"}
+    bn_sites_of = {k: "5 pooled" if k.endswith(("_pool", "_pooled")) else "18" if k in BN_KERNELS[1:] else "23"
+                   for k in BN_ROWS}
     kernels += [
         {
             "name": k, "route": "cuda", "source": "votenet_tpu_torch/csrc/batchnorm.cu",
             "replaces": ("votenet_tpu/models/pointnet2.py:103,166 CenteredDense/nn.Dense bias + nn.BatchNorm + "
-                         "nn.relu" + (" + jnp.max (:540)" if k in bn_variant else "")
+                         "nn.relu" + (" + jnp.max (:540)" if k.endswith(("_pool", "_pooled")) else "")
                          + " (flax, XLA; no Pallas kernel)"),
             **({"variant": bn_variant[k]} if k in bn_variant else {}),
-            "launches": train_launches[k], "launches_serve": launches[k], "launches_eval": eval_launches["on"][k],
+            "launches": (paths["dp_world1_nccl_step"][k] if k == "bn_channels" else train_launches[k]),
+            "launches_serve": launches[k], "launches_eval": eval_launches["on"][k],
             "launches_eval_samlp_off": eval_launches["off"][k], "launches_fit": fit_launches[k],
             "launches_paths": path_launches(k), **measured(k), "tolerance": bn_tolerance[k],
             "library_is": bn_library[k], **bn_extra.get(k, {}),
-            "ms_is": (f"sum over the {'5 pooled' if k in bn_variant else '23' if k == 'bn_stats' else '18'} "
+            "ms_is": (f"sum over the {bn_sites_of[k]} "
                       "batch-norm sites of a B=8 training step, f32, each with its prologue; eager_ms: the eager "
                       "passes the fusion replaces there (the prologue's, and the pool's K2 + torch.amax)"),
         }

@@ -400,8 +400,10 @@ def test_other_devices_raise():
 def counted_stages(monkeypatch):
     """Substitute counting wrappers for the plain stages; returns the counts,
     keyed as ``chip_smoke.bn_counters``: each stage's calls over full rows,
-    K2's pool variant's and K3's and K4's at a pooled site, and the calls
-    that took the centred or the bias prologue."""
+    K2's pool variant's and K3's and K4's at a pooled site, the calls that
+    took the centred or the bias prologue, and stage 4's calls that summed
+    the dense bias's cotangent (the statistics' end runs alone only under a
+    data-parallel group or in an eval backward: none here)."""
     import chip_smoke
 
     counts = dict.fromkeys(chip_smoke.BN_COUNTS, 0)
@@ -410,6 +412,8 @@ def counted_stages(monkeypatch):
 
         def counted(*a, _plain=plain, _name=name, **kw):
             counts[_name + ("_pool" if kw.get("pool") else "_pooled" if kw.get("pooled") is not None else "")] += 1
+            if kw.get("sums") and kw.get("dense_bias") is not None:
+                counts["bn_bwd_apply_sums"] += 1
             if kw.get("corr") is not None:
                 counts["bn_prologue_centre"] += 1
             elif kw.get("dense_bias") is not None:

@@ -25,7 +25,10 @@ What is held, and to what:
   6.6e-7 of scale).
 - The op bit for bit against the port's earlier eager composition, ``(h -
   corr[..., None, :]) + b`` → ``batch_norm_relu`` → ``torch.amax``, forward
-  and every gradient, f32 and bf16, train and eval, NaN included.
+  and every gradient, f32 and bf16, train and eval, NaN included, with the
+  prologue's cotangents summed as the op sums them (:class:`F64Prologue`:
+  in f64, rounded once to h's dtype; autograd's f32 or bf16 torch sums are
+  roundings of the same terms in another order).
 - K1's and K3's summation order (``csrc/batchnorm.cu``: in f64, a
   thread's rows, the row groups, then the two-level tree over the CTAs'
   partials in blocks of ``fan_in``, rounded once to f32) transcribed into
@@ -105,15 +108,37 @@ def run_fused(h, corr, db, gp, params, stats, training, dtype, pool=True):
     return y, hh.grad, None if cc is None else cc.grad, dd.grad, w.grad, b.grad, rm, rv
 
 
+class F64Prologue(torch.autograd.Function):
+    """``(h - corr[..., None, :]) + b`` (either term optional; each op in h's
+    dtype, the bias cast to it) whose backward sums the prologue's
+    cotangents as ``ops.batch_norm_relu`` does: corr's ``-sum(dh)`` over the
+    slots and the bias's ``sum(dh)`` over every axis but the last, in f64,
+    rounded once to h's dtype (the bias's then cast to its own dtype)."""
+
+    @staticmethod
+    def forward(ctx, h, corr, b):
+        ctx.centre, ctx.b_dtype = corr is not None, None if b is None else b.dtype
+        x = h if corr is None else h - corr[..., None, :]
+        return x if b is None else x + b.to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, dx):
+        d = dx.double()
+        d_corr = (-d).sum(-2).to(dx.dtype) if ctx.centre else None
+        d_b = d.sum(tuple(range(d.dim() - 1))).to(dx.dtype).to(ctx.b_dtype) if ctx.b_dtype is not None else None
+        return dx, d_corr, d_b
+
+
 def run_eager(h, corr, db, gp, params, stats, training, dtype, pool=True):
-    """The port's earlier composition: the prologue's torch ops, the op
-    without a prologue, ``torch.amax``."""
+    """The port's earlier composition: the prologue's torch ops (their
+    cotangents summed in f64, :class:`F64Prologue`), the op without a
+    prologue, ``torch.amax``."""
     hh = t(h).to(dtype).requires_grad_(True)
     cc = None if corr is None else t(corr).to(dtype).requires_grad_(True)
     dd = t(db).to(dtype).requires_grad_(True)
     w, b = t(params["scale"]).requires_grad_(True), t(params["bias"]).requires_grad_(True)
     rm, rv = t(stats["mean"]).clone(), t(stats["var"]).clone()
-    x = (hh if cc is None else hh - cc[:, :, None, :]) + dd
+    x = F64Prologue.apply(hh, cc, dd)
     y = ops.batch_norm_relu(x, w, b, rm, rv, training=training, momentum=MOMENTUM, eps=EPS)
     if pool:
         y = torch.amax(y, dim=2)
@@ -214,7 +239,8 @@ def bits(a):
 def test_fused_layer_is_the_eager_composition_bit_for_bit(dtype, mode, variant):
     """The op's forward and every gradient equal, bit for bit, the port's
     earlier eager composition on the same (CPU) device: the prologue's
-    torch ops, the op without a prologue, torch.amax; one element of h a
+    torch ops (their cotangents summed in f64 and rounded once, as the op
+    sums them), the op without a prologue, torch.amax; one element of h a
     NaN (its ball's max is NaN, its tie count 0)."""
     prologue, pool = variant.split("-")[0], variant.endswith("pool")
     h, corr, db, gp, params, stats = site(5 + len(variant), prologue=prologue)
@@ -228,7 +254,8 @@ def test_fused_layer_is_the_eager_composition_bit_for_bit(dtype, mode, variant):
             assert g is None
             continue
         assert g.dtype == w.dtype and g.shape == w.shape
-        assert torch.equal(bits(g), bits(w))
+        nan = torch.isnan(w.detach())  # a NaN's bits follow torch's casts through f64 and f32, not the op
+        assert torch.equal(torch.isnan(g.detach()), nan) and torch.equal(bits(g)[~nan], bits(w)[~nan])
 
 
 def test_plain_stages_take_the_prologue_and_the_pool():
@@ -357,6 +384,139 @@ def test_kernel_sum_order_is_not_the_flat_order():
     assert not np.array_equal(got, flat) and not np.array_equal(got, other)
 
 
+def epilogue_sums(dx: np.ndarray, plan, S: int = 1, centre: bool = True) -> tuple[np.ndarray, np.ndarray]:
+    """``csrc/batchnorm.cu``'s K4 epilogue in numpy, f32 (``plan``: the
+    ``"reduce_dx"`` launch plan in units of S rows). At a centred site
+    (``centre``) corr's cotangent, each unit's -dx added from +0 in row order
+    in f64 and rounded once, and the dense bias's, the units' sums negated
+    and added as :func:`kernel_sum_order` adds rows (a thread's units in
+    order, the row groups, the CTAs' two levels), rounded once; elsewhere
+    the dense bias's alone, dx's rows added as :func:`kernel_sum_order` adds
+    them. Returns (d_corr (R / S, C) or None, d_bias (C,))."""
+    d = np.asarray(dx, np.float32).astype(np.float64)
+    R, C = d.shape
+    if not centre:
+        return None, kernel_sum_order(d, plan, S).astype(np.float32)
+    units = d.reshape(R // S, S, C)
+    acc = np.zeros((R // S, C))
+    for s in range(S):
+        acc = acc + (-units[:, s])
+    return acc.astype(np.float32), kernel_sum_order(-acc, plan, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("R,C,S,vec", ORDER_CASES)
+def test_epilogue_order_against_f64(R, C, S, vec):
+    """The transcribed epilogue's f32 sums are within one f32 ulp of the f64
+    sums of the same terms (corr's per unit, the dense bias's over the
+    rows), on dx whose channels sum to ~0 (batch norm's training cotangent
+    takes out its mean: the dense bias's case) and on plain random dx."""
+    rng = np.random.RandomState(R + C + S)
+    plan = bn_cuda.bn_plan(R, C, vec, 132, "reduce_dx", S)
+    for dx in ((rng.randn(R, C) * 2).astype(np.float32),
+               (lambda v: (v - v.mean(0)).astype(np.float32))(rng.randn(R, C) * 2)):
+        d = dx.astype(np.float64)
+        want_c, want_b = -d.reshape(R // S, S, C).sum(1), d.sum(0)
+        for centre in (True, False):
+            d_corr, d_bias = epilogue_sums(dx, plan, S, centre)
+            assert (d_corr is None) != centre
+            for got, want, terms in ((d_corr, want_c, np.abs(d).reshape(R // S, S, C).sum(1)),
+                                     (d_bias, want_b, np.abs(d).sum(0))):
+                if got is None:
+                    continue
+                allow = 2.0 ** -23 * np.abs(want) + 2.0 ** -40 * terms
+                assert np.all(np.abs(got.astype(np.float64) - want) <= allow)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_prologue_cotangents_within_the_f64_gate(dtype, mode):
+    """The plain stage's prologue cotangents (the op's, on the CPU): the dense
+    bias's and corr's within one ulp of the dtype of torch's f64 sum of the
+    op's own dx plus 2^-40 of the sum of |terms|; in training the dense
+    bias's sum is ~0 (its terms cancel) and is held to that allowance, not to
+    a relative tolerance; the bias's cotangent is f32 holding a value of h's
+    dtype."""
+    import chip_smoke
+
+    h, corr, db, gp, params, stats = site(31, prologue="centre", ties=False)
+    tdt = DTYPES[dtype]
+    _, dh, dc, dd, _, _, _, _ = run_fused(h, corr, db, gp, params, stats, mode == "train", tdt, pool=False)
+    assert dc.dtype == tdt
+    d = dh.double().reshape(-1, h.shape[-1])
+    ulps = chip_smoke.BN_F64_ULPS if dtype == "float32" else chip_smoke.BN_F64_ULPS_BF16
+    wb, tb = d.sum(0), d.abs().sum(0)
+    S = h.shape[2]
+    wc, tc = (-d).view(-1, S, d.shape[-1]).sum(1), d.abs().view(-1, S, d.shape[-1]).sum(1)
+    for got, want, terms in ((dd.double(), wb, tb), (dc.double().reshape(-1, h.shape[-1]), wc, tc)):
+        assert bool(((got - want).abs() <= ulps * want.abs() + chip_smoke.BN_F64_FLOOR * terms).all())
+    if mode == "train":  # the terms cancel: the sum is far below its terms
+        assert float((wb.abs() / tb).max()) < 1e-3
+
+
+def test_dense_bias_in_f32_is_the_cast_bias():
+    """The op takes the layer's f32 bias and rounds it to h's dtype in the
+    prologue: the same output as the bias cast to bf16 by the caller, and a
+    cotangent in f32 that holds the same bf16 value."""
+    h, corr, db, gp, params, stats = site(17, prologue="bias")
+    outs = []
+    for bias in (t(db), t(db).bfloat16()):
+        bias = bias.requires_grad_(True)
+        hh = t(h).bfloat16().requires_grad_(True)
+        w, b = t(params["scale"]).requires_grad_(True), t(params["bias"]).requires_grad_(True)
+        y = ops.batch_norm_relu(hh, w, b, t(stats["mean"]).clone(), t(stats["var"]).clone(), training=True,
+                                dense_bias=bias, pool="max")
+        y.backward(t(gp).bfloat16())
+        outs.append((y, hh.grad, bias.grad))
+    (y32, dh32, db32), (y16, dh16, db16) = outs
+    assert db32.dtype == torch.float32 and db16.dtype == torch.bfloat16
+    assert torch.equal(bits(y32), bits(y16)) and torch.equal(bits(dh32), bits(dh16))
+    assert torch.equal(db32.bfloat16().float(), db32) and torch.equal(db32.bfloat16(), db16)
+
+
+def test_channel_functions_are_the_torch_ops_they_hold():
+    """``bn_channel_stats_plain`` and ``bn_channel_coefficients_plain`` equal,
+    bit for bit on the CPU, the statements they were moved from (the op's
+    forward and ``bn_input_coefficients``' caller before the move), over
+    sums with var_raw < 0 and a NaN, with and without the update, and the
+    eval end."""
+    rng = np.random.RandomState(3)
+    C, count, momentum, eps = 37, 4096, 0.9, 1e-5
+    s = t((rng.randn(C) * count).astype(np.float32))
+    sq = t((rng.rand(C) * count * 4).astype(np.float32))
+    sq[:5] = s[:5] * s[:5] / count * 0.999  # E[x^2] - E[x]^2 < 0
+    s[7] = float("nan")
+    weight = t(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    rm0, rv0 = t(rng.randn(C).astype(np.float32)), t(rng.uniform(0.5, 2, C).astype(np.float32))
+    for update in (True, False):
+        rm, rv = rm0.clone(), rv0.clone()
+        st = bn_op.bn_channel_stats_plain((s, sq), bn_cuda.BnChannels(count, weight, eps, momentum, rm, rv, update))
+        mean = s / count  # the statements as the op ran them
+        var_raw = sq / count - mean * mean
+        var = torch.clamp(var_raw, min=0.0)
+        wm, wv = rm0.clone(), rv0.clone()
+        if update:
+            wm.copy_(momentum * wm + (1 - momentum) * mean)
+            wv.copy_(momentum * wv + (1 - momentum) * var)
+        inv = torch.rsqrt(var + eps)
+        mul = inv * weight
+        for got, want in ((st[0], mean), (st[1], mul), (st[2], inv), (st[3], var_raw), (rm, wm), (rv, wv)):
+            assert torch.equal(got.isnan(), want.isnan()) and torch.equal(bits(got)[~got.isnan()],
+                                                                          bits(want)[~want.isnan()])
+        assert bool((st[3] < 0).any())
+        sum_g, sum_gx = t(rng.randn(C).astype(np.float32)), t(rng.randn(C).astype(np.float32))
+        co = bn_op.bn_channel_coefficients_plain((sum_g, sum_gx), bn_cuda.BnCoefficients(st, weight, count, True))
+        d_var = (sum_gx * weight) * (-0.5 * inv.pow(3))
+        d_var = torch.where(var_raw < 0, 0.0, d_var)
+        d_mean = -(mul * sum_g) - 2.0 * mean * d_var
+        for got, want in ((co[0], d_mean / count), (co[1], 2.0 * (d_var / count)), (co[2], sum_gx * inv),
+                          (co[3], sum_g)):
+            assert torch.equal(got.isnan(), want.isnan()) and torch.equal(bits(got)[~got.isnan()],
+                                                                          bits(want)[~want.isnan()])
+    est = bn_op.bn_channel_stats_plain(None, bn_cuda.BnChannels(count, weight, eps, momentum, rm0, rv0, False))
+    inv = torch.rsqrt(rv0 + eps)
+    assert torch.equal(est[0], rm0) and torch.equal(bits(est[1]), bits(inv * weight)) and torch.equal(est[2], inv)
+
+
 def test_launch_plan_kinds_match_the_compiled_launch_bounds():
     """Each kind of ``BN_CTAS_PER_SM`` is the CTAs an SM that
     csrc/batchnorm.cu compiles its kernels to (``__launch_bounds__``' second
@@ -406,9 +566,10 @@ def test_launch_plan_takes_whole_units(R, S, C, vec, kind):
 def test_mlp_stack_is_its_layers_written_out(dtype, training):
     """``MLPStack(center=, pool="max")`` equals, bit for bit, its layers
     written out as the port ran them before the fusion (the product, the
-    prologue's torch ops, batch norm + ReLU, torch.amax), forward and the
-    parameters' and input's gradients, with and without the project-first
-    gather (``idx``)."""
+    prologue's torch ops with their cotangents summed in f64 as the op sums
+    them, batch norm + ReLU, torch.amax), forward and the parameters' and
+    input's gradients, with and without the project-first gather
+    (``idx``)."""
     from votenet_tpu_torch.models.pointnet2 import MLPStack
 
     dt = DTYPES[dtype]
@@ -430,9 +591,9 @@ def test_mlp_stack_is_its_layers_written_out(dtype, training):
             else:
                 w = stack.dense0.weight.t().to(dt)
                 hh = ops.group_point(x.to(dt) @ w, idx) if use_idx else ops.group_point(x, idx).to(dt) @ w
-                h1 = (hh - (center.to(dt) @ w[:3])[:, :, None, :]) + stack.dense0.bias.to(dt)
+                h1 = F64Prologue.apply(hh, center.to(dt) @ w[:3], stack.dense0.bias)
                 h1 = stack.bn0(h1, relu=True)
-                h2 = h1 @ stack.dense1.weight.t().to(dt) + stack.dense1.bias.to(dt)
+                h2 = F64Prologue.apply(h1 @ stack.dense1.weight.t().to(dt), None, stack.dense1.bias)
                 y = torch.amax(stack.bn1(h2, relu=True), dim=2)
             y.backward(gp)
             outs.append([y] + [p.grad.clone() for p in stack.parameters()] + [x.grad])

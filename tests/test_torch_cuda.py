@@ -828,7 +828,7 @@ def test_distributed_step_at_world_size_1_is_the_plain_step(cuda):
     from votenet_tpu_torch.data.synthetic import synthetic_scenes
 
     cfg = tiny_config()
-    assert chip_smoke.phase_dp_world1(cfg, synthetic_scenes(0, cfg, 8)) == chip_smoke.step_launches(cfg)
+    assert chip_smoke.phase_dp_world1(cfg, synthetic_scenes(0, cfg, 8)) == chip_smoke.step_launches(cfg, group=True)
 
 
 def test_two_ranks_share_the_card(cuda):
@@ -840,7 +840,7 @@ def test_two_ranks_share_the_card(cuda):
 
     cfg = tiny_config()
     paths = chip_smoke.phase_two_ranks(cfg, synthetic_scenes(0, cfg, 8), preset="tiny")
-    assert paths["dp2_gloo_step"] == chip_smoke.step_launches(cfg)
+    assert paths["dp2_gloo_step"] == chip_smoke.step_launches(cfg, group=True)
     assert paths["sp2_forward"]["fps"] == 4 and paths["sp2_ops"]["scatter"] == 1
 
 
@@ -1534,3 +1534,250 @@ def test_bn_layer_op_on_the_card_matches_the_cpu(cuda, dtype, training):
             close(got, want.float().numpy(), 2 ** -8)
         else:
             norm_close(got, want.float().numpy(), 2 ** -6)
+
+
+# ------------------------------- batch norm's per-channel end and epilogue
+
+def random_channel_sums(C, R, seed, device="cuda"):
+    """f64 sums (s, sq) of R rows at C channels: ordinary ones, ones whose
+    E[x^2] - E[x]^2 rounds below 0 (a constant channel), one NaN, one 0."""
+    rng = np.random.RandomState(seed)
+    mean = rng.randn(C) * 3
+    var = rng.uniform(0.1, 4, C)
+    s = mean * R
+    sq = (var + mean * mean) * R
+    const = rng.rand(C) < 0.25
+    sq = np.where(const, (s / R) ** 2 * R * (1 - 1e-9 * rng.rand(C)), sq)
+    s[1], sq[2] = np.nan, 0.0
+    return torch.tensor(s, device=device), torch.tensor(sq, device=device)
+
+
+@pytest.mark.parametrize("update", [True, False])
+@pytest.mark.parametrize("R", [8192, 786432, 8 * 2048 * 64 * 3 + 7])
+def test_bn_statistics_end_is_the_torch_ops_on_the_card(cuda, update, R):
+    """The statistics' end on the card (bn_channels_cuda's one CTA, and K1's
+    last CTA through the op's call) equals, bit for bit, the torch ops it
+    replaces run on the card (ops.batchnorm.bn_channel_stats_plain: the
+    division by the count, the fast variance and its clamp, rsqrt, the
+    running statistics' update): mean, mul, inv, var_raw and the running
+    statistics, over sums with var_raw < 0, a NaN and a zero, with and
+    without the update; eval's end from the running statistics too."""
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    C = 259
+    s, sq = random_channel_sums(C, R, R)
+    rng = np.random.RandomState(1)
+    w = torch.tensor(rng.uniform(0.5, 1.5, C).astype(np.float32), device="cuda")
+    rm0 = torch.tensor(rng.randn(C).astype(np.float32), device="cuda")
+    rv0 = torch.tensor(rng.uniform(0.5, 2, C).astype(np.float32), device="cuda")
+
+    def both(sums, upd):
+        outs = []
+        for fn in (bnc.bn_channels_cuda, bn.bn_channel_stats_plain):
+            rm, rv = rm0.clone(), rv0.clone()
+            st = fn(sums, bnc.BnChannels(R, w, 1e-5, 0.9, rm, rv, upd))
+            outs.append((st, rm, rv))
+        return outs
+
+    (st, rm, rv), (pst, prm, prv) = both((s, sq), update)
+    assert bool((st[3] < 0).any()) and bool(torch.isnan(st[0]).any())
+    for a, b in ((st, pst), (rm, prm), (rv, prv)):
+        assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a[~a.isnan()].view(torch.int32),
+                                                                 b[~b.isnan()].view(torch.int32))
+    assert torch.equal(rm, rm0) != update
+    (est, _, _), (pest, _, _) = both(None, False)
+    assert torch.equal(est[:3].view(torch.int32), pest[:3].view(torch.int32))
+    # K1's last CTA runs the same end on its own sums
+    x = torch.randn((4096, C), device="cuda") * 2 + 1
+    rm, rv, prm, prv = rm0.clone(), rv0.clone(), rm0.clone(), rv0.clone()
+    got = bnc.bn_stats_cuda(x, channels=bnc.BnChannels(4096, w, 1e-5, 0.9, rm, rv, update))
+    want = bn.bn_channel_stats_plain(bnc.bn_stats_cuda(x), bnc.BnChannels(4096, w, 1e-5, 0.9, prm, prv, update))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(rm.view(torch.int32), prm.view(torch.int32))
+    assert torch.equal(rv.view(torch.int32), prv.view(torch.int32))
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pooled", [False, True])
+def test_bn_coefficients_end_is_the_torch_ops_on_the_card(cuda, training, dtype, pooled):
+    """K3's last CTA's coefficients (a, b, the weight's and the bias's
+    cotangents) equal, bit for bit, the torch ops they replace
+    (ops.batchnorm.bn_channel_coefficients_plain) run on the card on K3's
+    own sums (a second launch without the end: the same order, the same
+    bits), with statistics whose var_raw is below 0 in some channels (no
+    gradient through the clamp) and NaN in one."""
+    import chip_smoke
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    R, C, S = 64 * 32, 136, 32
+    h, _, db, weight, bias, dy = chip_smoke.bn_site_inputs(R, C, dtype, 5, "bias", S, pooled)
+    s, sq = bnc.bn_stats_cuda(h, dense_bias=db)
+    st = bn.bn_channel_stats_plain((s, sq), bnc.BnChannels(R, weight, 1e-5, 0.9, None, None, False))
+    st[3, :C // 4] = -st[3, :C // 4].abs() - 1e-7  # var_raw < 0: no gradient through the clamp
+    st[3, 5] = float("nan")
+    mean, mul = st[0], st[1]
+    pro = dict(dense_bias=db)
+    if pooled:
+        pro["pooled"] = bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True, dense_bias=db, pool=S)
+    co = bnc.BnCoefficients(st, weight, R * 3, training)
+    got = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **pro, coefficients=co)
+    sums = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **pro)
+    want = bn.bn_channel_coefficients_plain(sums, co)
+    rows = slice(0, 4) if training else slice(2, 4)
+    assert torch.equal(got[rows].view(torch.int32), want[rows].view(torch.int32))
+
+
+def epilogue_reference(dx, S, centre):
+    """The f64 sums the epilogue rounds: corr's -sum(dx) a unit, the dense
+    bias's sum(dx), and each one's sum of |terms|."""
+    d = dx.double()
+    unit = (-d).view(-1, S, d.shape[-1])
+    return (unit.sum(1) if centre else None, unit.abs().sum(1) if centre else None, d.sum(0), d.abs().sum(0))
+
+
+def within_f64_gate(got, want, terms, dtype):
+    """|got - f64 sum| within one ulp of the dtype of |sum| plus 2^-40 of the
+    sum of |terms| (chip_smoke.py's BN_F64_ULPS / BN_F64_FLOOR form)."""
+    import chip_smoke
+
+    ulps = chip_smoke.BN_F64_ULPS if dtype == torch.float32 else chip_smoke.BN_F64_ULPS_BF16
+    allow = ulps * want.abs() + chip_smoke.BN_F64_FLOOR * terms
+    return bool(((got.double() - want).abs() <= allow).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C,S,prologue,pooled,training", [
+    (8 * 2048 * 64, 64, 64, "centre", False, True), (8 * 2048 * 64, 128, 64, "bias", True, True),
+    (8 * 1024, 256, 1, "bias", False, True), (37 * 16, 13, 16, "centre", True, False),
+    (4096, 259, 1, "bias", False, False), (64 * 7, 1024, 7, "centre", False, True)])
+def test_bn_epilogue_within_the_f64_gate(cuda, dtype, R, C, S, prologue, pooled, training):
+    """K4's epilogue: dx bit-equal to K4 without it, corr's cotangent (each
+    unit's -sum(dx)) and the dense bias's (sum(dx), in training a sum of
+    terms that cancel) within the f64 gate of torch's f64 sums of the same
+    rounded dx, every rerun bit-identical; in f32 both equal the numpy
+    transcription of the kernel's order (tests/test_torch_bn_layer.py
+    ``epilogue_sums``) bit for bit."""
+    import chip_smoke
+    from tests.test_torch_bn_layer import epilogue_sums
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    h, corr, db, weight, bias, dy = chip_smoke.bn_site_inputs(R, C, dtype, R + C, prologue, S, pooled)
+    pro = dict(corr=corr, dense_bias=db)
+    x = bn.layer_rows_plain(h, corr, db)
+    mean, mul = x.float().mean(0), torch.rand(C, device="cuda") + 0.5
+    a = b = None
+    if training:
+        a, b = torch.randn(C, device="cuda") * 1e-3, torch.randn(C, device="cuda") * 1e-3
+    if pooled:
+        pro["pooled"] = bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True, **pro, pool=S)
+    dx0 = bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **pro)
+    before = bnc.bn_bwd_apply_cuda.sums.launches
+    dx, dc, dd = bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **pro, sums=True)
+    assert bnc.bn_bwd_apply_cuda.sums.launches == before + 1
+    again = bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **pro, sums=True)
+    assert torch.equal(dx, dx0) and all(torch.equal(u, v) for u, v in zip((dx, dc, dd), again) if u is not None)
+    assert dd.dtype == torch.float32 and torch.equal(dd.to(dtype).float(), dd)
+    wc, tc, wd, td = epilogue_reference(dx, S, prologue == "centre")
+    assert within_f64_gate(dd, wd, td, dtype)
+    if prologue == "centre":
+        assert dc.dtype == dtype and dc.shape == corr.shape and within_f64_gate(dc, wc, tc, dtype)
+    else:
+        assert dc is None
+    if dtype == torch.float32:
+        plan = bnc.bn_plan(R, C, bnc._vec(C, h, dy, dx, corr), bnc.sm_count(0), "reduce_dx", S)
+        wc32, wd32 = epilogue_sums(dx.cpu().numpy(), plan, S, prologue == "centre")
+        assert np.array_equal(dd.cpu().numpy().view(np.uint32), wd32.view(np.uint32))
+        if prologue == "centre":
+            assert np.array_equal(dc.cpu().numpy().view(np.uint32), wc32.view(np.uint32))
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("prologue", ["centre", "bias", None])
+def test_bn_wide_pool_kernels_equal_their_plain_stages(cuda, relu, prologue):
+    """bf16's pool variant of K2 and pooled K3 (8 channels a lane, bf16x2
+    pairs): K2's maxima and counts bit-equal to the plain stage on the card
+    with NaN inputs, -0 and +0 outputs and many ties (a NaN max has count
+    0), and K3's sums within BN_SUM_TOL of the plain stage's and its
+    coefficients bit-equal to the torch ops on its own sums; the wide plan
+    taken (C % 8 == 0), the scalar one where C % 8 != 0 gives the same."""
+    import chip_smoke
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    for R, C, S in ((512 * 16, 64, 16), (40 * 64, 136, 64), (33 * 8, 12, 8)):
+        h, corr, db, weight, bias, dy = chip_smoke.bn_site_inputs(R, C, torch.bfloat16, C, prologue, S, True)
+        h = h.clone()
+        h[5, :3] = float("nan")
+        pro = dict(corr=corr, dense_bias=db)
+        x = bn.layer_rows_plain(h, corr, db).float()
+        mean = x.nan_to_num().mean(0)
+        mul = torch.rand(C, device="cuda") + 0.5
+        mul[1] = -1.0
+        bias = bias.clone()
+        bias[1] = -0.0
+        assert bnc._wide(h, h, corr) == (C % 8 == 0)
+        y = bnc.bn_apply_cuda(h, mean, mul, bias, torch.bfloat16, relu, **pro, pool=S)
+        py = bn.bn_apply_plain(h, mean, mul, bias, torch.bfloat16, relu, **pro, pool=S)
+        nan = torch.isnan(py[0])
+        assert bool(nan.any()) and torch.equal(torch.isnan(y[0]), nan)
+        assert torch.equal(y[0][~nan].view(torch.int16), py[0][~nan].view(torch.int16))
+        assert torch.equal(y[1], py[1]) and int(y[1][nan].abs().sum()) == 0
+        h[5, :3] = 0.0
+        y = bnc.bn_apply_cuda(h, mean, mul, bias, torch.bfloat16, relu, **pro, pool=S)
+        sg, sgx = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, relu, **pro, pooled=y)
+        psg, psgx = bn.bn_bwd_reduce_plain(h, dy, mean, mul, bias, relu, **pro, pooled=y)
+        g = bn._masked(bn.layer_rows_plain(h, corr, db), dy, mean, mul, bias, relu, y)
+        xf = bn.layer_rows_plain(h, corr, db).float()
+        for got, want, terms in ((sg, psg, g.abs().sum(0)), (sgx, psgx, (g * (xf - mean)).abs().sum(0))):
+            assert bool(((got - want).abs() <= chip_smoke.BN_SUM_TOL * terms + 1e-30).all())
+
+
+def bn_kernels_of(fn):
+    """The short names of the CUDA kernels ``fn`` launches, in order
+    (chip_smoke.device_kernel_names: torch.profiler)."""
+    import re
+
+    import chip_smoke
+
+    return [(re.search(r"(\w+_kernel)\b", n) or re.search(r"(\S+)", n)).group(1)
+            for n in chip_smoke.device_kernel_names(fn)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue,pool", [("centre", False), ("bias", True), ("bias", False)])
+def test_bn_site_launches_its_kernels_and_nothing_else(cuda, dtype, prologue, pool):
+    """One site's training forward launches K1 + K2 and its backward K3 + K4
+    and no other kernel (the per-channel arithmetic, the prologue's
+    cotangent sums and the bias's casts are inside them); an eval forward
+    under inference_mode launches K2 alone."""
+    from votenet_tpu_torch import ops
+
+    B, M, S, C = 4, 64, 16, 64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h = (torch.randn((B, M, S, C), generator=g, device="cuda") * 2).to(dtype).requires_grad_(True)
+    corr = (torch.randn((B, M, C), generator=g, device="cuda")).to(dtype).requires_grad_(True) \
+        if prologue == "centre" else None
+    db = torch.randn(C, generator=g, device="cuda").requires_grad_(True)
+    w = torch.ones(C, device="cuda", requires_grad=True)
+    b = torch.zeros(C, device="cuda", requires_grad=True)
+    rm, rv = torch.zeros(C, device="cuda"), torch.ones(C, device="cuda")
+    gp = torch.randn((B, M, C) if pool else (B, M, S, C), generator=g, device="cuda").to(dtype)
+    kw = dict(dense_bias=db, corr=corr, pool="max" if pool else None)
+    apply = "bn_apply_pool_kernel" if pool else "bn_apply_kernel"
+    for _ in range(2):  # the first round allocates the stream's tickets
+        for t in (h, corr, db, w, b):
+            if t is not None:
+                t.grad = None
+        out = {}
+        fwd = bn_kernels_of(lambda: out.setdefault("y", ops.batch_norm_relu(h, w, b, rm, rv, training=True, **kw)))
+        bwd = bn_kernels_of(lambda: out["y"].backward(gp))
+    assert fwd == ["bn_stats_kernel", apply], fwd
+    assert bwd == ["bn_bwd_reduce_kernel", "bn_bwd_apply_kernel"], bwd
+    assert db.grad.dtype == torch.float32 and (corr is None or corr.grad.dtype == dtype)
+    with torch.inference_mode():
+        ev = bn_kernels_of(lambda: ops.batch_norm_relu(h.detach(), w, b, rm, rv, training=False, **kw))
+    assert ev == [apply], ev

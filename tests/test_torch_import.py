@@ -91,7 +91,7 @@ def test_cpu_tensors_launch_no_kernel():
 
 
 @pytest.mark.parametrize("kernel", ["fps", "ballquery", "scatter", "samlp", "ballquery_fast_bf16", "nms3d", "iou3d",
-                                    "decode", "bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply"])
+                                    "decode", "bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply", "bn_channels"])
 def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     """Given a CPU tensor, the wrapper raises: it neither computes the plain
     version nor builds the library."""
@@ -132,6 +132,8 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
             bn_mod.bn_bwd_reduce_cuda(rows, rows, v, v, v, True)
         elif kernel == "bn_bwd_apply":
             bn_mod.bn_bwd_apply_cuda(rows, rows, v, v, v, v, v, True)
+        elif kernel == "bn_channels":
+            bn_mod.bn_channels_cuda(None, bn_mod.BnChannels(8, v, 1e-5, 0.9, v, v.clone(), False))
         else:
             layer = (torch.zeros(3, 5), torch.ones(5), torch.zeros(5))
             samlp_mod.fused_sa_mlp_pool_cuda(
@@ -143,7 +145,8 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     assert samlp_mod.fused_sa_mlp_pool_cuda.launches == 0
     assert bq_mod.query_ball_point_cuda.fast_bf16.launches == nms_mod.nms3d_greedy_cuda.launches == 0
     assert iou_mod.box3d_iou_matrix_cuda.launches == decode_mod.decode_proposals_cuda.launches == 0
-    assert [getattr(bn_mod, f"bn_{k}_cuda").launches for k in ("stats", "apply", "bwd_reduce", "bwd_apply")] == [0] * 4
+    assert [getattr(bn_mod, f"bn_{k}_cuda").launches
+            for k in ("stats", "apply", "bwd_reduce", "bwd_apply", "channels")] == [0] * 5
 
 
 def test_cpu_eval_launches_no_kernel():

@@ -189,7 +189,8 @@ class MLPStack(nn.Module):
     features in ``dtype``; see :meth:`_split_dense0`.
 
     Each dense layer that a batch norm follows hands the batch norm its
-    product h and its bias (and the first layer its centre correction
+    product h and its f32 bias, which the op rounds to ``dtype`` (and the
+    first layer its centre correction
     ``center @ W[:3]``): the op forms x of them (``BatchNorm.forward``), so
     x is never stored. The split first layer adds its own bias. ``pool="max"``
     (an SA layer's max-pool; the last width must have its batch norm) makes
@@ -238,15 +239,15 @@ class MLPStack(nn.Module):
                 w = layer.weight.t().to(dt)  # (in, out)
                 x = x.to(dt)
                 h = x @ w if idx is None else ops.group_point(x @ w, idx)  # (B, M, S, out)
-                corr, b = center.to(dt) @ w[:3], layer.bias.to(dt)
+                corr, b = center.to(dt) @ w[:3], layer.bias  # the op rounds the f32 bias to dt
             elif bn is not None:
-                h, b = dense_product(layer, x, dt), layer.bias.to(dt)
+                h, b = dense_product(layer, x, dt), layer.bias
             else:
                 h = dense(layer, x, dt)
             if bn is not None:
                 x = bn(h, relu=True, dense_bias=b, corr=corr, pool=pool if i == self.n - 1 else None)
             else:
-                x = h if corr is None else (h - corr[:, :, None, :]) + b
+                x = h if corr is None else (h - corr[:, :, None, :]) + b.to(dt)
                 if self.final_activation or i < self.n - 1:
                     x = torch.relu(x)
         return x

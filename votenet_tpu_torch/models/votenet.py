@@ -97,7 +97,7 @@ class VotingModule(nn.Module):
             layer = getattr(self, f"voting{i}")
             if i < self.n - 1:  # the batch norm adds the dense bias
                 x = getattr(self, f"voting{i}_bn")(dense_product(layer, x, self.dtype), relu=True,
-                                                   dense_bias=layer.bias.to(self.dtype))
+                                                   dense_bias=layer.bias)
             else:
                 x = dense(layer, x, self.dtype)
         return x

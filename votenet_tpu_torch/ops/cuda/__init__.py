@@ -125,14 +125,22 @@ def library() -> ctypes.CDLL:
             # R, C, vec, W, ctas, tiles, units a CTA (after the prologue's corr, dense bias and S)
             bn_plan = [i64, i32, i32, i32, i32, i32, i64]
             bn_pro = [ptr, ptr, i32]
-            lib.votenet_bn_stats.argtypes = [ptr, i32, *bn_pro, *bn_plan, i32, ptr, ptr, ptr, ptr, ptr, ptr]
-            lib.votenet_bn_apply.argtypes = [ptr, i32, *bn_pro, ptr, i32, ptr, *bn_plan, ptr, ptr, ptr, i32, ptr]
+            # the statistics' end: st, weight, running mean and var, update, 1 / count, eps, momentum, 1 - momentum
+            bn_stats_end = [ptr, ptr, ptr, ptr, i32, f32, f32, f32, f32]
+            lib.votenet_bn_stats.argtypes = [ptr, i32, *bn_pro, *bn_plan, i32, ptr, ptr, ptr, ptr, *bn_stats_end, ptr]
+            lib.votenet_bn_apply.argtypes = [ptr, i32, *bn_pro, ptr, i32, ptr, *bn_plan, ptr, ptr, ptr, ptr, f32, i32,
+                                             ptr]
             bn_dy = [ptr, i32, ptr, ptr]  # dy, its bf16 flag, the pool's maxima and counts
+            # sums, the coefficients' end (out, st, weight, 1 / count, training)
             lib.votenet_bn_bwd_reduce.argtypes = [ptr, i32, *bn_pro, *bn_dy, *bn_plan, i32, ptr, ptr, ptr, i32,
-                                                  ptr, ptr, ptr, ptr, ptr, ptr]
+                                                  ptr, ptr, ptr, ptr, ptr, ptr, ptr, f32, i32, ptr]
+            # ..., a, b, relu, the epilogue (0, 1 or 2), its d_corr and d_dense_bias, its tree's workspace,
+            # tickets and fan-in
             lib.votenet_bn_bwd_apply.argtypes = [ptr, i32, *bn_pro, *bn_dy, ptr, *bn_plan, ptr, ptr, ptr, ptr, ptr,
-                                                 i32, ptr]
-            for fn in (lib.votenet_bn_stats, lib.votenet_bn_apply, lib.votenet_bn_bwd_reduce, lib.votenet_bn_bwd_apply):
+                                                 i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
+            lib.votenet_bn_channels.argtypes = [ptr, ptr, i32, *bn_stats_end, ptr]
+            for fn in (lib.votenet_bn_stats, lib.votenet_bn_apply, lib.votenet_bn_bwd_reduce, lib.votenet_bn_bwd_apply,
+                       lib.votenet_bn_channels):
                 fn.restype = i32
             lib.votenet_error_string.argtypes = [i32]
             lib.votenet_error_string.restype = ctypes.c_char_p
