@@ -153,7 +153,11 @@ Phases, each checked; any failure exits non-zero without the final line:
    timed in turns, 20 each, and the difference of their medians printed
    beside the plain step's interquartile range (unresolved when inside
    it): what the data-parallel machinery costs on one card. The distributed step launches FPS 5, the
-   ball query 5 and the scatter 4 times.
+   ball query 5 and the scatter 4 times, and each batch-norm site K1 + K2
+   (K2 running the statistics' end from the group's sums) and K3 + K4;
+   the device launches of one step of each path (torch.profiler) and the
+   statistics' end kernels among them (none: a checkout that has the
+   end's own kernel counts its launches).
 20. Two ranks sharing the card over gloo (NCCL refuses two ranks on one
    device), spawned processes: dp=2, B=8 (4 rows a rank) against this
    process's step on the same 8 scenes: the losses within REL_TOL of scale,
@@ -192,8 +196,8 @@ Phases, each checked; any failure exits non-zero without the final line:
    through each route (kernel; the decode's plain version; the greedy's),
    the packed fetch and the host decode (host ms); phase 10's eval pass
    (samlp on) and ``detect()`` by route, in turns. Serving (phase 4) and
-   eval (phase 10) launch the decode, the IoU kernel and the greedy once a
-   forward each.
+   eval (phase 10) launch the fused decode + IoU kernel and the greedy once
+   a forward each.
 23. The ball query's fast_bf16 variant (``bq_precision="fast_bf16"``: the
    TPU semantics of the JAX package's matmul-expansion hit test) at the five
    main-path shapes, B=1 and 8, through both routes: bit-equal to its plain
@@ -242,11 +246,18 @@ Phases, each checked; any failure exits non-zero without the final line:
    steps an epoch: metrics fetched at step 8), 2 epochs, against 1, both under
    deterministic algorithms: the checkpoints byte-equal, each run's ms a
    step, the K=4 run's launches.
-31. The decode kernel (``csrc/decode.cu``) on the end points of phase 4's
-   seed-0 model and of phase 10's trained checkpoint, B=1 and 8: every
-   output equal bit for bit to its plain version's on the card and on the
-   CPU; device us of the kernel and of the plain version's eager passes
-   beside the bound. It runs before phase 22.
+31. The decode kernel (``csrc/decode.cu``) and the head's fused decode +
+   IoU self-matrix kernel (``csrc/iou3d.cu`` ``decode_iou_kernel``) on the
+   end points of phase 4's seed-0 model and of phase 10's trained
+   checkpoint, B=1 and 8, and (the fused kernel) on seeded random end
+   points of phase 27's 1025-4096 proposals at B=2: every decoded output
+   equal bit for bit to the decode's plain version on the card and on the
+   CPU, every IoU float to the IoU kernel's on the decode kernel's corners
+   and to the plain version's on the card (bits) and on the CPU (==: its
+   max keeps -0 where the card's gives +0, as for the IoU kernel);
+   device us of each kernel, of the two launches the fused one replaces
+   (the decode kernel, then the IoU kernel's triangle) and of the plain
+   versions' eager passes beside the bounds. It runs before phase 22.
 32. Batch norm + ReLU's kernels with the layer around them
    (``csrc/batchnorm.cu``: the sums, the normalisation with the ReLU, the
    backward's sums, the input's cotangent; each reading the dense layer's
@@ -269,8 +280,12 @@ Phases, each checked; any failure exits non-zero without the final line:
    each site's bound, and ``F.batch_norm``'s whole training forward and
    backward beside K1 + K2 and K3 + K4 over a B=8 step's sites. The
    per-channel end is bit-equal to the torch ops it replaces on the same
-   sums on the card (K1's and K3's last CTAs, ``bn_channels_cuda`` alone,
-   eval's K2 forming its own mul), K4's epilogue (``bn_bwd_apply_sums``: the
+   sums on the card (K1's and K3's last CTAs, eval's K2 forming its own
+   mul; ``bn_apply_group``: K2's end from a data-parallel group's sums, with
+   var_raw < 0, a NaN and a zero among them, st, the running statistics and
+   y bit-equal to the torch ops and K2 on their mean and mul; an eval
+   backward's K3 and K4 from the running statistics bit-equal to K3 and K4
+   on the end's torch ops), K4's epilogue (``bn_bwd_apply_sums``: the
    prologue's cotangents) within one ulp of the dtype of torch's f64 sums
    of the same rounded dx plus BN_F64_FLOOR of the sums of |terms| (library
    column: the two torch sums it replaces), and the bf16 pool kernels' sums
@@ -279,8 +294,8 @@ Phases, each checked; any failure exits non-zero without the final line:
    the kernels too (``bn_launches``: a forward applies 23 times, 5 of them
    pooled, fewer where samlp fuses; a step launches each 23 times, the
    forward two 35 under remat; the launches that took the centred or the
-   bias prologue; K4's with the epilogue; a data-parallel step's 23
-   statistics' ends).
+   bias prologue; K4's with the epilogue; a data-parallel step's 23 K2
+   launches with the statistics' end).
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
@@ -293,19 +308,23 @@ and ``production_ms`` the production kernel's sum beside them. The port's
 own kernels follow: ``nms3d`` (``launches`` phase 4's serving path, 6
 forwards; ``ms`` the greedy of one B=8 forward of the trained checkpoint,
 ``plain_ms`` its plain version's on the card: the candidates, the argsort
-and the fixpoint), ``iou3d`` (``launches`` phase 4's, ``ms`` and
-``plain_ms`` the kernel's triangle and its eager plain version's on the
-trained checkpoint's B=8 boxes, phase 26), ``decode`` (``launches`` phase
-4's, ``ms`` and ``plain_ms`` on the trained checkpoint's B=8 end points,
-phase 31), ``ballquery_fast_bf16``
+and the fixpoint), ``decode_iou`` (the head's fused decode + IoU
+self-matrix: ``launches`` phase 4's, ``ms`` and ``plain_ms`` the kernel
+and the decode's and the IoU's plain versions on the trained checkpoint's
+B=8 end points, ``replaced_ms`` the two launches it replaces, phase 31),
+``iou3d`` and ``decode`` (off the main path since the fused kernel:
+``launches`` their phases' checks, 26 and 31; ``ms`` and ``plain_ms`` the
+IoU triangle and the decode alone on the same B=8 boxes and end points),
+``ballquery_fast_bf16``
 (``launches`` phase 23's serving forward; ``production_ms`` the exact
 kernel's) and the batch-norm kernels and their pooled variants (``launches`` phase
 7's training path, beside serving's, eval's and ``run_train``'s; ``ms``,
 ``plain_ms``, ``bound_ms``, ``library_ms`` and ``eager_ms`` sums over the
 sites of a B=8 step in f32 that take each, phase 32; ``bf16_us`` and
 ``bf16_bound_us`` of the pool kernels over the bf16 step's pooled sites),
-K4 with its epilogue (``bn_bwd_apply_sums``) and the statistics' end alone
-(``bn_channels``: ``launches`` phase 19's distributed step).
+K4 with its epilogue (``bn_bwd_apply_sums``) and K2 with a data-parallel
+group's statistics' end (``bn_apply_group``: ``launches`` phase 19's
+distributed step).
 Kernel times are device times:
 ``cuda_ms`` queues its timed calls behind a sleep kernel, so the wrappers'
 host time between launches does not count (a call whose kernel is shorter
@@ -346,6 +365,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import importlib.util
+import inspect
 import io
 import json
 import os
@@ -663,9 +683,9 @@ def phase_serve(cfg, scenes, predictor, label="phase 4"):
 
     P, NC = cfg.proposal_num, cfg.num_class
     counters = {k: c for k, c in eval_counters().items()
-                if k in ("fps", "ballquery", "ballquery_fast_bf16", "nms", "iou3d", "decode", *bn_counters())}
+                if k in ("fps", "ballquery", "ballquery_fast_bf16", *HEAD_LAUNCHES, *bn_counters())}
     bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
-    per_forward = ({"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "nms": 1, "iou3d": 1, "decode": 1} | {bq: 5}
+    per_forward = ({"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, **HEAD_LAUNCHES} | {bq: 5}
                    | bn_launches(cfg, train=False, samlp=cfg.samlp == "on"))
     requests, detects = serve_times(predictor, scenes, 3, counters)
     launches = launch_counts(counters)
@@ -817,15 +837,15 @@ def phase_scatter_fast(cfg, scenes, report):
 
 
 BN_COUNTS = ("bn_stats", "bn_apply", "bn_apply_pool", "bn_bwd_reduce", "bn_bwd_reduce_pooled", "bn_bwd_apply",
-             "bn_bwd_apply_pooled", "bn_prologue_centre", "bn_prologue_bias", "bn_bwd_apply_sums", "bn_channels")
+             "bn_bwd_apply_pooled", "bn_prologue_centre", "bn_prologue_bias", "bn_bwd_apply_sums", "bn_apply_group")
 
 
 def bn_counters():
     """The batch-norm site's counts: each kernel's launches over full rows,
     K2's pool variant's and K3's and K4's at a pooled site, the launches
     (of any stage) that took the centred or the bias prologue, K4's launches
-    with the epilogue (the prologue's cotangents) and the statistics' end's
-    own launches (a data-parallel group's, an eval backward's). A checkout
+    with the epilogue (the prologue's cotangents) and K2's launches that ran
+    the statistics' end from a data-parallel group's sums. A checkout
     without the last two counts them 0."""
     from types import SimpleNamespace
 
@@ -837,7 +857,7 @@ def bn_counters():
             "bn_bwd_apply": bn.bn_bwd_apply_cuda, "bn_bwd_apply_pooled": bn.bn_bwd_apply_cuda.pooled,
             "bn_prologue_centre": bn.PROLOGUE_LAUNCHES["centre"], "bn_prologue_bias": bn.PROLOGUE_LAUNCHES["bias"],
             "bn_bwd_apply_sums": getattr(bn.bn_bwd_apply_cuda, "sums", none),
-            "bn_channels": getattr(bn, "bn_channels_cuda", none)}
+            "bn_apply_group": getattr(bn.bn_apply_cuda, "group", none)}
 
 
 def train_counters():
@@ -864,8 +884,10 @@ def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True, gr
     training, of sa1-sa4 under ``gather_packing="bf16_hilo"``, which add
     their bias themselves), the bias elsewhere; each backward K4 with a
     dense bias writes the prologue's cotangents (``bn_bwd_apply_sums``).
-    ``group`` (a data-parallel group): each training forward's statistics'
-    end is its own launch after the all-reduce (``bn_channels``).
+    ``group`` (a data-parallel group): each training forward's K2 runs the
+    statistics' end from the group's sums (``bn_apply_group``; 0 in a
+    checkout whose end had a kernel of its own, which this file does not
+    count).
     ``backward=False``: a training forward alone (stats and apply)."""
     mixed = cfg.mixed_precision and cfg.compute_dtype == "float32"
     split = {"sa2", "sa3", "sa4"} if mixed else set()
@@ -874,6 +896,9 @@ def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True, gr
     fused = set()
     if samlp and not train and cfg.compute_dtype == "float32":
         fused = {"sa1", "proposal"} if mixed else {"sa1", "sa2", "sa3", "sa4", "proposal"}
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    group_end = group and hasattr(bnc.bn_apply_cuda, "group")
     n = dict.fromkeys(BN_COUNTS, 0)
     for layer, _, _, prologue, pooled in bn_sites(cfg):
         if layer in fused:
@@ -888,7 +913,7 @@ def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True, gr
         if not (prologue == "centre" and layer in split):
             n[f"bn_prologue_{prologue}"] += (2 * fwd + 2 * bwd) if train else 1
             n["bn_bwd_apply_sums"] += bwd
-        n["bn_channels"] += fwd if train and group else 0
+        n["bn_apply_group"] += fwd if train and group_end else 0
     return n
 
 
@@ -1142,15 +1167,26 @@ def phase_samlp(cfg, scenes, state_dict, report, f32_bound):
                 print(line + f"; f32 CUDA-core bound {f32_ms * 1e3:.1f} us")
 
 
+# The head's launches a forward (``predict_boxes``): the fused decode + IoU
+# self-matrix and the greedy; the decode and IoU kernels alone are off the
+# path (``decode_proposals``, ``ops.box3d_iou_matrix``)
+HEAD_LAUNCHES = {"nms": 1, "iou3d": 0, "decode": 0, "decode_iou": 1}
+
+
 def eval_counters():
-    from votenet_tpu_torch.ops.cuda.decode import decode_proposals_cuda
+    """Forward-path counters: the training path's but the scatters, samlp's,
+    and the head's (a checkout without the fused head counts it 0)."""
+    from types import SimpleNamespace
+
+    from votenet_tpu_torch.ops.cuda import decode as dec
     from votenet_tpu_torch.ops.cuda.iou3d import box3d_iou_matrix_cuda
     from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
     from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda
 
     return {**{k: v for k, v in train_counters().items() if not k.startswith("scatter")},
             "samlp": fused_sa_mlp_pool_cuda, "samlp_bf16": fused_sa_mlp_pool_cuda.bf16, "nms": nms3d_greedy_cuda,
-            "iou3d": box3d_iou_matrix_cuda, "decode": decode_proposals_cuda}
+            "iou3d": box3d_iou_matrix_cuda, "decode": dec.decode_proposals_cuda,
+            "decode_iou": getattr(dec, "decode_iou_cuda", SimpleNamespace(launches=0))}
 
 
 def same_detections(a, b):
@@ -1231,8 +1267,7 @@ def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, l
         seconds, per_forward, pred = eval_passes(ev, predict, cache, 3, counters)
         launches = launch_counts(counters)
         bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
-        want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "samlp": 0, "samlp_bf16": 0, "nms": 1,
-                "iou3d": 1, "decode": 1}
+        want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "samlp": 0, "samlp_bf16": 0, **HEAD_LAUNCHES}
         want[bq] = 5
         want[samlp_counter] = samlp_per_forward if mode == "on" else 0
         want |= bn_launches(cfg, train=False, samlp=mode == "on")
@@ -1749,7 +1784,7 @@ def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label=
     want = {k: per_step[k] * steps for k in ("fps", "ballquery", "ballquery_fast_bf16", "scatter",
                                              "scatter_fast_bf16")}
     want = want | {"fps": want["fps"] + 5 * fwd, bq: want[bq] + 5 * fwd, "samlp": 5 * fwd, "samlp_bf16": 0,
-                   "nms": fwd, "iou3d": fwd, "decode": fwd}
+                   **{k: n * fwd for k, n in HEAD_LAUNCHES.items()}}
     want |= {k: per_step[k] * steps + n * fwd for k, n in bn_launches(run_cfg, train=False, samlp=True).items()}
     records = stats[0] + stats[1]
     checks = {
@@ -1858,15 +1893,20 @@ def _stats(model) -> dict:
     return {n: b.detach().clone() for n, b in model.named_buffers()}
 
 
-def phase_dp_world1(cfg, scenes, device="cuda", backend="nccl"):
+def phase_dp_world1(cfg, scenes, device="cuda", backend="nccl", profile_launches=False):
     """Phase 19: a one-rank process group (NCCL on the card) in this process.
     One B=8 step's gradients, batch statistics and losses through the
     distributed path (``forward_backward`` with the mesh's data group, then
     the gradient all-reduce) bit-equal to the plain path's, both with
     PyTorch's deterministic algorithms (index_add_ and gather's backward sum
     atomically otherwise, so that two runs of one path differ by ulps); then
-    both whole steps timed in turns without them, 20 each. Returns the distributed
-    step's launches."""
+    both whole steps timed in turns without them, 20 each; with
+    ``profile_launches`` (this script's own runs: in the card tests'
+    process, torch.profiler sessions of later tests recorded no device
+    events once this phase had profiled, which the phase followed by one
+    session alone did not reproduce) each path's device launches of one
+    step.
+    Returns the distributed step's launches."""
     import torch
     import torch.distributed as dist
 
@@ -1934,6 +1974,15 @@ def phase_dp_world1(cfg, scenes, device="cuda", backend="nccl"):
             gc.callbacks.remove(on_gc)
         want = step_launches(cfg, group=True)
         checks[f"one distributed step launches {want}"] = launches == want
+        if profile_launches:  # every device launch of one step of each path (torch.profiler)
+            from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+            names = {k: device_kernel_names(lambda k=k: steps[k](states[k], batch)) for k in steps}
+            ends = sum("bn_channels" in n for n in names["dist"])
+            print(f"  device launches of one step: plain {len(names['plain'])}, distributed {len(names['dist'])}; "
+                  f"of the distributed step's, {ends} of the statistics' end's own kernel")
+            if not hasattr(bnc, "bn_channels_cuda"):  # K2 runs the group's end
+                checks["the distributed step launches no kernel of the statistics' end's own"] = ends == 0
         diff = float(np.median(ms["dist"]) - np.median(ms["plain"]))
         q1, q3 = np.percentile(ms["plain"], [25, 75])
         spread = float(q3 - q1)
@@ -2197,10 +2246,11 @@ def earlier_now(kernel, layer, B, ms):
 @contextlib.contextmanager
 def decode_nms_route(route):
     """Within the block decode + NMS take ``route``: "kernel" (as shipped:
-    three launches), "loop" (the greedy's plain version on the card: the
+    two launches), "loop" (the greedy's plain version on the card: the
     candidates, ``torch.argsort`` and the fixpoint, one host sync a round)
     or "plain_decode" (the decode's plain version on the card's tensors,
-    some 80 eager launches): the routes timed side by side in one process."""
+    some 80 eager launches, then the IoU kernel): the routes timed side by
+    side in one process."""
     import importlib
 
     import torch
@@ -2424,38 +2474,112 @@ def decode_bound(B, P, C, NH, NS, NC):
     return bound_ms(float((DECODE_OPS + 2 * (NH + NS + NC)) * B * P), B * P * (C + 3 + 32 + 2) * 4.0)
 
 
-def phase_decode(cfg, scenes, state_dict, report):
-    """Phase 31: the decode kernel (``csrc/decode.cu``) against its plain
-    version on the card and on the CPU, on the end points of phase 4's
-    seed-0 model and of phase 10's trained checkpoint, B=1 and 8: every
-    output equal bit for bit; device us of the kernel and of the plain
-    version's eager passes on the card beside the bound."""
+def decode_iou_bound(B, P, C, NH, NS, NC):
+    """The fused head kernel's least time: the decode's (``decode_bound``)
+    and the IoU self-matrix's pairs and boxes (``iou_bound``) added, its
+    bytes the decode's and the (B, P, P) matrix written (the corners are
+    never read)."""
+    d_ops, d_bytes = decode_bound(B, P, C, NH, NS, NC)
+    i_ops, _ = iou_bound(B, P, P, self_matrix=True)
+    return d_ops + i_ops, d_bytes + B * P * P * 4.0 / PEAK_BYTES * 1e3
+
+
+def long_end_points(cfg, B, P, seed):
+    """Seeded random head channels (B, P, C) and proposal centres in a room
+    grown with P (phase 27's densities): about half the proposals
+    candidates, residuals of either sign, some sizes at the 1e-6 floor."""
     import torch
 
-    from votenet_tpu_torch.models.decode import decode_proposals, decode_proposals_plain
+    rng = np.random.RandomState(seed)
+    NH, NS = cfg.num_heading_bin, cfg.num_size_cluster
+    out = rng.randn(B, P, cfg.num_proposal_channels).astype(np.float32)
+    out[..., 5 + NH:5 + 2 * NH] *= 0.5
+    out[..., 5 + 2 * NH + NS:5 + 2 * NH + 4 * NS] *= 0.3
+    side = 4.0 * np.sqrt(P / 256.0)
+    xyz = rng.uniform(-side, side, (B, P, 3)).astype(np.float32)
+    return {"proposals_output": torch.from_numpy(out).cuda(), "proposals_xyz": torch.from_numpy(xyz).cuda()}
 
-    print("phase 31: the decode kernel vs its plain version on the card and the CPU (CUDA events)")
+
+def phase_decode(cfg, scenes, state_dict, report):
+    """Phase 31: the decode kernel (``csrc/decode.cu``) and the head's fused
+    decode + IoU self-matrix kernel (``csrc/iou3d.cu``) against their plain
+    versions on the card and on the CPU, on the end points of phase 4's
+    seed-0 model and of phase 10's trained checkpoint, B=1 and 8, and (the
+    fused kernel) on seeded random end points of 1025-4096 proposals at
+    B=2: every decoded output equal bit for bit, the fused IoU matrix bit
+    for bit to the two launches' and the plain version's on the card and
+    (==) to the CPU's, whose max keeps -0 where the card's gives +0;
+    device us of each kernel, of the
+    two launches the fused one replaces and of the plain versions' eager
+    passes beside the bounds. Returns {"launches": each kernel's in this
+    phase, "replaced_ms": the two launches' at the trained checkpoint's
+    B=8}."""
+    import torch
+
+    from votenet_tpu_torch.models.decode import _kernel_inputs, decode_proposals, decode_proposals_plain
+    from votenet_tpu_torch.ops.cuda.decode import decode_iou_cuda, decode_proposals_cuda
+    from votenet_tpu_torch.ops.cuda.iou3d import box3d_iou_matrix_cuda
+    from votenet_tpu_torch.ops.iou3d import box3d_iou_matrix_plain
+
+    print("phase 31: the decode kernel and the head's fused decode + IoU kernel vs their plain versions on the card "
+          "and the CPU (CUDA events)")
     print(TABLE_HEAD)
-    checks = {}
+    checks, replaced = {}, {}
+    counters = {"decode": decode_proposals_cuda, "decode_iou": decode_iou_cuda}
+    zero_counts(counters)
     _, cases = detection_models(cfg, scenes, state_dict)
     NH, NS, NC = cfg.num_heading_bin, cfg.num_size_cluster, cfg.num_class
-    for (name, model, sc), B in ((case, B) for case in cases for B in (1, 8)):
-        pts = torch.from_numpy(np.stack([s["points"] for s in sc[:B]])).cuda()
+
+    def plain_head(ep):
+        d = decode_proposals_plain(ep, cfg)
+        return d, box3d_iou_matrix_plain(d["bboxes"], d["bboxes"])
+
+    def two_launches(args):
+        c = decode_proposals_cuda(*args)["bboxes"]
+        return box3d_iou_matrix_cuda(c, c)
+
+    runs = [(name, B, lambda model=model, sc=sc, B=B: model(torch.from_numpy(
+        np.stack([s["points"] for s in sc[:B]])).cuda())) for name, model, sc in cases for B in (1, 8)]
+    runs += [(f"N={N}", 2, lambda N=N: long_end_points(cfg, 2, N, N)) for N in NMS_LONG_ROWS]
+    for name, B, make in runs:
         with torch.inference_mode():
-            ep = model(pts)
+            ep = make()
+            args = _kernel_inputs(ep, cfg)
+            ep_cpu = {k: v.cpu() for k, v in ep.items()}
+            fields, iou = decode_iou_cuda(*args)
+            d_plain, iou_plain = plain_head(ep)
+            d_cpu, iou_cpu = plain_head(ep_cpu)
+            eq = (all(same_floats(fields[k], d_plain[k]) and same_floats(fields[k].cpu(), d_cpu[k]) for k in fields)
+                  and same_floats(iou, two_launches(args)) and same_floats(iou, iou_plain)
+                  and torch.equal(iou.cpu(), iou_cpu))
+            signs = int((iou.cpu().view(torch.int32) != iou_cpu.view(torch.int32)).sum())
+            err = float((iou.cpu().double() - iou_cpu.double()).abs().max())
+            _, P, C = ep["proposals_output"].shape
+            k_ms = cuda_ms(lambda: decode_iou_cuda(*args), 50)
+            r_ms = cuda_ms(lambda: two_launches(args), 50)
+            p_ms = cuda_ms(lambda: plain_head(ep), 3)
+            checks[f"{name} B={B}: the fused kernel's 7 decoded outputs == the decode's plain version's on the card "
+                   f"and on the CPU, bit for bit; its IoU matrix == the two launches' and the IoU's plain version's "
+                   f"on the card bit for bit, == the CPU's ({signs} zeros of the other sign)"] = eq
+            report("decode_iou", name, B, f"P={P} C={C}", eq, err, k_ms, p_ms, decode_iou_bound(B, P, C, NH, NS, NC),
+                   total=name == "phase-10")
+            print(f"    the two launches it replaces (decode, then the IoU triangle): {r_ms * 1e3:.1f} us; the fused "
+                  f"kernel {k_ms * 1e3:.1f} us")
+            replaced[name, B] = r_ms
+            if name.startswith("N="):
+                continue
             got = decode_proposals(ep, cfg)
             plain = decode_proposals_plain(ep, cfg)
-            cpu = decode_proposals_plain({k: v.cpu() for k, v in ep.items()}, cfg)
-            k_ms = cuda_ms(lambda: decode_proposals(ep, cfg), 50)
-            p_ms = cuda_ms(lambda: decode_proposals_plain(ep, cfg), 10)
-        equal = all(same_floats(got[k], plain[k]) and same_floats(got[k].cpu(), cpu[k]) for k in cpu)
-        err = max(float((got[k].cpu().double() - cpu[k].double()).abs().max()) for k in cpu)
-        _, P, C = ep["proposals_output"].shape
-        checks[f"{name} B={B}: every decode output of the kernel == the plain version's on the card == on the "
-               f"CPU, bit for bit"] = equal
-        report("decode", name, B, f"P={P} C={C}", equal, err, k_ms, p_ms, decode_bound(B, P, C, NH, NS, NC),
+            equal = all(same_floats(got[k], plain[k]) and same_floats(got[k].cpu(), d_cpu[k]) for k in d_cpu)
+            d_err = max(float((got[k].cpu().double() - d_cpu[k].double()).abs().max()) for k in d_cpu)
+            dk_ms = cuda_ms(lambda: decode_proposals(ep, cfg), 50)
+            dp_ms = cuda_ms(lambda: decode_proposals_plain(ep, cfg), 10)
+        checks[f"{name} B={B}: every decode output of the decode kernel == the plain version's on the card == on "
+               f"the CPU, bit for bit"] = equal
+        report("decode", name, B, f"P={P} C={C}", equal, d_err, dk_ms, dp_ms, decode_bound(B, P, C, NH, NS, NC),
                total=name == "phase-10")
-    return finish(checks, "decode kernel checks", None)
+    launches = launch_counts(counters)
+    return finish(checks, "decode kernel checks", {"launches": launches, "replaced_ms": replaced[("phase-10", 8)]})
 
 
 def head_times(cfg, scenes, state_dict):
@@ -2551,8 +2675,8 @@ def phase_bq_fast(cfg, scenes, report, production_ms, state_dict=None, f32_maps=
         c.launches = 0
     out = {k: v.cpu() for k, v in predictor(batch).items()}
     paths = {"serve_bq_fast_bf16": {k: c.launches for k, c in counters.items()}}
-    want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 5, "samlp": 0, "samlp_bf16": 0, "nms": 1, "iou3d": 1,
-            "decode": 1, **bn_launches(fcfg, train=False)}
+    want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 5, "samlp": 0, "samlp_bf16": 0, **HEAD_LAUNCHES,
+            **bn_launches(fcfg, train=False)}
     checks[f"one B=8 serving forward launches {paths['serve_bq_fast_bf16']} == {want}"] = (
         paths["serve_bq_fast_bf16"] == want)
     checks["its outputs finite"] = all(torch.isfinite(out[k]).all() for k in ("bboxes", "class_scores"))
@@ -2788,7 +2912,8 @@ def phase_iou(cfg, scenes, state_dict, report):
     the full route (a copy as the second argument) equal to each other bit
     for bit and to the plain version (==, element by element); device us of
     the triangle (beside its bound), of the full route (beside its own) and
-    of the plain version's eager passes on the card."""
+    of the plain version's eager passes on the card. Returns the kernel's
+    launches in this phase."""
     import torch
 
     from votenet_tpu_torch.models.decode import decode_proposals
@@ -2798,6 +2923,7 @@ def phase_iou(cfg, scenes, state_dict, report):
     print("phase 26: IoU matrix kernel vs its plain version on the card and the CPU (CUDA events)")
     print(TABLE_HEAD)
     checks = {}
+    zero_counts({"iou3d": box3d_iou_matrix_cuda})
     _, cases = detection_models(cfg, scenes, state_dict)
     for (name, model, sc), B in ((case, B) for case in cases for B in (1, 8)):
         pts = torch.from_numpy(np.stack([s["points"] for s in sc[:B]])).cuda()
@@ -2824,7 +2950,7 @@ def phase_iou(cfg, scenes, state_dict, report):
         earlier_now("iou3d", name, B, k_ms)
         if name == "phase-10" and B == 8:
             block_times(corners)
-    return finish(checks, "IoU kernel checks", None)
+    return finish(checks, "IoU kernel checks", box3d_iou_matrix_cuda.launches)
 
 
 def block_times(corners):
@@ -3169,8 +3295,9 @@ BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
 BN_VARIANTS = {"bn_apply": "bn_apply_pool", "bn_bwd_reduce": "bn_bwd_reduce_pooled",
                "bn_bwd_apply": "bn_bwd_apply_pooled"}
 # K4 with the epilogue (the prologue's cotangents: every K4 of a step at a
-# site with a dense bias) and the statistics' end's own launch
-BN_EXTRA = ("bn_bwd_apply_sums", "bn_channels")
+# site with a dense bias) and K2 running the statistics' end from a
+# data-parallel group's sums (either variant)
+BN_EXTRA = ("bn_bwd_apply_sums", "bn_apply_group")
 BN_ROWS = BN_KERNELS + tuple(BN_VARIANTS.values()) + BN_EXTRA
 # Batch norm's per-channel sums (K1, K3) against torch.sum on the card: the
 # kernels add exact terms in f64 and round once (within an f32 ulp of the
@@ -3247,9 +3374,10 @@ def bn_bounds(R, C, es_in, es_out, S=1, prologue=None, pooled=False):
     multiply and two adds of the sums or of dx; pooled 3 more: the compare,
     the division by the count, the select). K4 with the epilogue: 2 adds an
     element more (the unit's sum, the bias's), and corr's cotangent (R / S x
-    C) and the dense bias's (C f32) written. The statistics' end alone:
-    two f64 sums, the weight and the running statistics read and written
-    and the (4, C) result, ~20 operations a channel."""
+    C) and the dense bias's (C f32) written. K2 with the statistics' end
+    (a data-parallel group's): K2's (or its pool variant's), plus the two
+    f64 sums and the weight read, the running statistics read and written
+    and the (4, C) statistics written, ~20 operations a channel."""
     n = float(R) * C
     G = float(R) // S
     pro_ops = n * ((prologue == "centre") + (prologue is not None))
@@ -3258,13 +3386,13 @@ def bn_bounds(R, C, es_in, es_out, S=1, prologue=None, pooled=False):
     dy = G * C * (2 * es_out + 4) if pooled else n * es_out
     k4_ops, k4_bytes = (12 if pooled else 9) * n + pro_ops, 2 * n * es_in + dy + pro_bytes + 20 * C
     epi_bytes = (G * C * es_in if prologue == "centre" else 0) + (4 * C if prologue else 0)
+    k2_ops, k2_bytes = (6 if pooled else 4) * n + pro_ops, n * es_in + (pool_out if pooled else n * es_out) + pro_bytes
     return {"bn_stats": bound_ms(3 * n + pro_ops, n * es_in + pro_bytes + 8 * C),
-            "bn_apply": bound_ms((6 if pooled else 4) * n + pro_ops,
-                                 n * es_in + (pool_out if pooled else n * es_out) + pro_bytes + 12 * C),
+            "bn_apply": bound_ms(k2_ops, k2_bytes + 12 * C),
             "bn_bwd_reduce": bound_ms((12 if pooled else 9) * n + pro_ops, n * es_in + dy + pro_bytes + 20 * C),
             "bn_bwd_apply": bound_ms(k4_ops, k4_bytes),
             "bn_bwd_apply_sums": bound_ms(k4_ops + (2 * n if prologue else 0), k4_bytes + epi_bytes),
-            "bn_channels": bound_ms(20 * C, 48 * C)}
+            "bn_apply_group": bound_ms(k2_ops + 20 * C, k2_bytes + 4 * C + 52 * C)}
 
 
 def bn_site_inputs(R, C, dtype, seed, prologue=None, S=1, pooled=False, device="cuda"):
@@ -3381,33 +3509,77 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda", prologu
     k2, k3, k4 = ((BN_VARIANTS[k] if pooled else k) for k in ("bn_apply", "bn_bwd_reduce", "bn_bwd_apply"))
     end_gates, extra_gates, end_calls = "", {}, {}
     if ends:
-        # the per-channel end: K1's and K3's last CTAs, the end alone and eval's K2 against the torch ops it
-        # replaces, run on this device on the same sums; the running statistics moved alike
+        # the per-channel end: K1's and K3's last CTAs, eval's K2 and, under a data-parallel group, K2's end
+        # against the torch ops it replaces, run on this device on the same sums; the running statistics moved
+        # alike
         rm0 = torch.randn(C, generator=torch.Generator(device=device).manual_seed(seed + 1), device=device)
         rv0 = torch.rand(C, generator=torch.Generator(device=device).manual_seed(seed + 2), device=device) + 0.5
 
         def channels(update=True):
             return bnc.BnChannels(R, weight, 1e-5, 0.9, rm0.clone(), rv0.clone(), update)
 
-        ch_k, ch_p, ch_c = channels(), channels(), channels()
+        def nan_equal(u, v):  # bits equal, NaNs at the same places (a NaN's payload aside)
+            nan = torch.isnan(u) if u.is_floating_point() else torch.zeros_like(u, dtype=torch.bool)
+            return torch.equal(nan, torch.isnan(v) if v.is_floating_point() else nan) and bits_equal(u[~nan], v[~nan])
+
+        ch_k, ch_p = channels(), channels()
         s64 = bnc.bn_stats_cuda(h, **pro)
         st_k = bnc.bn_stats_cuda(h, **pro, channels=ch_k)
         st_p = bn.bn_channel_stats_plain(s64, ch_p)
-        st_c = bnc.bn_channels_cuda(s64, ch_c)
         eq_st = all(bits_equal(u, v) for u, v in ((st_k, st_p), (ch_k.running_mean, ch_p.running_mean),
                                                    (ch_k.running_var, ch_p.running_var)))
-        eq_ch = all(bits_equal(u, v) for u, v in ((st_c, st_p), (ch_c.running_var, ch_p.running_var)))
         cof = bnc.BnCoefficients(torch.stack([mean, mul, inv, var_raw]), weight, R, True)
         co_k = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **bwd, coefficients=cof)
         eq_co = bits_equal(co_k, bn.bn_channel_coefficients_plain((sg, sgx), cof))
         ye = bnc.bn_apply_cuda(h, rm0, weight, bias, dtype, True, **pro, **pool, eval_var=rv0)
         pye = bn.bn_apply_plain(h, rm0, weight, bias, dtype, True, **pro, **pool, eval_var=rv0)
         eq_ev = all(bits_equal(u, v) for u, v in zip(ye, pye)) if pooled else bits_equal(ye, pye)
-        end_gates = (f"; the statistics' end (K1's last CTA) bit-equal to the torch ops {eq_st}, alone {eq_ch}; "
-                     f"K3's coefficients {eq_co}; eval K2's own mul {eq_ev}")
-        extra_gates["bn_channels"] = (eq_ch, 0.0, f"the statistics' end alone bit-equal to the torch ops {eq_ch}")
-        end_calls["bn_channels"] = (lambda: bnc.bn_channels_cuda(s64, channels()),
-                                    lambda: bn.bn_channel_stats_plain(s64, channels()), None)
+        end_gates = (f"; the statistics' end (K1's last CTA) bit-equal to the torch ops {eq_st}; K3's coefficients "
+                     f"{eq_co}; eval K2's own mul {eq_ev}")
+        if "group_sums" in inspect.signature(bnc.bn_apply_cuda).parameters and R * C <= 1 << 27:  # B=64: memory
+            # K2's end from a group's sums, with var_raw < 0, a NaN and a zero among them, against the end's torch
+            # ops and K2 on their mean and mul (the composition it replaces), with and without the update
+            gsums = s64.clone()
+            q = max(1, C // 4)
+            gsums[1, :q] = gsums[0, :q] * gsums[0, :q] / R * (1 - 1e-9)  # var_raw < 0
+            gsums[0, q % C], gsums[1, (q + 1) % C] = float("nan"), 0.0
+            eq_g, n_neg = True, 0
+            for update in (True, False):
+                ch_g, ch_q = channels(update), channels(update)
+                yg, st_g = bnc.bn_apply_cuda(h, None, None, bias, dtype, True, **pro, **pool, group_sums=gsums,
+                                             channels=ch_g)
+                st_q = bn.bn_channel_stats_plain(gsums, ch_q)
+                yq = bnc.bn_apply_cuda(h, st_q[0], st_q[1], bias, dtype, True, **pro, **pool)
+                eq_g &= all(nan_equal(u, v) for u, v in ((st_g, st_q), (ch_g.running_mean, ch_q.running_mean),
+                                                         (ch_g.running_var, ch_q.running_var),
+                                                         *zip(yg if pooled else (yg,), yq if pooled else (yq,))))
+                n_neg = int((st_g[3] < 0).sum())
+            eq_g &= n_neg > 0
+            # an eval backward: K3 and K4 forming mul from the running statistics against the statistics' end
+            # from them (its torch ops) and K3 and K4 on its mean and mul
+            dye = torch.randn((R // S if pooled else R, C), generator=torch.Generator(device=device).manual_seed(seed),
+                              device=device).to(dtype)
+            ebwd = dict(pro, pooled=(ye if pooled else None))
+            st_e = bn.bn_channel_stats_plain(None, channels(False))
+            co_e = bnc.bn_bwd_reduce_cuda(h, dye, st_e[0], st_e[1], bias, True, **ebwd,
+                                          coefficients=bnc.BnCoefficients(st_e, weight, R, False))
+            dx_e = bnc.bn_bwd_apply_cuda(h, dye, st_e[0], st_e[1], bias, None, None, True, **ebwd)
+            co_n = bnc.bn_bwd_reduce_cuda(h, dye, rm0, weight, bias, True, **ebwd, eval_var=rv0,
+                                          coefficients=bnc.BnCoefficients(None, weight, R, False))
+            dx_n = bnc.bn_bwd_apply_cuda(h, dye, rm0, weight, bias, None, None, True, **ebwd, eval_var=rv0)
+            eq_eb = bits_equal(co_e[2:], co_n[2:]) and bits_equal(dx_e, dx_n)
+            end_gates += f"; eval K3 and K4 from the running statistics {eq_eb}"
+            eq_co &= eq_eb
+            extra_gates["bn_apply_group"] = (
+                eq_g, 0.0, f"K2's statistics' end from a group's sums ({n_neg} channels var_raw < 0, a NaN, a zero): "
+                           f"st, the running statistics and y bit-equal to the torch ops and K2 on them {eq_g}")
+            ch_t = channels()  # moved by every timed call alike
+            end_calls["bn_apply_group"] = (
+                lambda: bnc.bn_apply_cuda(h, None, None, bias, dtype, True, **pro, **pool, group_sums=s64,
+                                          channels=ch_t),
+                lambda: bn.bn_apply_plain(h, None, None, bias, dtype, True, **pro, **pool, group_sums=s64,
+                                          channels=ch_t), None)
+            del yg, yq, dye, dx_e, dx_n
         if prologue:  # K4's epilogue: the prologue's cotangents within the f64 gate of the same rounded dx
             epi = lambda: bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **bwd, sums=True)  # noqa: E731
             (dxs, dcs, dds), same5 = twice(epi)
@@ -3436,7 +3608,7 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda", prologu
              f"K2{' pool' if pooled else ''} bit-equal to plain {eq2}, rerun equal {same2}"),
         k3: (e3 <= BN_SUM_TOL and u3 <= 1 and same3 and (not ends or eq_co), abs3,
              f"K3 sums {e3:.3g} of sum|terms| (<= {BN_SUM_TOL}), {u3:.3g} of the f64 sum's allowance (<= 1), "
-             f"rerun equal {same3}"),
+             f"rerun equal {same3}{', coefficients ' + str(eq_co) if ends else ''}"),
         k4: (eq4 and same4, e4, f"K4 bit-equal to plain {eq4} (max diff {e4:.3g}), rerun equal {same4}{end_gates}"),
         **extra_gates,
     }
@@ -3458,7 +3630,7 @@ def bn_check(R, C, dtype, seed, times=True, library=True, device="cuda", prologu
         for k, (kern, plain) in calls.items():
             out[k][2] = cuda_ms(kern, reps)
             out[k][3] = cuda_ms(plain, max(2, reps // 4))
-        for k, (kern, plain, lib) in end_calls.items():  # K4 with the epilogue, the end alone
+        for k, (kern, plain, lib) in end_calls.items():  # K4 with the epilogue, K2 with the group's end
             out[k][2] = cuda_ms(kern, reps)
             out[k][3] = cuda_ms(plain, max(2, reps // 4))
             out[k][4] = None if lib is None else cuda_ms(lib, reps)  # the epilogue's: dx.sum, (-dx).sum(-2)
@@ -3570,7 +3742,7 @@ def phase_batchnorm(cfg, report, device="cuda"):
                 acc = pools.setdefault((kk, str(dtype)[6:]), [0.0, 0.0])
                 acc[0] += k_ms * 1e3
                 acc[1] += max(bounds[k]) * 1e3
-        for k in BN_EXTRA:  # K4 with the epilogue, the statistics' end alone
+        for k in BN_EXTRA:  # K4 with the epilogue, K2 with the group's statistics' end
             if k not in res:
                 continue
             ok, err, k_ms, p_ms, l_ms = res[k]
@@ -3874,55 +4046,60 @@ def e2e_times(cfg, scenes, state_dict, reps=3):
 
 
 def dump_outputs(cfg, scenes, state_dict, path):
-    """``--outputs PATH``: what batch norm's kernels feed, through public
-    names, saved with torch.save for ``--compare-outputs`` against another
-    checkout's (a copy of this file at its root writes its own): in f32 and
-    in the bf16 and mixed throughput presets, a B=8 serving forward's end
-    points (seed-SEED weights); one B=8 training step from the seed-SEED
-    state (``forward_backward``): every gradient leaf, the running
-    statistics and the losses, twice from a fresh state (the rerun's bits),
-    and each batch norm's sum of |dh| a channel (h its input, the dense
-    layer's product: the terms of the dense bias's cotangent); and the
-    committed checkpoint's eval predictions of scenes[:8] (samlp off and
-    on). Deterministic algorithms on: the scatter's and the gather's library
-    backwards are atomic otherwise."""
+    """``--outputs PATH``: what the kernels feed, through public names, saved
+    with torch.save for ``--compare-outputs`` against another checkout's (a
+    copy of this file at its root writes its own): in f32 and in the bf16
+    and mixed throughput presets, a B=8 serving forward's end points and
+    ``predict_boxes``' outputs, the keep masks among them (seed-SEED
+    weights); one B=8 training step from the seed-SEED state
+    (``forward_backward``): every gradient leaf, the running statistics and
+    the losses, twice from a fresh state (the rerun's bits); the same f32
+    step through the data-parallel path on a one-rank NCCL group (the
+    batch-norm sums all-reduced, the gradient all-reduce; phase 19's); and
+    the committed checkpoint's eval predictions of scenes[:8] (samlp off
+    and on). Deterministic algorithms on: the scatter's and the gather's
+    library backwards are atomic otherwise."""
     import torch
+    import torch.distributed as dist
 
     from votenet_tpu_torch.config import throughput_config
     from votenet_tpu_torch.data.dataflow import batch_scenes
     from votenet_tpu_torch.eval import make_packed_predict_fn
-    from votenet_tpu_torch.models import VoteNet
+    from votenet_tpu_torch.models import VoteNet, predict_boxes
+    from votenet_tpu_torch.parallel import comm, make_mesh
+    from votenet_tpu_torch.parallel.launch import free_port, init_process_group
     from votenet_tpu_torch.train import create_train_state, forward_backward
 
     out = {}
     points = torch.as_tensor(np.stack([s["points"] for s in scenes[:8]])).cuda()
+
+    def step(c, key, group=None):
+        state = create_train_state(c, 512, torch.Generator().manual_seed(SEED), device="cuda")
+        losses = forward_backward(state.model, batch, c, group=group)
+        comm.all_reduce_((p.grad for p in state.model.parameters()), group)
+        out.update({f"{key}/loss/{k}": v.detach().cpu() for k, v in losses._asdict().items()})
+        out.update({f"{key}/grad/{n}": p.grad.cpu() for n, p in state.model.named_parameters()})
+        out.update({f"{key}/stats/{n}": b.cpu() for n, b in state.model.named_buffers() if "running" in n})
+
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for name, c in (("f32", cfg), *((m, throughput_config(**o)) for m, o in PRECISION_MODES.items())):
             model = VoteNet(c, torch.Generator().manual_seed(SEED)).cuda().eval()
             with torch.inference_mode():
                 ep = model(points)
+                head = predict_boxes(ep, c)
             out.update({f"serve_{name}/{k}": v.cpu() for k, v in ep.items() if torch.is_tensor(v)})
+            out.update({f"serve_{name}/head/{k}": v.cpu() for k, v in head.items()})
             del model
             batch = next(batch_scenes(iter(scenes[:8]), 8, c.max_gt_boxes))
             for run in ("", "_rerun"):
-                state = create_train_state(c, 512, torch.Generator().manual_seed(SEED), device="cuda")
-                hooks = []
-                for bn_name, mod in state.model.named_modules():
-                    if type(mod).__name__ == "BatchNorm":
-                        def pre(m, args, key=f"train_{name}{run}/terms/{bn_name}"):
-                            if args[0].requires_grad:
-                                args[0].register_hook(lambda g: out.__setitem__(
-                                    key, g.float().abs().reshape(-1, g.shape[-1]).sum(0).cpu()))
-                        hooks.append(mod.register_forward_pre_hook(pre))
-                losses = forward_backward(state.model, batch, c)
-                for hk in hooks:
-                    hk.remove()
-                out.update({f"train_{name}{run}/loss/{k}": v.detach().cpu() for k, v in losses._asdict().items()})
-                out.update({f"train_{name}{run}/grad/{n}": p.grad.cpu() for n, p in state.model.named_parameters()})
-                out.update({f"train_{name}{run}/stats/{n}": b.cpu() for n, b in state.model.named_buffers()
-                            if "running" in n})
-                del state
+                step(c, f"train_{name}{run}")
+        init_process_group("nccl", 1, 0, free_port(), 300)
+        try:
+            batch = next(batch_scenes(iter(scenes[:8]), 8, cfg.max_gt_boxes))
+            step(cfg, "train_dp_f32", make_mesh().group("data"))
+        finally:
+            dist.destroy_process_group()
         for samlp in ("off", "on"):
             model = VoteNet(cfg.replace(samlp=samlp))
             model.load_state_dict(state_dict)
@@ -3947,34 +4124,13 @@ def bit_equal(a, b) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
 
 
-def dense_bias_terms(key: str) -> str:
-    """The ``--outputs`` key of the sum of |dh| behind a dense bias's gradient
-    key (its batch norm's input's cotangent): ``...dense{i}.bias`` takes
-    ``...bn{i}``, ``voting.voting{i}.bias`` ``voting.voting{i}_bn``."""
-    import re
-
-    mode, leaf = key.split("/grad/")
-    m = re.fullmatch(r"(.*)\.(dense|voting)(\d+)\.bias", leaf)
-    if not m:
-        return ""
-    bn = f"{m.group(1)}.bn{m.group(3)}" if m.group(2) == "dense" else f"{m.group(1)}.voting{m.group(3)}_bn"
-    return f"{mode}/terms/{bn}"
-
-
 def compare_outputs(path_a, path_b):
     """``--compare-outputs A B``: ``--outputs`` files of two checkouts (A the
-    earlier). Every serving end point, eval prediction, running statistic
-    and loss must be bit-equal; each gradient leaf is bit-equal or, where
-    the prologue's cotangents now sum in f64 (the centred first layers'
-    kernels and, through the proposal layer's centres, which are the votes,
-    every leaf the votes' cotangent reaches), within 1e-4 of its norm (f32;
-    2^-4 in bf16 and mixed, whose steps flip bf16 roundings and ReLU
-    decisions at one ulp). A dense bias ahead of a batch norm, whose
-    cotangent in training is a sum of terms that cancel (its norm is its
-    rounding noise), is held channel by channel within BN_SUM_TOL of its
-    terms' sum of |dh| (the tolerance phase 32 holds the f32 sums to) plus
-    an ulp of the dtype of |A|; in mixed, whose dh itself moves as its other
-    leaves do, within 2^-4 of that sum. The rerun's bits in B equal B's."""
+    earlier). Every tensor of A must be in B and bit-equal (serving end
+    points and the head's outputs, every gradient leaf, running statistic
+    and loss of each step, the data-parallel step's, the eval predictions),
+    and B's rerun bit-equal to B's run; the tensors that differ are printed
+    by group with their largest gaps."""
     import torch
 
     a, b = torch.load(path_a), torch.load(path_b)
@@ -3984,36 +4140,19 @@ def compare_outputs(path_a, path_b):
         if vb is None:
             checks[f"{k} in both"] = False
             continue
-        if "/terms/" in k:
-            continue
-        if "/grad/" in k:
-            if not bit_equal(va, vb):
-                gap = float((va.double() - vb.double()).norm() / max(float(vb.double().norm()), 1e-30))
-                moved[k] = gap
-                terms = b.get(dense_bias_terms(k))
-                if terms is not None:  # a dense bias ahead of a batch norm: its sum's own scale
-                    ulps = BN_F64_ULPS if k.startswith("train_f32") else BN_F64_ULPS_BF16
-                    tol = 2 ** -4 if k.startswith("train_mixed") else BN_SUM_TOL
-                    reading = float(((va.double() - vb.double()).abs()
-                                     / (ulps * va.double().abs() + tol * terms.double()).clamp_min(1e-300)).max())
-                    checks[f"{k} within {tol:.3g} of its terms' sum of |dh| ({reading:.3g} of it)"] = reading <= 1
-                else:
-                    limit = 1e-4 if k.startswith("train_f32") else 2 ** -4
-                    checks[f"{k} within {limit:.3g} of its norm ({gap:.3g})"] = gap <= limit
-        else:
-            checks[f"{k} bit-equal"] = bit_equal(va, vb)
+        checks[f"{k} bit-equal"] = bit_equal(va, vb)
+        if not checks[f"{k} bit-equal"] and va.shape == vb.shape:
+            moved[k] = float((va.double() - vb.double()).abs().max())
     for k in b:
         if "_rerun/" in k:
             checks[f"{k} rerun bit-equal"] = bit_equal(b[k], b[k.replace("_rerun/", "/")])
-    by_mode = {}
-    for k in moved:
-        by_mode.setdefault(k.split("/")[0], []).append(k)
-    n_grads = {m: sum(1 for k in a if k.startswith(m + "/grad/")) for m in ("train_f32", "train_bf16", "train_mixed")}
-    print(f"  {sum(v for v in checks.values())} of {len(checks)} checks hold; gradient leaves not bit-equal by mode "
-          f"{ {m: f'{len(v)} of {n_grads.get(m, 0)}' for m, v in by_mode.items()} }")
-    for m, keys in by_mode.items():
-        worst = sorted(keys, key=lambda k: -moved[k])[:6]
-        print(f"    {m}: largest {[(k.split('/grad/')[1], f'{moved[k]:.3g}') for k in worst]}")
+    groups = {}
+    for k in a:
+        groups.setdefault("/".join(k.split("/")[:2]), []).append(k)
+    print(f"  {sum(v for v in checks.values())} of {len(checks)} checks hold; tensors compared by group: "
+          f"{ {g: len(v) for g, v in groups.items()} }")
+    for k in sorted(moved, key=lambda k: -moved[k])[:12]:
+        print(f"    differs: {k} (max |A - B| {moved[k]:.3g})")
     finish(checks, "outputs against the other checkout", None)
 
 
@@ -4048,7 +4187,8 @@ def main() -> int:
     variants = ("samlp_bf16", "ballquery_emit_xyz", "fps_noscalar", "ballquery_fast_bf16")
     stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0,
                  "bound_ms": 0.0}
-             for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d", "iou3d", "decode")
+             for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d", "decode_iou", "iou3d",
+                       "decode")
              + variants + BN_ROWS}
     production_ms = dict.fromkeys(variants, 0.0)  # phases 16-18: the production kernels' sums beside
 
@@ -4116,7 +4256,7 @@ def main() -> int:
         print(card)
         return 1 if failed else 0
     if "--multi-device" in sys.argv[1:]:  # phases 19-21 alone: their costs in a process that ran no other phase
-        run("distributed path, one NCCL rank", lambda: phase_dp_world1(cfg, scenes))
+        run("distributed path, one NCCL rank", lambda: phase_dp_world1(cfg, scenes, profile_launches=True))
         run("two ranks on one card", lambda: phase_two_ranks(cfg, scenes))
         print(card)
         return 1 if failed else 0
@@ -4142,7 +4282,8 @@ def main() -> int:
             run("ball query fast_bf16", lambda: phase_bq_fast(cfg, scenes, report, production_ms))
         if state_dict is not None and os.path.exists(Path(bq_mod.__file__).with_name("decode.py")):
             # the head's kernels as this file calls them (an earlier checkout: --head-times)
-            run("decode kernel", lambda: phase_decode(cfg, scenes, state_dict, report))
+            if "decode_iou_cuda" in Path(bq_mod.__file__).with_name("decode.py").read_text():
+                run("decode kernel", lambda: phase_decode(cfg, scenes, state_dict, report))
             run("nms kernel", lambda: phase_nms(cfg, scenes, state_dict, report, kernels_only=True))
             run("iou kernel", lambda: phase_iou(cfg, scenes, state_dict, report))
         print(json.dumps({"kernel_times": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
@@ -4190,19 +4331,22 @@ def main() -> int:
     emit_launches = run("ball query emit-xyz", lambda: phase_bq_emit(cfg, scenes, report, production_ms))
     noscalar_launches = run("fps noscalar", lambda: phase_fps_noscalar(cfg, scenes, report, production_ms))
     # phases 19-21: multi-device training, each path's counts from 0 (phases 20-21: rank 0's)
-    paths["dp_world1_nccl_step"] = run("distributed path, one NCCL rank", lambda: phase_dp_world1(cfg, scenes))
+    paths["dp_world1_nccl_step"] = run("distributed path, one NCCL rank",
+                                       lambda: phase_dp_world1(cfg, scenes, profile_launches=True))
     paths.update(run("two ranks on one card", lambda: phase_two_ranks(cfg, scenes)) or {})
-    # phases 31 and 22-25: the decode and NMS kernels, the fast_bf16 ball query, remat, the dead paths
+    # phases 31 and 22-25: the head's kernels, the fast_bf16 ball query, remat, the dead paths
+    head = {}
     if state_dict is not None:
-        run("decode kernel", lambda: phase_decode(cfg, scenes, state_dict, report))
+        head = run("decode kernel", lambda: phase_decode(cfg, scenes, state_dict, report)) or {}
         run("nms kernel", lambda: phase_nms(cfg, scenes, state_dict, report))
     paths.update(run("ball query fast_bf16", lambda: phase_bq_fast(
         cfg, scenes, report, production_ms, state_dict=state_dict, f32_maps=f32_maps)) or {})
     paths.update(run("remat", lambda: phase_remat(scenes, bare_step_ms)) or {})
     run("dead paths", lambda: phase_dead_paths(scenes))
     # phases 26-30: the IoU kernel, NMS past 1024 boxes, the streaming forms, bf16_hilo, steps_per_dispatch
+    iou_launches = None
     if state_dict is not None:
-        run("iou kernel", lambda: phase_iou(cfg, scenes, state_dict, report))
+        iou_launches = run("iou kernel", lambda: phase_iou(cfg, scenes, state_dict, report))
     run("nms past 1024 boxes", lambda: phase_nms_long(report))
     run("streaming forms", lambda: phase_streaming(cfg, scenes))
     if state_dict is not None:
@@ -4311,18 +4455,31 @@ def main() -> int:
             "ms_is": "the greedy of one B=8 forward of the trained checkpoint",
         },
         {
+            "name": "decode_iou", "route": "cuda", "source": "votenet_tpu_torch/csrc/iou3d.cu",
+            "replaces": ("votenet_tpu/models/decode.py:44 decode_proposals + votenet_tpu/ops/iou3d.py:350 "
+                         "box3d_iou_matrix (XLA, no Pallas kernel)"),
+            "variant": "decode_iou_kernel: the decode (csrc/decode.cuh) inside the IoU self-matrix's tiles",
+            "launches": launches["decode_iou"], "launches_eval": eval_launches["on"]["decode_iou"],
+            "launches_paths": path_launches("decode_iou"), **measured("decode_iou"),
+            "replaced_ms": head["replaced_ms"], "tolerance": 0,
+            "ms_is": "the decode and the IoU self-matrix of one B=8 forward of the trained checkpoint; replaced_ms: "
+                     "the decode kernel and the IoU kernel's triangle on the same end points",
+        },
+        {
             "name": "iou3d", "route": "cuda", "source": "votenet_tpu_torch/csrc/iou3d.cu",
             "replaces": "votenet_tpu/ops/iou3d.py:350 box3d_iou_matrix (XLA, no Pallas kernel)",
-            "launches": launches["iou3d"], "launches_eval": eval_launches["on"]["iou3d"],
-            "launches_paths": path_launches("iou3d"), **measured("iou3d"), "tolerance": 0,
-            "ms_is": "the IoU self-matrix (its triangle) of one B=8 forward of the trained checkpoint",
+            "variant": "ops.box3d_iou_matrix alone (ops.nms3d); the head takes decode_iou",
+            "launches": iou_launches, "launches_serve": launches["iou3d"], **measured("iou3d"), "tolerance": 0,
+            "ms_is": "the IoU self-matrix (its triangle) of one B=8 forward of the trained checkpoint; launches: "
+                     "phase 26's checks",
         },
         {
             "name": "decode", "route": "cuda", "source": "votenet_tpu_torch/csrc/decode.cu",
             "replaces": "votenet_tpu/models/decode.py:44 decode_proposals (XLA, no Pallas kernel)",
-            "launches": launches["decode"], "launches_eval": eval_launches["on"]["decode"],
-            "launches_paths": path_launches("decode"), **measured("decode"), "tolerance": 0,
-            "ms_is": "the decode of one B=8 forward of the trained checkpoint",
+            "variant": "decode_proposals alone; the head takes decode_iou",
+            "launches": head["launches"]["decode"], "launches_serve": launches["decode"], **measured("decode"),
+            "tolerance": 0,
+            "ms_is": "the decode of one B=8 forward of the trained checkpoint; launches: phase 31's checks",
         },
         {
             "name": "ballquery_fast_bf16", "route": "cuda", "source": "votenet_tpu_torch/csrc/ballquery.cu",
@@ -4346,7 +4503,7 @@ def main() -> int:
                     "bn_bwd_apply": 0, "bn_bwd_apply_pooled": 0,
                     "bn_bwd_apply_sums": "dx 0; the prologue's cotangents 2^-23 (bf16 2^-7) of |sum| + 2^-40 of the "
                                          "sum of |terms| from torch's f64 sum of the same rounded dx",
-                    "bn_channels": 0}
+                    "bn_apply_group": 0}
     bn_library = {"bn_stats": "torch.batch_norm_stats on x (mean and invstd)",
                   "bn_apply": "torch.batch_norm_elemt on x (no ReLU)",
                   "bn_apply_pool": "torch.batch_norm_elemt on x (no ReLU, no pool)",
@@ -4356,13 +4513,14 @@ def main() -> int:
                   "bn_bwd_apply_pooled": "torch.batch_norm_backward_elemt on x and the full dy (no mask, no pool)",
                   "bn_bwd_apply_sums": "the two torch sums the epilogue replaces, dx.sum(0) and (-dx).sum(-2), "
                                        "beside K4 (bn_bwd_apply's ms)",
-                  "bn_channels": "none: no one PyTorch call computes the statistics' end"}
+                  "bn_apply_group": "none: no one PyTorch call computes the statistics' end and the normalisation"}
     bn_variant = {"bn_apply_pool": "K2 with the max over the ball's slots and the tie counts (bn_apply_pool_kernel)",
                   "bn_bwd_reduce_pooled": "K3 on the pooled cotangent, the max and the counts",
                   "bn_bwd_apply_pooled": "K4 on the pooled cotangent, the max and the counts",
                   "bn_bwd_apply_sums": "K4 (either form) with the epilogue: corr's and the dense bias's cotangents",
-                  "bn_channels": "the statistics' end alone, one CTA (a data-parallel step's, after the all-reduce; "
-                                 "launches: phase 19's distributed step)"}
+                  "bn_apply_group": "K2 (either form) running the statistics' end from a data-parallel group's "
+                                    "all-reduced sums, in place of the end's own one-CTA kernel (launches: phase "
+                                    "19's distributed step)"}
     bn_sites_of = {k: "5 pooled" if k.endswith(("_pool", "_pooled")) else "18" if k in BN_KERNELS[1:] else "23"
                    for k in BN_ROWS}
     kernels += [
@@ -4372,7 +4530,7 @@ def main() -> int:
                          "nn.relu" + (" + jnp.max (:540)" if k.endswith(("_pool", "_pooled")) else "")
                          + " (flax, XLA; no Pallas kernel)"),
             **({"variant": bn_variant[k]} if k in bn_variant else {}),
-            "launches": (paths["dp_world1_nccl_step"][k] if k == "bn_channels" else train_launches[k]),
+            "launches": (paths["dp_world1_nccl_step"][k] if k == "bn_apply_group" else train_launches[k]),
             "launches_serve": launches[k], "launches_eval": eval_launches["on"][k],
             "launches_eval_samlp_off": eval_launches["off"][k], "launches_fit": fit_launches[k],
             "launches_paths": path_launches(k), **measured(k), "tolerance": bn_tolerance[k],

@@ -401,9 +401,9 @@ def counted_stages(monkeypatch):
     """Substitute counting wrappers for the plain stages; returns the counts,
     keyed as ``chip_smoke.bn_counters``: each stage's calls over full rows,
     K2's pool variant's and K3's and K4's at a pooled site, the calls that
-    took the centred or the bias prologue, and stage 4's calls that summed
-    the dense bias's cotangent (the statistics' end runs alone only under a
-    data-parallel group or in an eval backward: none here)."""
+    took the centred or the bias prologue, stage 4's calls that summed the
+    dense bias's cotangent and stage 2's that ran the statistics' end from a
+    data-parallel group's sums."""
     import chip_smoke
 
     counts = dict.fromkeys(chip_smoke.BN_COUNTS, 0)
@@ -414,6 +414,8 @@ def counted_stages(monkeypatch):
             counts[_name + ("_pool" if kw.get("pool") else "_pooled" if kw.get("pooled") is not None else "")] += 1
             if kw.get("sums") and kw.get("dense_bias") is not None:
                 counts["bn_bwd_apply_sums"] += 1
+            if kw.get("group_sums") is not None:
+                counts["bn_apply_group"] += 1
             if kw.get("corr") is not None:
                 counts["bn_prologue_centre"] += 1
             elif kw.get("dense_bias") is not None:
@@ -425,16 +427,21 @@ def counted_stages(monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["eval-samlp-off", "eval-samlp-on", "eval-mixed-samlp-on", "train", "train-remat",
-                                  "eval-mixed-samlp-off", "eval-bf16", "train-mixed", "train-bf16", "train-packed"])
+                                  "eval-mixed-samlp-off", "eval-bf16", "train-mixed", "train-bf16", "train-packed",
+                                  "train-group"])
 def test_stage_calls_follow_the_layer_list(monkeypatch, what):
     """The tiny model's forward and training step call each stage as often
     as chip_smoke.py's bn_launches counts from the layer list: one apply a
     batch-norm site in eval (none where samlp fuses the layer), the pool
     variant at each SA layer's last width; stats and apply a site, and
     under remat again for sa1-sa4, and both backward stages once a site
-    (pooled at the pools) in a step; every call with its site's prologue
-    (the centred one at an SA layer's first width but mixed precision's and
-    bf16_hilo's split ones, the dense bias elsewhere)."""
+    (pooled at the pools) in a step, under a data-parallel group (a
+    one-rank gloo group here) too, where each apply runs the statistics'
+    end from the group's sums and no other stage runs; every call with its
+    site's prologue (the centred one at an SA layer's first width but mixed
+    precision's and bf16_hilo's split ones, the dense bias elsewhere)."""
+    import torch.distributed as dist
+
     import chip_smoke
     from votenet_tpu_torch.config import tiny_config
     from votenet_tpu_torch.data.dataflow import batch_scenes
@@ -451,6 +458,17 @@ def test_stage_calls_follow_the_layer_list(monkeypatch, what):
         with torch.no_grad():
             VoteNet(cfg)(torch.from_numpy(np.stack([s["points"] for s in scenes])))
         want = chip_smoke.bn_launches(cfg, train=False, samlp=cfg.samlp == "on")
+    elif what == "train-group":
+        from votenet_tpu_torch.parallel.launch import free_port, init_process_group
+
+        state = create_train_state(cfg, 10, device="cpu")
+        init_process_group("gloo", 1, 0, free_port(), 120)
+        try:
+            make_train_step(cfg, group=dist.group.WORLD)(state, next(batch_scenes(iter(scenes), 2, cfg.max_gt_boxes)))
+        finally:
+            dist.destroy_process_group()
+        want = chip_smoke.bn_launches(cfg, train=True, group=True)
+        assert want["bn_apply_group"] == want["bn_stats"] > 0
     else:
         state = create_train_state(cfg, 10, device="cpu")
         make_train_step(cfg)(state, next(batch_scenes(iter(scenes), 2, cfg.max_gt_boxes)))

@@ -517,6 +517,94 @@ def test_channel_functions_are_the_torch_ops_they_hold():
     assert torch.equal(est[0], rm0) and torch.equal(bits(est[1]), bits(inv * weight)) and torch.equal(est[2], inv)
 
 
+def same_bits(got, want) -> bool:
+    """Equal dtypes and bits, NaNs at the same places (a NaN's payload
+    aside); int32 counts equal."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    nan = got.isnan()
+    return torch.equal(nan, want.isnan()) and torch.equal(bits(got)[~nan], bits(want)[~nan])
+
+
+def group_sums(C, count, seed):
+    """f64 sums (2, C) of a data-parallel group's ``count`` rows: ordinary
+    channels, channels whose E[x^2] - E[x]^2 rounds below 0, a NaN and a
+    zero sum of squares (``tests/test_torch_cuda.py::random_channel_sums``'
+    kinds)."""
+    rng = np.random.RandomState(seed)
+    mean = rng.randn(C) * 3
+    s = mean * count
+    sq = (rng.uniform(0.1, 4, C) + mean * mean) * count
+    sq[:C // 4] = (s[:C // 4] / count) ** 2 * count * (1 - 1e-9)  # var_raw < 0
+    s[C // 4], sq[C // 4 + 1] = np.nan, 0.0
+    return t(np.stack([s, sq]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", [0, 8], ids=["rows", "pool"])
+def test_apply_stage_runs_the_group_statistics_end(dtype, pool):
+    """Stage 2 given a data-parallel group's f64 sums (``group_sums``,
+    ``channels``: the card's K2 runs the statistics' end so) equals, bit for
+    bit, the statistics' end (``bn_channel_stats_plain``) followed by stage
+    2 on its mean and mul (the composition it replaces): the output (the
+    pool's maxima and counts), the statistics and the running statistics,
+    with and without their update, on sums with var_raw < 0, a NaN and a
+    zero, with the centred prologue."""
+    rng = np.random.RandomState(6)
+    R, C, S, count = 64, 24, 8, 4 * 64
+    dt = DTYPES[dtype]
+    h = t((rng.randn(R, C) * 2 + 1).astype(np.float32)).to(dt)
+    pro = dict(corr=t(rng.randn(R // S, C).astype(np.float32)).to(dt), dense_bias=t(rng.randn(C).astype(np.float32)))
+    weight, bias = t(rng.uniform(0.5, 1.5, C).astype(np.float32)), t(rng.randn(C).astype(np.float32))
+    rm0, rv0 = t(rng.randn(C).astype(np.float32)), t(rng.uniform(0.5, 2, C).astype(np.float32))
+    sums = group_sums(C, count, 7)
+    for update in (True, False):
+        chs = [bn_cuda.BnChannels(count, weight, EPS, MOMENTUM, rm0.clone(), rv0.clone(), update) for _ in range(2)]
+        got, st = bn_op.bn_apply_plain(h, None, None, bias, dt, True, **pro, pool=pool, group_sums=sums,
+                                       channels=chs[0])
+        want_st = bn_op.bn_channel_stats_plain(sums, chs[1])
+        want = bn_op.bn_apply_plain(h, want_st[0], want_st[1], bias, dt, True, **pro, pool=pool)
+        assert bool((st[3] < 0).any()) and bool(st[0].isnan().any())
+        for g, w in ((st, want_st), (chs[0].running_mean, chs[1].running_mean),
+                     (chs[0].running_var, chs[1].running_var), *zip(got if pool else (got,), want if pool else (want,))):
+            assert same_bits(g, w)
+        assert torch.equal(chs[0].running_mean, rm0) != update
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pooled", [False, True])
+def test_eval_backward_stages_form_mul_from_the_running_statistics(dtype, pooled):
+    """An eval backward's stages 3 and 4 given the running statistics
+    (``eval_var``; stage 3's coefficients without st) equal, bit for bit,
+    the composition they replace: the statistics' end from the running
+    statistics (``bn_channel_stats_plain(None, ...)``), then stages 3 and 4
+    on its mean and mul: the BN weight's and bias's cotangents, dx and the
+    prologue's cotangents, at a pooled site too."""
+    rng = np.random.RandomState(8)
+    R, C, S = 96, 20, 8
+    dt = DTYPES[dtype]
+    h = t((rng.randn(R, C) * 2 + 1).astype(np.float32)).to(dt)
+    pro = dict(corr=t(rng.randn(R // S, C).astype(np.float32)).to(dt), dense_bias=t(rng.randn(C).astype(np.float32)))
+    weight, bias = t(rng.uniform(0.5, 1.5, C).astype(np.float32)), t(rng.randn(C).astype(np.float32))
+    rm, rv = t(rng.randn(C).astype(np.float32)), t(rng.uniform(0.5, 2, C).astype(np.float32))
+    if pooled:
+        pro["pooled"] = bn_op.bn_apply_plain(h, rm, weight, bias, dt, True, **pro, pool=S, eval_var=rv, eps=EPS)
+    dy = t(rng.randn(R // S if pooled else R, C).astype(np.float32)).to(dt)
+    st = bn_op.bn_channel_stats_plain(None, bn_cuda.BnChannels(R, weight, EPS, MOMENTUM, rm, rv, False))
+    want_co = bn_op.bn_bwd_reduce_plain(h, dy, st[0], st[1], bias, True, **pro,
+                                        coefficients=bn_cuda.BnCoefficients(st, weight, R, False))
+    want_dx = bn_op.bn_bwd_apply_plain(h, dy, st[0], st[1], bias, None, None, True, **pro, sums=True)
+    got_co = bn_op.bn_bwd_reduce_plain(h, dy, rm, weight, bias, True, **pro, eval_var=rv, eps=EPS,
+                                       coefficients=bn_cuda.BnCoefficients(None, weight, R, False))
+    got_dx = bn_op.bn_bwd_apply_plain(h, dy, rm, weight, bias, None, None, True, **pro, sums=True, eval_var=rv,
+                                      eps=EPS)
+    assert same_bits(got_co[2:], want_co[2:])
+    assert all(same_bits(g, w) for g, w in zip(got_dx, want_dx))
+    assert bool((got_dx[0] != 0).any())
+
+
 def test_launch_plan_kinds_match_the_compiled_launch_bounds():
     """Each kind of ``BN_CTAS_PER_SM`` is the CTAs an SM that
     csrc/batchnorm.cu compiles its kernels to (``__launch_bounds__``' second

@@ -914,6 +914,50 @@ def test_nms_on_the_card_syncs_nowhere_and_matches_cpu(cuda, B):
     assert 0 < int(keep.sum()) < int((obj[..., 1] > obj[..., 0]).sum())
 
 
+@pytest.mark.parametrize("config,B,P", [("default", 1, 256), ("default", 8, 256), ("tiny", 2, 16), ("default", 3, 37),
+                                        ("default", 1, 1), ("default", 2, 1025), ("default", 2, 1056),
+                                        ("default", 2, 2048), ("default", 1, 4096)])
+def test_decode_iou_kernel_equals_plain_on_the_card_and_the_cpu(cuda, config, B, P):
+    """The head's fused kernel (the decode inside the IoU self-matrix's
+    tiles, ``decode_with_iou``): its seven decoded outputs equal, bit for
+    bit, ``decode_proposals_plain``'s on the card and on the CPU, and its
+    IoU matrix the IoU kernel's on the decode kernel's corners (the two
+    launches it replaces) and the plain version's on the card bit for bit,
+    and the CPU's float for float (==: the CPU's max keeps a -0 where the
+    card's gives +0, as for the IoU kernel since it was written), at B = 1
+    and 8, proposal counts off the tile (37, 1025, 1056) and the greedy's
+    global-workspace lengths (1025-4096); one launch and no other."""
+    from votenet_tpu_torch.config import default_config
+    from votenet_tpu_torch.models.decode import class_mean_size, decode_proposals_plain, decode_with_iou
+    from votenet_tpu_torch.ops.cuda.decode import decode_iou_cuda, decode_proposals_cuda
+    from votenet_tpu_torch.ops.cuda.iou3d import box3d_iou_matrix_cuda
+    from votenet_tpu_torch.ops.iou3d import box3d_iou_matrix_plain
+
+    cfg = tiny_config() if config == "tiny" else default_config()
+    out, xyz = decode_end_points(cfg, B, P, B + P)
+    xyz *= float(np.sqrt(max(P, 256) / 256) * 0.6)  # a room grown with P: overlaps at every length
+    ep = {"proposals_output": out.to(cuda), "proposals_xyz": xyz.to(cuda)}
+    counters = (decode_iou_cuda, decode_proposals_cuda, box3d_iou_matrix_cuda)
+    before = [c.launches for c in counters]
+    got, iou = decode_with_iou(ep, cfg)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 0]
+    bits = lambda t: t.cpu().contiguous().view(torch.int32)  # noqa: E731
+    for where, e in (("card", ep), ("cpu", {"proposals_output": out, "proposals_xyz": xyz})):
+        want = decode_proposals_plain(e, cfg)
+        assert sorted(got) == sorted(want)
+        for k in got:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+            assert torch.equal(bits(got[k]), bits(want[k])), (where, k)
+    corners = decode_proposals_cuda(ep["proposals_output"], ep["proposals_xyz"], class_mean_size(cuda),
+                                    cfg.num_heading_bin, cfg.num_size_cluster, cfg.num_class)["bboxes"]
+    assert torch.equal(bits(iou), bits(box3d_iou_matrix_cuda(corners, corners)))
+    assert torch.equal(bits(iou), bits(box3d_iou_matrix_plain(got["bboxes"], got["bboxes"])))
+    cpu = box3d_iou_matrix_plain(got["bboxes"].cpu(), got["bboxes"].cpu())
+    assert torch.equal(iou.cpu(), cpu)
+    assert int((iou > 0).sum()) > B * P or P == 1
+
+
 def test_decode_and_nms_on_the_card_sync_nowhere(cuda):
     """``predict_boxes`` (decode, the IoU, NMS, the detection cap) on a tiny
     VoteNet's end points under the sync debug mode "error": the host never
@@ -1085,12 +1129,13 @@ def test_decode_kernel_equals_plain_on_the_card_and_the_cpu(cuda, config, B, P):
 
 def test_predict_boxes_is_three_launches_with_no_sort_and_no_sync(cuda, monkeypatch):
     """``predict_boxes`` at the default ``max_detections`` (the proposal
-    count) on CUDA end points: one launch each of the decode, the IoU and
-    the greedy, no ``torch.argsort`` call, no host sync; its outputs equal
-    the CPU's from the same end points (floats and keep mask)."""
+    count) on CUDA end points: one launch each of the fused decode + IoU
+    kernel and the greedy (the decode and IoU kernels alone, which it
+    replaces, none), no ``torch.argsort`` call, no host sync; its outputs
+    equal the CPU's from the same end points (floats and keep mask)."""
     from votenet_tpu_torch.config import default_config
     from votenet_tpu_torch.models.decode import predict_boxes
-    from votenet_tpu_torch.ops.cuda.decode import decode_proposals_cuda
+    from votenet_tpu_torch.ops.cuda.decode import decode_iou_cuda, decode_proposals_cuda
     from votenet_tpu_torch.ops.cuda.iou3d import box3d_iou_matrix_cuda
     from votenet_tpu_torch.ops.cuda.nms3d import nms3d_greedy_cuda
 
@@ -1103,7 +1148,7 @@ def test_predict_boxes_is_three_launches_with_no_sort_and_no_sync(cuda, monkeypa
     sorts = []
     argsort = torch.argsort
     monkeypatch.setattr(torch, "argsort", lambda *a, **k: sorts.append(1) or argsort(*a, **k))
-    counters = (decode_proposals_cuda, box3d_iou_matrix_cuda, nms3d_greedy_cuda)
+    counters = (decode_iou_cuda, nms3d_greedy_cuda, decode_proposals_cuda, box3d_iou_matrix_cuda)
     before = [c.launches for c in counters]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1111,7 +1156,7 @@ def test_predict_boxes_is_three_launches_with_no_sort_and_no_sync(cuda, monkeypa
         got = predict_boxes(ep, cfg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1] and not sorts
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0] and not sorts
     monkeypatch.undo()
     cpu = predict_boxes({"proposals_output": out, "proposals_xyz": xyz}, cfg)
     for k in ("bboxes", "nms_scores", "heading_pred", "size_pred", "center_pred", "size_cls", "heading_cls", "keep"):
@@ -1555,39 +1600,44 @@ def random_channel_sums(C, R, seed, device="cuda"):
 @pytest.mark.parametrize("update", [True, False])
 @pytest.mark.parametrize("R", [8192, 786432, 8 * 2048 * 64 * 3 + 7])
 def test_bn_statistics_end_is_the_torch_ops_on_the_card(cuda, update, R):
-    """The statistics' end on the card (bn_channels_cuda's one CTA, and K1's
-    last CTA through the op's call) equals, bit for bit, the torch ops it
+    """The statistics' end on the card (K2's, from a data-parallel group's
+    f64 sums, in its plain and pool variants, f32 and bf16; and K1's last
+    CTA through the op's call) equals, bit for bit, the torch ops it
     replaces run on the card (ops.batchnorm.bn_channel_stats_plain: the
     division by the count, the fast variance and its clamp, rsqrt, the
     running statistics' update): mean, mul, inv, var_raw and the running
     statistics, over sums with var_raw < 0, a NaN and a zero, with and
-    without the update; eval's end from the running statistics too."""
+    without the update; K2's output equal to K2 on the end's mean and
+    mul."""
     from votenet_tpu_torch.ops import batchnorm as bn
     from votenet_tpu_torch.ops.cuda import batchnorm as bnc
 
-    C = 259
-    s, sq = random_channel_sums(C, R, R)
+    C, rows, S = 136, 64 * 16, 16
+    sums = torch.stack(random_channel_sums(C, R, R))
     rng = np.random.RandomState(1)
     w = torch.tensor(rng.uniform(0.5, 1.5, C).astype(np.float32), device="cuda")
+    b = torch.tensor(rng.randn(C).astype(np.float32), device="cuda")
     rm0 = torch.tensor(rng.randn(C).astype(np.float32), device="cuda")
     rv0 = torch.tensor(rng.uniform(0.5, 2, C).astype(np.float32), device="cuda")
 
-    def both(sums, upd):
-        outs = []
-        for fn in (bnc.bn_channels_cuda, bn.bn_channel_stats_plain):
-            rm, rv = rm0.clone(), rv0.clone()
-            st = fn(sums, bnc.BnChannels(R, w, 1e-5, 0.9, rm, rv, upd))
-            outs.append((st, rm, rv))
-        return outs
+    def same(a, b):
+        nan = a.isnan() if a.is_floating_point() else torch.zeros_like(a, dtype=torch.bool)
+        ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        return torch.equal(nan, b.isnan() if b.is_floating_point() else nan) and torch.equal(
+            a[~nan].view(ints), b[~nan].view(ints))
 
-    (st, rm, rv), (pst, prm, prv) = both((s, sq), update)
-    assert bool((st[3] < 0).any()) and bool(torch.isnan(st[0]).any())
-    for a, b in ((st, pst), (rm, prm), (rv, prv)):
-        assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a[~a.isnan()].view(torch.int32),
-                                                                 b[~b.isnan()].view(torch.int32))
-    assert torch.equal(rm, rm0) != update
-    (est, _, _), (pest, _, _) = both(None, False)
-    assert torch.equal(est[:3].view(torch.int32), pest[:3].view(torch.int32))
+    for dtype in (torch.float32, torch.bfloat16):
+        h = (torch.randn((rows, C), device="cuda") * 2 + 1).to(dtype)
+        for pool in (0, S):
+            chs = [bnc.BnChannels(R, w, 1e-5, 0.9, rm0.clone(), rv0.clone(), update) for _ in range(2)]
+            y, st = bnc.bn_apply_cuda(h, None, None, b, dtype, True, pool=pool, group_sums=sums, channels=chs[0])
+            pst = bn.bn_channel_stats_plain(sums, chs[1])
+            py = bnc.bn_apply_cuda(h, pst[0], pst[1], b, dtype, True, pool=pool)
+            assert bool((st[3] < 0).any()) and bool(torch.isnan(st[0]).any())
+            pairs = [(st, pst), (chs[0].running_mean, chs[1].running_mean), (chs[0].running_var, chs[1].running_var)]
+            pairs += list(zip(y, py)) if pool else [(y, py)]
+            assert all(same(u, v) for u, v in pairs), (dtype, pool)
+            assert torch.equal(chs[0].running_mean, rm0) != update
     # K1's last CTA runs the same end on its own sums
     x = torch.randn((4096, C), device="cuda") * 2 + 1
     rm, rv, prm, prv = rm0.clone(), rv0.clone(), rm0.clone(), rv0.clone()
@@ -1596,6 +1646,68 @@ def test_bn_statistics_end_is_the_torch_ops_on_the_card(cuda, update, R):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(rm.view(torch.int32), prm.view(torch.int32))
     assert torch.equal(rv.view(torch.int32), prv.view(torch.int32))
+
+
+def test_bn_statistics_end_without_rows_runs_on_an_empty_plan(cuda):
+    """K1 and K2 given no rows but the statistics' end (a rank with no rows):
+    one launch each on an empty plan (one CTA a channel tile, no rows),
+    whose end equals the torch ops on zero sums bit for bit (NaN: 0 * inf)
+    and moves the running statistics alike."""
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    C = 300
+    w, b = torch.rand(C, device="cuda") + 0.5, torch.randn(C, device="cuda")
+    rm0, rv0 = torch.randn(C, device="cuda"), torch.rand(C, device="cuda") + 0.5
+    x = torch.empty((0, C), device="cuda")
+    chs = [bnc.BnChannels(0, w, 1e-5, 0.9, rm0.clone(), rv0.clone(), True) for _ in range(3)]
+    before = (bnc.bn_stats_cuda.launches, bnc.bn_apply_cuda.launches, bnc.bn_apply_cuda.group.launches)
+    st1 = bnc.bn_stats_cuda(x, channels=chs[0])
+    y, st2 = bnc.bn_apply_cuda(x, None, None, b, torch.float32, True, group_sums=torch.zeros((2, C), dtype=torch.float64,
+                               device="cuda"), channels=chs[1])
+    want = bn.bn_channel_stats_plain(torch.zeros((2, C), dtype=torch.float64, device="cuda"), chs[2])
+    torch.cuda.synchronize()
+    assert (bnc.bn_stats_cuda.launches, bnc.bn_apply_cuda.launches, bnc.bn_apply_cuda.group.launches) == tuple(
+        n + 1 for n in before)
+    assert y.shape == (0, C)
+    for st, ch in ((st1, chs[0]), (st2, chs[1])):
+        for a, b_ in ((st, want), (ch.running_mean, chs[2].running_mean), (ch.running_var, chs[2].running_var)):
+            assert torch.equal(a.isnan(), b_.isnan()) and torch.equal(a[~a.isnan()], b_[~b_.isnan()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pooled", [False, True])
+def test_bn_eval_backward_forms_mul_from_the_running_statistics(cuda, dtype, pooled):
+    """An eval backward's K3 and K4 given the running statistics
+    (``eval_var``, K3's coefficients without st) equal, bit for bit, the
+    composition they replace on the card: the statistics' end from the
+    running statistics (its torch ops), then K3 and K4 on its mean and mul:
+    the BN weight's and bias's cotangents, dx and the prologue's
+    cotangents."""
+    import chip_smoke
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    R, C, S = 64 * 32, 136, 32
+    h, corr, db, weight, bias, dy = chip_smoke.bn_site_inputs(R, C, dtype, 9, "centre", S, pooled)
+    rm, rv = torch.randn(C, device="cuda"), torch.rand(C, device="cuda") + 0.5
+    pro = dict(corr=corr, dense_bias=db)
+    if pooled:
+        pro["pooled"] = bnc.bn_apply_cuda(h, rm, weight, bias, dtype, True, corr=corr, dense_bias=db, pool=S,
+                                          eval_var=rv)
+    st = bn.bn_channel_stats_plain(None, bnc.BnChannels(R, weight, 1e-5, 0.9, rm, rv, False))
+    want_co = bnc.bn_bwd_reduce_cuda(h, dy, st[0], st[1], bias, True, **pro,
+                                     coefficients=bnc.BnCoefficients(st, weight, R, False))
+    want_dx = bnc.bn_bwd_apply_cuda(h, dy, st[0], st[1], bias, None, None, True, **pro, sums=True)
+    got_co = bnc.bn_bwd_reduce_cuda(h, dy, rm, weight, bias, True, **pro, eval_var=rv,
+                                    coefficients=bnc.BnCoefficients(None, weight, R, False))
+    got_dx = bnc.bn_bwd_apply_cuda(h, dy, rm, weight, bias, None, None, True, **pro, sums=True, eval_var=rv)
+    assert torch.equal(got_co[2:].view(torch.int32), want_co[2:].view(torch.int32))
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for g, w in zip(got_dx, want_dx):
+        assert torch.equal(g.view(torch.int16 if g.dtype == torch.bfloat16 else torch.int32),
+                           w.view(torch.int16 if w.dtype == torch.bfloat16 else torch.int32))
+    assert got_dx[0].dtype == dtype and bool((got_dx[0].view(ints) != 0).any())
 
 
 @pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
@@ -1749,12 +1861,19 @@ def bn_kernels_of(fn):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("prologue,pool", [("centre", False), ("bias", True), ("bias", False)])
-def test_bn_site_launches_its_kernels_and_nothing_else(cuda, dtype, prologue, pool):
+@pytest.mark.parametrize("group", [False, True], ids=["one-process", "group"])
+def test_bn_site_launches_its_kernels_and_nothing_else(cuda, dtype, prologue, pool, group):
     """One site's training forward launches K1 + K2 and its backward K3 + K4
     and no other kernel (the per-channel arithmetic, the prologue's
-    cotangent sums and the bias's casts are inside them); an eval forward
-    under inference_mode launches K2 alone."""
+    cotangent sums and the bias's casts are inside them), under a
+    data-parallel group (a one-rank NCCL group) too, whose collectives (the
+    sums' and the coefficients' all-reduces, in place) are all it adds; an
+    eval forward under inference_mode launches K2 alone, and an eval
+    backward K3 + K4."""
+    import torch.distributed as dist
+
     from votenet_tpu_torch import ops
+    from votenet_tpu_torch.parallel.launch import free_port, init_process_group
 
     B, M, S, C = 4, 64, 16, 64
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1768,16 +1887,34 @@ def test_bn_site_launches_its_kernels_and_nothing_else(cuda, dtype, prologue, po
     gp = torch.randn((B, M, C) if pool else (B, M, S, C), generator=g, device="cuda").to(dtype)
     kw = dict(dense_bias=db, corr=corr, pool="max" if pool else None)
     apply = "bn_apply_pool_kernel" if pool else "bn_apply_kernel"
-    for _ in range(2):  # the first round allocates the stream's tickets
-        for t in (h, corr, db, w, b):
-            if t is not None:
-                t.grad = None
-        out = {}
-        fwd = bn_kernels_of(lambda: out.setdefault("y", ops.batch_norm_relu(h, w, b, rm, rv, training=True, **kw)))
-        bwd = bn_kernels_of(lambda: out["y"].backward(gp))
+
+    def kernels(fn):  # the collectives aside
+        return [n for n in bn_kernels_of(fn) if "nccl" not in n.lower()]
+
+    if group:
+        init_process_group("nccl", 1, 0, free_port(), 120)
+    try:
+        kw["group"] = dist.group.WORLD if group else None
+        for _ in range(2):  # the first round allocates the stream's tickets
+            for t in (h, corr, db, w, b):
+                if t is not None:
+                    t.grad = None
+            out = {}
+            fwd = kernels(lambda: out.setdefault("y", ops.batch_norm_relu(h, w, b, rm, rv, training=True, **kw)))
+            bwd = kernels(lambda: out["y"].backward(gp))
+    finally:
+        if group:
+            dist.destroy_process_group()
     assert fwd == ["bn_stats_kernel", apply], fwd
     assert bwd == ["bn_bwd_reduce_kernel", "bn_bwd_apply_kernel"], bwd
     assert db.grad.dtype == torch.float32 and (corr is None or corr.grad.dtype == dtype)
+    kw["group"] = None
     with torch.inference_mode():
-        ev = bn_kernels_of(lambda: ops.batch_norm_relu(h.detach(), w, b, rm, rv, training=False, **kw))
+        ev = kernels(lambda: ops.batch_norm_relu(h.detach(), w, b, rm, rv, training=False, **kw))
     assert ev == [apply], ev
+    for t in (h, corr, db, w, b):  # no gradient to accumulate into
+        if t is not None:
+            t.grad = None
+    y = ops.batch_norm_relu(h, w, b, rm, rv, training=False, **kw)
+    ev_bwd = kernels(lambda: y.backward(gp))
+    assert ev_bwd == ["bn_bwd_reduce_kernel", "bn_bwd_apply_kernel"], ev_bwd

@@ -15,7 +15,11 @@ the CPU compute the same floats (the kernel against the plain version is in
   points within ``REL`` of scale (``tests/test_torch_model.py``'s), the
   classes equal and ``heading_pred`` bit-equal to ``jnp.mod``'s: headings at
   0, near and at 2 pi, negative residuals and every heading bin;
-- ``predict_boxes`` against JAX's on the same end points.
+- ``predict_boxes`` against JAX's on the same end points;
+- the fused decode + IoU self-matrix (``decode_with_iou``, one launch on
+  the card): its plain route is ``decode_proposals_plain`` and the IoU's
+  plain version bit for bit, and it matches JAX's ``decode_proposals`` and
+  ``box3d_iou_matrix`` within ``REL``.
 
 JAX is imported inside the tests: ``tests/test_torch_cuda.py`` takes this
 file's end points on the card's machine, which has no JAX.
@@ -30,8 +34,10 @@ import torch
 from votenet_tpu_torch.config import default_config, tiny_config
 from votenet_tpu_torch.data.geometry import CLASS_MEAN_SIZE
 from votenet_tpu_torch.models import decode as dec
-from votenet_tpu_torch.models.decode import decode_proposals, decode_proposals_plain, predict_boxes, sincos_plain
-from votenet_tpu_torch.ops.cuda.decode import decode_proposals_cuda, heading_scale
+from votenet_tpu_torch.models.decode import (decode_proposals, decode_proposals_plain, decode_with_iou, predict_boxes,
+                                             sincos_plain)
+from votenet_tpu_torch.ops.cuda.decode import decode_iou_cuda, decode_proposals_cuda, heading_scale
+from votenet_tpu_torch.ops.iou3d import box3d_iou_matrix_plain
 
 REL = 2e-5  # tests/test_torch_model.py's: the two frameworks' f32 sums and FMAs
 SINCOS_ULPS = 2.0  # the stated sin and cos against float64; 1.49 on this file's grid
@@ -312,3 +318,60 @@ def test_predict_boxes_matches_jax(max_detections):
     assert kept.sum() > 0 and (max_detections < 256 or kept.sum() < cand.sum())
     assert (kept.sum(-1) <= max_detections).all()
     assert math.isclose(heading_scale(12), float(F(np.pi / 12)))
+
+
+@pytest.mark.parametrize("config,B,P", [("tiny", 1, 37), ("default", 2, 256), ("default", 1, 1)])
+def test_decode_with_iou_plain_route_is_the_decode_and_the_plain_iou(config, B, P):
+    """On a CPU tensor the fused op is ``decode_proposals_plain`` and the
+    IoU's plain version on its corners, bit for bit (the kernel is held to
+    the same in ``tests/test_torch_cuda.py``), with no launch; the kernel's
+    wrapper refuses CPU tensors."""
+    cfg = tiny_config() if config == "tiny" else default_config()
+    out, xyz = end_points(cfg, B, P, seed=P, headings=heading_cases(cfg.num_heading_bin)[:P])
+    ep = {"proposals_output": torch.from_numpy(out), "proposals_xyz": torch.from_numpy(xyz)}
+    before = decode_iou_cuda.launches
+    got, iou = decode_with_iou(ep, cfg)
+    want = decode_proposals_plain(ep, cfg)
+    want_iou = box3d_iou_matrix_plain(want["bboxes"], want["bboxes"])
+    assert decode_iou_cuda.launches == before == 0 and sorted(got) == sorted(want)
+    for k in want:  # f32 and int32 fields: their 4-byte words
+        g, w = (np.ascontiguousarray(v.numpy()).view(np.int32) for v in (got[k], want[k]))
+        assert got[k].dtype == want[k].dtype and np.array_equal(g, w), k
+    assert iou.shape == (B, P, P) and np.array_equal(bits(iou), bits(want_iou))
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        decode_iou_cuda(ep["proposals_output"], ep["proposals_xyz"], torch.from_numpy(CLASS_MEAN_SIZE),
+                        cfg.num_heading_bin, cfg.num_size_cluster, cfg.num_class)
+
+
+def test_decode_with_iou_matches_jax():
+    """The fused op against JAX's ``decode_proposals`` and
+    ``box3d_iou_matrix`` of its corners on the same end points: every
+    decoded float within REL of scale (``test_plain_decode_matches_jax``'s),
+    the classes equal, the IoU within REL on the pairs of distinct boxes
+    (JAX's CPU IoU of a box with itself is no reference: XLA's FMAs,
+    ``tests/test_torch_iou.py``), and on the diagonal exactly 1 for a box of
+    volume (0 or 1 for the boxes the 1e-6 size floor flattens, whose union
+    is within a rounding of the IoU's 1e-12)."""
+    import jax.numpy as jnp
+    from votenet_tpu.config import default_config as jax_default
+    from votenet_tpu.models.decode import decode_proposals as jax_decode
+    from votenet_tpu.ops.iou3d import box3d_iou_matrix as jax_iou
+
+    cfg = default_config()
+    out, xyz = end_points(cfg, 2, 256, seed=13)
+    xyz *= 0.6  # a smaller room: overlapping boxes
+    got, iou = decode_with_iou({"proposals_output": torch.from_numpy(out), "proposals_xyz": torch.from_numpy(xyz)},
+                               cfg)
+    want = jax_decode({"proposals_output": jnp.asarray(out), "proposals_xyz": jnp.asarray(xyz)}, jax_default())
+    for k in ("size_cls", "heading_cls"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    for k in ("bboxes", "nms_scores", "center_pred", "size_pred", "heading_pred"):
+        close(got[k], want[k])
+    want_iou = np.asarray(jax_iou(want["bboxes"], want["bboxes"]))
+    off = ~np.eye(256, dtype=bool)[None].repeat(2, 0)
+    iou = iou.numpy()
+    assert int((iou[off] > 0).sum()) > 2 * 256  # overlapping pairs off the diagonal
+    np.testing.assert_allclose(iou[off], want_iou[off], rtol=0, atol=REL)
+    diag = np.diagonal(iou, axis1=1, axis2=2)
+    solid = got["size_pred"].double().prod(-1).numpy() > 1e-6
+    assert (diag[solid] == 1.0).all() and ((diag == 0.0) | (diag == 1.0)).all() and solid.sum() > 256

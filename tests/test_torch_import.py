@@ -77,7 +77,7 @@ def test_cpu_tensors_launch_no_kernel():
         return (fps_mod.farthest_point_sample_cuda.launches, bq_mod.query_ball_point_cuda.launches,
                 bq_mod.query_ball_point_cuda.fast_bf16.launches, nms_mod.nms3d_greedy_cuda.launches,
                 iou_mod.box3d_iou_matrix_cuda.launches, decode_mod.decode_proposals_cuda.launches,
-                bn_mod.bn_apply_cuda.launches)
+                bn_mod.bn_apply_cuda.launches, decode_mod.decode_iou_cuda.launches)
 
     before = counts()
     xyz = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 3).astype(np.float32))
@@ -87,11 +87,13 @@ def test_cpu_tensors_launch_no_kernel():
     from votenet_tpu_torch.predictor import VoteNetPredictor
 
     VoteNetPredictor(tiny_config(), device="cpu", batch_size=1).detect(xyz[0].numpy())
-    assert counts() == before == (0, 0, 0, 0, 0, 0, 0)
+    assert counts() == before == (0, 0, 0, 0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("kernel", ["fps", "ballquery", "scatter", "samlp", "ballquery_fast_bf16", "nms3d", "iou3d",
-                                    "decode", "bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply", "bn_channels"])
+                                    "decode", "decode_iou", "bn_stats", "bn_stats_no_rows", "bn_apply",
+                                    "bn_apply_group", "bn_bwd_reduce", "bn_bwd_reduce_eval", "bn_bwd_apply",
+                                    "bn_bwd_apply_eval"])
 def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     """Given a CPU tensor, the wrapper raises: it neither computes the plain
     version nor builds the library."""
@@ -109,6 +111,7 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     monkeypatch.setattr(bn_mod, "library", no_build)
     xyz = torch.zeros(1, 16, 3)
     rows, v = torch.zeros(8, 4), torch.zeros(4)
+    channels = bn_mod.BnChannels(8, v, 1e-5, 0.9, v.clone(), v.clone(), True)
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         if kernel == "fps":
             fps_mod.farthest_point_sample_cuda(4, xyz)
@@ -120,20 +123,30 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
             nms_mod.nms3d_greedy_cuda(torch.zeros(1, 16, 16), torch.zeros(1, 16), torch.zeros(1, 16, 2), 0.25)
         elif kernel == "decode":
             decode_mod.decode_proposals_cuda(torch.zeros(1, 16, 79), xyz, torch.zeros(10, 3), 12, 10, 10)
+        elif kernel == "decode_iou":
+            decode_mod.decode_iou_cuda(torch.zeros(1, 16, 79), xyz, torch.zeros(10, 3), 12, 10, 10)
         elif kernel == "iou3d":
             iou_mod.box3d_iou_matrix_cuda(torch.zeros(1, 4, 8, 3), torch.zeros(1, 5, 8, 3))
         elif kernel == "scatter":
             scatter_mod.scatter_add_cuda(xyz, torch.zeros(1, 16, dtype=torch.int32), 4)
         elif kernel == "bn_stats":
             bn_mod.bn_stats_cuda(rows)
+        elif kernel == "bn_stats_no_rows":
+            bn_mod.bn_stats_cuda(rows[:0], channels=channels)
         elif kernel == "bn_apply":
             bn_mod.bn_apply_cuda(rows, v, v, v, torch.float32, True)
+        elif kernel == "bn_apply_group":
+            bn_mod.bn_apply_cuda(rows, None, None, v, torch.float32, True, group_sums=torch.zeros(2, 4).double(),
+                                 channels=channels)
         elif kernel == "bn_bwd_reduce":
             bn_mod.bn_bwd_reduce_cuda(rows, rows, v, v, v, True)
+        elif kernel == "bn_bwd_reduce_eval":
+            bn_mod.bn_bwd_reduce_cuda(rows, rows, v, v, v, True, eval_var=v.clone(),
+                                      coefficients=bn_mod.BnCoefficients(None, v, 8, False))
         elif kernel == "bn_bwd_apply":
             bn_mod.bn_bwd_apply_cuda(rows, rows, v, v, v, v, v, True)
-        elif kernel == "bn_channels":
-            bn_mod.bn_channels_cuda(None, bn_mod.BnChannels(8, v, 1e-5, 0.9, v, v.clone(), False))
+        elif kernel == "bn_bwd_apply_eval":
+            bn_mod.bn_bwd_apply_cuda(rows, rows, v, v, v, None, None, True, eval_var=v.clone())
         else:
             layer = (torch.zeros(3, 5), torch.ones(5), torch.zeros(5))
             samlp_mod.fused_sa_mlp_pool_cuda(
@@ -145,8 +158,9 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
     assert samlp_mod.fused_sa_mlp_pool_cuda.launches == 0
     assert bq_mod.query_ball_point_cuda.fast_bf16.launches == nms_mod.nms3d_greedy_cuda.launches == 0
     assert iou_mod.box3d_iou_matrix_cuda.launches == decode_mod.decode_proposals_cuda.launches == 0
-    assert [getattr(bn_mod, f"bn_{k}_cuda").launches
-            for k in ("stats", "apply", "bwd_reduce", "bwd_apply", "channels")] == [0] * 5
+    assert decode_mod.decode_iou_cuda.launches == 0
+    assert [getattr(bn_mod, f"bn_{k}_cuda").launches for k in ("stats", "apply", "bwd_reduce", "bwd_apply")] == [0] * 4
+    assert bn_mod.bn_apply_cuda.group.launches == 0
 
 
 def test_cpu_eval_launches_no_kernel():

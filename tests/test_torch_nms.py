@@ -302,3 +302,29 @@ def test_chunked_walk_matches_the_fixpoint(N, cands):
         assert not want.any()
     elif N > 32:
         assert 0 < want.sum() < cand.sum()
+
+
+def test_self_tile_plan_writes_each_proposal_once():
+    """The fused decode + IoU kernel's launch (``ops.cuda.iou3d.self_tiles``,
+    the walk of ``csrc/iou3d.cu``'s ``self_tile``) at every N from 1 to
+    4096 (multiples of 16 and not, one tile to the greedy's global-workspace
+    lengths): as many blocks as the wrapper launches, tiles (tiles + 1) / 2;
+    every tile on or above the diagonal; its diagonal tiles, which write the
+    decode's outputs, hold each proposal exactly once; and, up to 300 boxes
+    and at the model's 256 and 1025-4096, every pair i <= j of the
+    self-matrix in exactly one tile."""
+    from votenet_tpu_torch.ops.cuda.iou3d import IOU_TILE, self_tiles
+
+    for N in range(1, 4097):
+        ti, tj = self_tiles(N)
+        tiles = -(-N // IOU_TILE)
+        assert len(ti) == tiles * (tiles + 1) // 2 and (ti <= tj).all() and (tj < tiles).all()
+        diag = ti[ti == tj]
+        written = (diag[:, None] * IOU_TILE + np.arange(IOU_TILE)[None]).ravel()
+        written = written[written < N]
+        assert np.array_equal(np.bincount(written, minlength=N), np.ones(N, np.int64)), N
+        if N <= 300 or N in (1025, 1056, 2048, 4096):
+            # tile (a, b) holds the pairs (i, j), i in a's rows, j in b's, i <= j
+            covered = np.zeros((tiles, tiles), np.int64)
+            np.add.at(covered, (ti, tj), 1)
+            assert (covered[np.triu_indices(tiles)] == 1).all() and covered[np.tril_indices(tiles, -1)].sum() == 0

@@ -1,7 +1,6 @@
 // Batch norm + ReLU on Hopper (sm_90a), with the layer around it: four
-// kernels over the channels-last (R, C) view of a batch-norm site, a pooled
-// variant of the second, and a one-CTA kernel for the per-channel end where
-// a data-parallel all-reduce or an eval backward needs it alone.
+// kernels over the channels-last (R, C) view of a batch-norm site and a
+// pooled variant of the second.
 //
 // The port's own kernels: the JAX package runs flax nn.Dense or
 // CenteredDense, nn.BatchNorm, nn.relu and jnp.max over the ball's slots
@@ -15,7 +14,9 @@
 //   K2 bn_apply_kernel       y = ((x - mean) * mul) + bias, rounded to the
 //                            output type (nearest even), then, when asked,
 //                            the ReLU in the output type; in eval it forms
-//                            mul = rsqrt(running_var + eps) * weight itself
+//                            mul = rsqrt(running_var + eps) * weight itself,
+//                            under a data-parallel group the statistics
+//                            from the group's sums (the end below)
 //   K2 bn_apply_pool_kernel  the same, then the max over each unit's S rows
 //                            (the ball's slots) and the count of the slots
 //                            equal to it; the full y is never written
@@ -25,9 +26,6 @@
 //   K4 bn_bwd_apply_kernel   dx = ((g * mul) + a) + (b * x), or g * mul in
 //                            eval, rounded to x's type; with the epilogue
 //                            also the prologue's cotangents
-//   bn_channels_kernel       the statistics' end alone (after a
-//                            data-parallel all-reduce of K1's sums, or from
-//                            the running statistics for an eval backward)
 //
 // The prologue. Every kernel reads the dense layer's output h, not x, and
 // recomputes x in registers: x = (h - corr[unit]) + dbias, each operation
@@ -72,7 +70,13 @@
 // rsqrtf, inv.pow(3) is (inv * inv) * inv; each value equals the torch op's
 // on the card bit for bit (tests/test_torch_cuda.py). The last CTA of K1's
 // and K3's reduction runs it for its channel tile, so a site's per-channel
-// arithmetic launches nothing of its own. The ReLU's mask is recomputed
+// arithmetic launches nothing of its own. Under a data-parallel group K1
+// writes its f64 sums, the caller all-reduces them, and K2 runs the
+// statistics' end from them before its row loop: every CTA on the same sums
+// (so with the same bits), the first CTA along the units writing the
+// statistics (saved for the backward) and moving the running statistics. An
+// eval backward's K3 and K4 form mul from the running statistics as K2
+// does, and K3's end forms inv so. The ReLU's mask is recomputed
 // from x by K2's arithmetic: g = 0 where the pre-ReLU output y <= 0, dy
 // elsewhere (a NaN y passes its gradient: torch's threshold_backward). The
 // ReLU is torch's clamp_min on the card: a NaN stays as it is, any other
@@ -410,29 +414,47 @@ struct StatsEnd {
   float inv_count, eps, f_old, f_new;
 };
 
+// One channel's statistics
+struct ChannelStats {
+  float mean, mul, inv, var_raw, var;
+};
+
 // Channel c's statistics from its f64 sums (rounded to f32 first, as the
-// op rounds K1's sums); the running statistics move to f_old * running +
-// f_new * batch
-__device__ void stats_end(const StatsEnd& e, int C, int c, double s, double sq) {
+// op rounds K1's sums); reads the sums and the weight alone
+__device__ __forceinline__ ChannelStats stats_of(const StatsEnd& e, int c, double s, double sq) {
+  ChannelStats v;
   const float sf = __double2float_rn(s), sqf = __double2float_rn(sq);
-  const float mean = __fmul_rn(sf, e.inv_count);
-  const float var_raw = __fsub_rn(__fmul_rn(sqf, e.inv_count), __fmul_rn(mean, mean));
-  const float var = clamp_min0(var_raw);
+  v.mean = __fmul_rn(sf, e.inv_count);
+  v.var_raw = __fsub_rn(__fmul_rn(sqf, e.inv_count), __fmul_rn(v.mean, v.mean));
+  v.var = clamp_min0(v.var_raw);
+  v.inv = torch_rsqrt(__fadd_rn(v.var, e.eps));
+  v.mul = __fmul_rn(v.inv, e.weight[c]);
+  return v;
+}
+
+// Channel c's statistics into e.out, and the running statistics moved to
+// f_old * running + f_new * batch
+__device__ __forceinline__ void write_stats(const StatsEnd& e, int C, int c, const ChannelStats& v) {
   if (e.update) {
-    e.running_mean[c] = __fadd_rn(__fmul_rn(e.running_mean[c], e.f_old), __fmul_rn(mean, e.f_new));
-    e.running_var[c] = __fadd_rn(__fmul_rn(e.running_var[c], e.f_old), __fmul_rn(var, e.f_new));
+    e.running_mean[c] = __fadd_rn(__fmul_rn(e.running_mean[c], e.f_old), __fmul_rn(v.mean, e.f_new));
+    e.running_var[c] = __fadd_rn(__fmul_rn(e.running_var[c], e.f_old), __fmul_rn(v.var, e.f_new));
   }
-  const float inv = torch_rsqrt(__fadd_rn(var, e.eps));
-  e.out[c] = mean;
-  e.out[C + c] = __fmul_rn(inv, e.weight[c]);
-  e.out[2 * C + c] = inv;
-  e.out[3 * C + c] = var_raw;
+  e.out[c] = v.mean;
+  e.out[C + c] = v.mul;
+  e.out[2 * C + c] = v.inv;
+  e.out[3 * C + c] = v.var_raw;
+}
+
+__device__ void stats_end(const StatsEnd& e, int C, int c, double s, double sq) {
+  write_stats(e, C, c, stats_of(e, c, s, sq));
 }
 
 // The coefficients' end: its inputs, and where it writes.
 struct CoefEnd {
   float* out;                // (4, C): a, b, the weight's and the bias's cotangents; null: K3 writes its f32 sums
-  const float* st;           // (4, C): mean, mul, inv, var_raw (the statistics' end's)
+  const float* st;           // (4, C): mean, mul, inv, var_raw (the statistics' end's); null in eval:
+  const float* eval_var;     //   inv = rsqrt(eval_var + eps), the statistics' end's arithmetic
+  float eps;
   const float* weight;
   float inv_count;
   int training;              // a and b only in training
@@ -443,7 +465,7 @@ struct CoefEnd {
 // (torch.clamp's rule: no gradient through the clamp where var_raw < 0)
 __device__ void coef_end(const CoefEnd& e, int C, int c, double sg, double sgx) {
   const float sum_g = __double2float_rn(sg), sum_gx = __double2float_rn(sgx);
-  const float inv = e.st[2 * C + c];
+  const float inv = e.st != nullptr ? e.st[2 * C + c] : torch_rsqrt(__fadd_rn(e.eval_var[c], e.eps));
   e.out[2 * C + c] = __fmul_rn(sum_gx, inv);
   e.out[3 * C + c] = sum_g;
   if (!e.training) return;
@@ -609,24 +631,41 @@ __global__ void __launch_bounds__(kThreads, kCtasReduce)
   });
 }
 
-// Where K2 reads its per-channel vectors: the batch's mean and mul
-// (training), or the running statistics and the weight (eval: eval_var
+// Where K2, K3 and K4 read their per-channel vectors: the batch's mean and
+// mul (training); the running statistics and the weight (eval: eval_var
 // non-null, mul = rsqrt(eval_var + eps) * weight, the statistics' end's
-// arithmetic)
+// arithmetic); or, in K2 under a data-parallel group, the group's
+// all-reduced f64 sums (2, C), from which every CTA runs the statistics' end
+// (stats_of: the same sums, the same bits in every CTA) and the first CTA
+// along the units writes it (end.out) and moves the running statistics
 struct ApplyChannels {
   const float* mean;
   const float* mul;  // the weight in eval
   const float* bias;
   const float* eval_var;
   float eps;
+  const double* sums;
+  StatsEnd end;
 };
 
 template <int V>
-__device__ __forceinline__ void load_apply(const ApplyChannels& ch, int c, float (&m)[V], float (&k)[V],
+__device__ __forceinline__ void load_apply(const ApplyChannels& ch, const Slot& s, int C, float (&m)[V], float (&k)[V],
                                            float (&b)[V]) {
+  const int c = s.c;
+  load_channels<V>(ch.bias, c, b);
+  if (ch.sums != nullptr) {  // the statistics' end, outside the row loop
+    const bool writer = blockIdx.x == 0 && s.rg == 0;  // one lane a channel of the tile
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const ChannelStats v = stats_of(ch.end, c + j, ch.sums[c + j], ch.sums[C + c + j]);
+      m[j] = v.mean;
+      k[j] = v.mul;
+      if (writer) write_stats(ch.end, C, c + j, v);
+    }
+    return;
+  }
   load_channels<V>(ch.mean, c, m);
   load_channels<V>(ch.mul, c, k);
-  load_channels<V>(ch.bias, c, b);
   if (ch.eval_var != nullptr) {
 #pragma unroll
     for (int j = 0; j < V; ++j) k[j] = __fmul_rn(torch_rsqrt(__fadd_rn(ch.eval_var[c + j], ch.eps)), k[j]);
@@ -641,7 +680,7 @@ __global__ void __launch_bounds__(kThreads, kCtasApply)
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
   if (s.c < 0) return;
   float m[V], k[V], b[V], db[V];
-  load_apply<V>(ch, s.c, m, k, b);
+  load_apply<V>(ch, s, pl.C, m, k, b);
   load_dbias<Tin, V>(pro, s.c, db);
   Rows it(s, pl.S);
   while (true) {
@@ -682,7 +721,7 @@ __global__ void __launch_bounds__(kThreads, WIDE ? kCtasApplyWide : kCtasApply)
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
   if (s.c < 0) return;
   float m[V], k[V], b[V], db[V];
-  load_apply<V>(ch, s.c, m, k, b);
+  load_apply<V>(ch, s, pl.C, m, k, b);
   load_dbias<Tin, V>(pro, s.c, db);
   if constexpr (WIDE) {
     static_assert(std::is_same<Tin, bf16>::value && std::is_same<Tout, bf16>::value, "8 channels a lane: bf16");
@@ -839,8 +878,7 @@ constexpr int kDyRows = 4;
 template <typename Tin, typename Tout, int V, bool POOLED, bool WIDE = V == 8>
 __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWide : kCtasReducePooled : kCtasReduceDy)
     bn_bwd_reduce_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Cotangent<Tout> ct, Plan pl, int fan_in,
-                         const float* __restrict__ mean, const float* __restrict__ mul,
-                         const float* __restrict__ bias, bool relu_on, double* __restrict__ ws,
+                         ApplyChannels ch, bool relu_on, double* __restrict__ ws,
                          int* __restrict__ tickets, float* __restrict__ sum_g, float* __restrict__ sum_gx,
                          CoefEnd e) {
   constexpr int kU = POOLED ? kPairRows : kDyRows;
@@ -848,9 +886,7 @@ __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWid
   double acc[2][V] = {};
   if (s.c >= 0) {
     float m[V], k[V], b[V], db[V];
-    load_channels<V>(mean, s.c, m);
-    load_channels<V>(mul, s.c, k);
-    load_channels<V>(bias, s.c, b);
+    load_apply<V>(ch, s, pl.C, m, k, b);
     load_dbias<Tin, V>(pro, s.c, db);
     if constexpr (WIDE) {
       static_assert(POOLED && std::is_same<Tin, bf16>::value && std::is_same<Tout, bf16>::value,
@@ -964,9 +1000,8 @@ struct Epilogue {
 template <typename Tin, typename Tout, int V, bool POOLED, int EPI>
 __global__ void __launch_bounds__(kThreads, EPI ? kCtasReduceDx : kCtasApply)
     bn_bwd_apply_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Cotangent<Tout> ct, Plan pl,
-                        Tin* __restrict__ dx, const float* __restrict__ mean, const float* __restrict__ mul,
-                        const float* __restrict__ bias, const float* __restrict__ a, const float* __restrict__ b,
-                        bool relu_on, Epilogue<Tin> ep) {
+                        Tin* __restrict__ dx, ApplyChannels ch, const float* __restrict__ a,
+                        const float* __restrict__ b, bool relu_on, Epilogue<Tin> ep) {
   constexpr bool SUMS = EPI != 0;
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
   if constexpr (!SUMS) {
@@ -976,9 +1011,7 @@ __global__ void __launch_bounds__(kThreads, EPI ? kCtasReduceDx : kCtasApply)
   if (s.c >= 0) {
     const bool stats = a != nullptr;
     float m[V], k[V], bi[V], db[V], ca[V] = {}, cb[V] = {};
-    load_channels<V>(mean, s.c, m);
-    load_channels<V>(mul, s.c, k);
-    load_channels<V>(bias, s.c, bi);
+    load_apply<V>(ch, s, pl.C, m, k, bi);
     load_dbias<Tin, V>(pro, s.c, db);
     if (stats) {
       load_channels<V>(a, s.c, ca);
@@ -1051,23 +1084,6 @@ __global__ void __launch_bounds__(kThreads, EPI ? kCtasReduceDx : kCtasApply)
   }
 }
 
-// The statistics' end alone, one CTA over the channels: from the f64 sums
-// (a data-parallel group's, after their all-reduce), or with s null from
-// the running statistics (mean = running_mean; for an eval backward)
-__global__ void bn_channels_kernel(const double* __restrict__ s, const double* __restrict__ sq, StatsEnd e, int C) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    if (s != nullptr) {
-      stats_end(e, C, c, s[c], sq[c]);
-    } else {
-      const float inv = torch_rsqrt(__fadd_rn(e.running_var[c], e.eps));
-      e.out[c] = e.running_mean[c];
-      e.out[C + c] = __fmul_rn(inv, e.weight[c]);
-      e.out[2 * C + c] = inv;
-      e.out[3 * C + c] = 0.0f;
-    }
-  }
-}
-
 template <typename T>
 struct Tag {
   using type = T;
@@ -1128,14 +1144,19 @@ int votenet_bn_stats(const void* x, int x_bf16, const void* corr, const float* d
 
 // y is (R, C), or with count non-null the pool variant's (R / S, C) maxima
 // beside their int32 counts; with eval_var non-null `mul` is the weight and
-// `mean` the running mean (eval)
+// `mean` the running mean (eval); with sums non-null (a data-parallel
+// group's (2, C) f64 sums; mean and mul null) the statistics' end (mean,
+// mul, inv, var_raw into st, the running statistics moved when `update`)
 int votenet_bn_apply(const void* x, int x_bf16, const void* corr, const float* dbias, int S, void* y, int y_bf16,
                      int* count, int64_t R, int C, int vec, int W, int ctas, int tiles, int64_t units_per_cta,
                      const float* mean, const float* mul, const float* bias, const float* eval_var, float eps,
-                     int relu_on, void* stream) {
+                     int relu_on, const double* sums, float* st, const float* weight, float* running_mean,
+                     float* running_var, int update, float inv_count, float end_eps, float f_old, float f_new,
+                     void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const Plan pl{R / S, S, C, W, units_per_cta};
-  const ApplyChannels ch{mean, mul, bias, eval_var, eps};
+  const ApplyChannels ch{mean, mul, bias, eval_var, eps, sums,
+                         StatsEnd{st, weight, running_mean, running_var, update, inv_count, end_eps, f_old, f_new}};
   if (vec == 8) {  // the bf16 pool variant, 8 channels a lane
     if (count == nullptr || !x_bf16 || !y_bf16) return static_cast<int>(cudaErrorInvalidValue);
     bn_apply_pool_kernel<bf16, bf16, 8><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
@@ -1160,24 +1181,26 @@ int votenet_bn_apply(const void* x, int x_bf16, const void* corr, const float* d
 }
 
 // dy is (R, C), or with ymax non-null the pooled cotangent (R / S, C) beside
-// the pool's maxima and counts. With co non-null the coefficients' end (a,
-// b (training only), the weight's and the bias's cotangents into co, from
-// st); else the f32 sums
+// the pool's maxima and counts; mean, mul and eval_var as in
+// votenet_bn_apply. With co non-null the coefficients' end (a, b (training
+// only), the weight's and the bias's cotangents into co, from st, or in
+// eval with st null from eval_var); else the f32 sums
 int votenet_bn_bwd_reduce(const void* x, int x_bf16, const void* corr, const float* dbias, int S, const void* dy,
                           int dy_bf16, const void* ymax, const int* count, int64_t R, int C, int vec, int W, int ctas,
                           int tiles, int64_t units_per_cta, int fan_in, const float* mean, const float* mul,
-                          const float* bias, int relu_on, double* ws, int* tickets, float* sum_g, float* sum_gx,
-                          float* co, const float* st, const float* weight, float inv_count, int training,
-                          void* stream) {
+                          const float* bias, const float* eval_var, float eps, int relu_on, double* ws, int* tickets,
+                          float* sum_g, float* sum_gx, float* co, const float* st, const float* weight,
+                          float inv_count, int training, void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const Plan pl{R / S, S, C, W, units_per_cta};
-  const CoefEnd e{co, st, weight, inv_count, training};
+  const ApplyChannels ch{mean, mul, bias, eval_var, eps, nullptr, StatsEnd{}};
+  const CoefEnd e{co, st, eval_var, eps, weight, inv_count, training};
   if (vec == 8) {  // the pooled K3 in bf16, 8 channels a lane
     if (ymax == nullptr || !x_bf16 || !dy_bf16) return static_cast<int>(cudaErrorInvalidValue);
     const Cotangent<bf16> ct{static_cast<const bf16*>(dy), static_cast<const bf16*>(ymax), count};
     bn_bwd_reduce_kernel<bf16, bf16, 8, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
-        static_cast<const bf16*>(x), prologue_of<bf16>(corr, dbias), ct, pl, fan_in, mean, mul, bias,
-        relu_on != 0, ws, tickets, sum_g, sum_gx, e);
+        static_cast<const bf16*>(x), prologue_of<bf16>(corr, dbias), ct, pl, fan_in, ch, relu_on != 0, ws, tickets,
+        sum_g, sum_gx, e);
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(dispatch(x_bf16, dy_bf16, vec, [&](auto ta, auto tb, auto v) {
@@ -1188,27 +1211,28 @@ int votenet_bn_bwd_reduce(const void* x, int x_bf16, const void* corr, const flo
     const Cotangent<Tout> ct{static_cast<const Tout*>(dy), static_cast<const Tout*>(ymax), count};
     if (ymax != nullptr) {
       bn_bwd_reduce_kernel<Tin, Tout, V, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
-          static_cast<const Tin*>(x), pro, ct, pl, fan_in, mean, mul, bias, relu_on != 0, ws, tickets, sum_g,
-          sum_gx, e);
+          static_cast<const Tin*>(x), pro, ct, pl, fan_in, ch, relu_on != 0, ws, tickets, sum_g, sum_gx, e);
     } else {
       bn_bwd_reduce_kernel<Tin, Tout, V, false><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
-          static_cast<const Tin*>(x), pro, ct, pl, fan_in, mean, mul, bias, relu_on != 0, ws, tickets, sum_g,
-          sum_gx, e);
+          static_cast<const Tin*>(x), pro, ct, pl, fan_in, ch, relu_on != 0, ws, tickets, sum_g, sum_gx, e);
     }
     return cudaGetLastError();
   }));
 }
 
-// epi (K4's EPI): 0 none; 1 the dense bias's cotangent (C floats) into
-// dbias_out through the tree (ws, tickets, fan_in); 2 also corr's into
-// dcorr (R / S x C, x's type), dbias_out then optional
+// mean, mul and eval_var as in votenet_bn_apply; epi (K4's EPI): 0 none; 1
+// the dense bias's cotangent (C floats) into dbias_out through the tree
+// (ws, tickets, fan_in); 2 also corr's into dcorr (R / S x C, x's type),
+// dbias_out then optional
 int votenet_bn_bwd_apply(const void* x, int x_bf16, const void* corr, const float* dbias, int S, const void* dy,
                          int dy_bf16, const void* ymax, const int* count, void* dx, int64_t R, int C, int vec, int W,
                          int ctas, int tiles, int64_t units_per_cta, const float* mean, const float* mul,
-                         const float* bias, const float* a, const float* b, int relu_on, int epi, void* dcorr,
-                         float* dbias_out, double* ws, int* tickets, int fan_in, void* stream) {
+                         const float* bias, const float* eval_var, float eps, const float* a, const float* b,
+                         int relu_on, int epi, void* dcorr, float* dbias_out, double* ws, int* tickets, int fan_in,
+                         void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const Plan pl{R / S, S, C, W, units_per_cta};
+  const ApplyChannels ch{mean, mul, bias, eval_var, eps, nullptr, StatsEnd{}};
   return static_cast<int>(dispatch(x_bf16, dy_bf16, vec, [&](auto ta, auto tb, auto v) {
     using Tin = typename decltype(ta)::type;
     using Tout = typename decltype(tb)::type;
@@ -1220,7 +1244,7 @@ int votenet_bn_bwd_apply(const void* x, int x_bf16, const void* corr, const floa
       auto with = [&](auto e) {
         bn_bwd_apply_kernel<Tin, Tout, V, decltype(pooled)::value, decltype(e)::value>
             <<<grid_of(ctas, tiles), kThreads, 0, cs>>>(static_cast<const Tin*>(x), pro, ct, pl,
-                                                        static_cast<Tin*>(dx), mean, mul, bias, a, b, relu_on != 0, ep);
+                                                        static_cast<Tin*>(dx), ch, a, b, relu_on != 0, ep);
       };
       if (epi == 2) {
         with(std::integral_constant<int, 2>{});
@@ -1237,16 +1261,6 @@ int votenet_bn_bwd_apply(const void* x, int x_bf16, const void* corr, const floa
     }
     return cudaGetLastError();
   }));
-}
-
-// One CTA: the statistics' end from the f64 sums s, sq (null: from the
-// running statistics, eval) into st
-int votenet_bn_channels(const double* s, const double* sq, int C, float* st, const float* weight, float* running_mean,
-                        float* running_var, int update, float inv_count, float eps, float f_old, float f_new,
-                        void* stream) {
-  const StatsEnd e{st, weight, running_mean, running_var, update, inv_count, eps, f_old, f_new};
-  bn_channels_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(s, sq, e, C);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

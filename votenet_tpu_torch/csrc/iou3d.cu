@@ -48,10 +48,24 @@
 // above the diagonal; a diagonal tile computes its upper triangle, and each
 // tile's floats go out twice: in place, and transposed through shared
 // memory, so that both writes are coalesced.
+//
+// The head's launch (decode_iou_kernel, models/decode.py::predict_boxes):
+// the decode (csrc/decode.cuh, the decode kernel's order) inside the
+// self-matrix's tiles. A tile stages its 16 + 16 proposals' head channels
+// (~10 KB at C = 79), decodes each into a Box from its corners, and a
+// diagonal tile also writes the decode's outputs; so a box is decoded once
+// a tile it takes part in (~16 times at N = 256: ~6 M f32 operations at B =
+// 8, far below the pairs' 0.25 G), and the head is this launch and the NMS
+// greedy's. The decode kernel stays for callers that want the decode alone.
+// Each tile's staging and decode are the fused launch's cost over the IoU
+// kernel's: at N = 1025-4096 (no path sends them) it is slower than the
+// decode kernel and the IoU kernel's two launches (PERF.md).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "decode.cuh"
 
 namespace {
 
@@ -142,6 +156,40 @@ __device__ __forceinline__ float box_iou(const Box& P, const Box& Q) {
   return denom > kEps ? __fdiv_rn(inter_vol, denom) : 0.0f;
 }
 
+// Tile t of the self-matrix's triangle, tiles (ti, tj) with ti <= tj
+// walked row by row over `tiles` tiles a side (ops/cuda/iou3d.py::self_tiles
+// transcribes the walk)
+__device__ __forceinline__ void self_tile(int t, int tiles, int& ti, int& tj) {
+  ti = 0;
+  while (t >= tiles - ti) {
+    t -= tiles - ti;
+    ++ti;
+  }
+  tj = ti + t;
+}
+
+// The pairs of tile (ti, tj) from its staged boxes, one a thread: out[b, i,
+// j] for the live pairs and, for the self-matrix (kSelf: the triangle's
+// tiles, a diagonal tile's upper triangle), out[b, j, i] too
+template <bool kSelf>
+__device__ __forceinline__ void tile_pairs(const Box (&rows)[kTile], const Box (&cols)[kTile],
+                                           float (&mirror)[kTile][kTile + 1], int b, int ti, int tj, int N, int M,
+                                           float* __restrict__ out) {
+  const int i0 = ti * kTile, j0 = tj * kTile;
+  const int tid = threadIdx.x;
+  const int r = tid / kTile, c = tid % kTile;
+  const int i = i0 + r, j = j0 + c;
+  const bool live = i < N && j < M && (!kSelf || ti != tj || r <= c);
+  const float v = live ? box_iou(rows[r], cols[c]) : 0.0f;
+  if (live) out[(static_cast<size_t>(b) * N + i) * M + j] = v;
+  if (kSelf) {  // the transposed tile: out[j0 + r, i0 + c] = IoU(i0 + c, j0 + r), from thread (c, r)
+    mirror[c][r] = v;
+    __syncthreads();
+    const int mi = j0 + r, mj = i0 + c;
+    if (mi < N && mj < N && (ti != tj || r > c)) out[(static_cast<size_t>(b) * N + mi) * N + mj] = mirror[r][c];
+  }
+}
+
 // kSelf: c1 == c2 (N == M); blockIdx.x walks the tiles (ti, tj), ti <= tj,
 // row by row. Otherwise blockIdx.x = ti * tiles_m + tj over every tile.
 template <bool kSelf>
@@ -153,13 +201,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y;
   int ti, tj;
   if (kSelf) {
-    int t = blockIdx.x;
-    ti = 0;
-    while (t >= tiles_m - ti) {
-      t -= tiles_m - ti;
-      ++ti;
-    }
-    tj = ti + t;
+    self_tile(blockIdx.x, tiles_m, ti, tj);
   } else {
     ti = blockIdx.x / tiles_m;
     tj = blockIdx.x % tiles_m;
@@ -173,17 +215,67 @@ __global__ void __launch_bounds__(kThreads)
     if (j < M) load_box(c2 + (static_cast<size_t>(b) * M + j) * 24, cols[tid - kTile]);
   }
   __syncthreads();
-  const int r = tid / kTile, c = tid % kTile;
-  const int i = i0 + r, j = j0 + c;
-  const bool live = i < N && j < M && (!kSelf || ti != tj || r <= c);
-  const float v = live ? box_iou(rows[r], cols[c]) : 0.0f;
-  if (live) out[(static_cast<size_t>(b) * N + i) * M + j] = v;
-  if (kSelf) {  // the transposed tile: out[j0 + r, i0 + c] = IoU(i0 + c, j0 + r), from thread (c, r)
-    mirror[c][r] = v;
-    __syncthreads();
-    const int mi = j0 + r, mj = i0 + c;
-    if (mi < N && mj < N && (ti != tj || r > c)) out[(static_cast<size_t>(b) * N + mi) * N + mj] = mirror[r][c];
+  tile_pairs<kSelf>(rows, cols, mirror, b, ti, tj, N, M, out);
+}
+
+// The detection head's decode and the self-matrix of its boxes in one
+// launch: tile (ti, tj) of the triangle copies its 16 + 16 proposals' head
+// channels into shared memory (coalesced, as the decode kernel does); warp
+// 0 decodes them, a proposal a lane, in the order of csrc/decode.cuh, and
+// forms each Box from the corners as load_box does, while the other warps
+// wait and the SM's other CTAs compute their pairs; the diagonal tiles, in
+// which each proposal lies exactly once, write the decode's outputs. The
+// pairs are bound by issue slots, so the decode takes as few as it can: one
+// warp, its latency hidden by the other CTAs (8 lanes a proposal, each
+// argmax shuffled and each corner a lane, was slower at B = 8: PERF.md).
+// 4 CTAs an SM: iou3d_kernel's registers.
+__global__ void __launch_bounds__(kThreads, 4)
+    decode_iou_kernel(const float* __restrict__ head, const float* __restrict__ xyz,
+                      const float* __restrict__ mean_size, int N, int C, int NH, int NS, int NC,
+                      float heading_scale, int tiles, DecodeOut dout, float* __restrict__ out) {
+  extern __shared__ float chans[];  // 2 x kTile rows of C channels: the tile's rows' proposals, then its columns'
+  __shared__ Box rows[kTile], cols[kTile];
+  __shared__ float mirror[kTile][kTile + 1];
+  __shared__ float corners[2 * kTile][24];
+  const int b = blockIdx.y;
+  int ti, tj;
+  self_tile(blockIdx.x, tiles, ti, tj);
+  const int i0 = ti * kTile, j0 = tj * kTile;
+  const int nr = min(kTile, N - i0), nc = min(kTile, N - j0);
+  const float* src_r = head + (static_cast<size_t>(b) * N + i0) * C;
+  const float* src_c = head + (static_cast<size_t>(b) * N + j0) * C;
+  for (int k = threadIdx.x; k < nr * C; k += kThreads) chans[k] = src_r[k];
+  for (int k = threadIdx.x; k < nc * C; k += kThreads) chans[kTile * C + k] = src_c[k];
+  __syncthreads();
+  if (threadIdx.x < 2 * kTile) {  // warp 0: a proposal a lane, a row's, then a column's
+    const int box = threadIdx.x;
+    const bool is_row = box < kTile;
+    const int slot = is_row ? box : box - kTile;
+    if (slot < (is_row ? nr : nc)) {
+      const float* o = chans + box * C;
+      const size_t p = static_cast<size_t>(b) * N + (is_row ? i0 : j0) + slot;
+      const int hc = argmax_first(o + 5, NH);
+      const int sc = argmax_first(o + 5 + 2 * NH, NS);
+      const int cc = argmax_first(o + C - NC, NC);
+      Pose ps;
+      decode_pose(o, xyz + 3 * p, mean_size, NH, NS, hc, sc, heading_scale, ps);
+      for (int k = 0; k < 8; ++k) decode_corner(ps, k, corners[box] + 3 * k);
+      if (is_row && ti == tj) {  // the decode's outputs, once a proposal
+        for (int k = 0; k < 24; ++k) dout.corners[24 * p + k] = corners[box][k];
+        for (int k = 0; k < 3; ++k) {
+          dout.center[3 * p + k] = ps.center[k];
+          dout.size[3 * p + k] = ps.size[k];
+        }
+        dout.heading[p] = ps.heading;
+        dout.nms_score[p] = o[C - NC + cc];
+        dout.size_cls[p] = sc;
+        dout.heading_cls[p] = hc;
+      }
+      load_box(corners[box], is_row ? rows[slot] : cols[slot]);
+    }
   }
+  __syncthreads();
+  tile_pairs<true>(rows, cols, mirror, b, ti, tj, N, N, out);
 }
 
 }  // namespace
@@ -206,6 +298,32 @@ int votenet_iou3d(const float* c1, const float* c2, int B, int N, int M, float* 
     iou3d_kernel<false><<<dim3(static_cast<unsigned>(tn * tm), B), kThreads, 0, st>>>(
         c1, c2, N, M, static_cast<int>(tm), out);
   }
+  return cudaGetLastError();
+}
+
+// Launches the head's decode and the IoU self-matrix of its corners on
+// `stream`: head (B, N, C), xyz (B, N, 3) and mean_size (NS, 3) f32,
+// contiguous; the decode's outputs as votenet_decode's (B * N proposals)
+// and out (B, N, N) f32, equal to votenet_decode followed by votenet_iou3d
+// on the corners twice. `tiles` is ceil(N / 16) and `grid` the triangle's
+// tiles, tiles (tiles + 1) / 2 (ops/cuda/iou3d.py::self_tiles). Returns the
+// cudaError_t of the launch.
+int votenet_decode_iou(const float* head, const float* xyz, const float* mean_size, int B, int N, int C, int NH,
+                       int NS, int NC, float heading_scale, int tiles, long long grid, float* corners, float* center,
+                       float* size, float* heading, float* nms_score, int* size_cls, int* heading_cls, float* out,
+                       void* stream) {
+  if (B < 1 || N < 1 || B > 65535 || !decode_shape_ok(C, NH, NS, NC) || tiles != (N + kTile - 1) / kTile ||
+      grid != static_cast<long long>(tiles) * (tiles + 1) / 2)
+    return cudaErrorInvalidValue;
+  const size_t smem = 2 * static_cast<size_t>(kTile) * C * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(decode_iou_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  decode_iou_kernel<<<dim3(static_cast<unsigned>(grid), B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      head, xyz, mean_size, N, C, NH, NS, NC, heading_scale, tiles,
+      DecodeOut{corners, center, size, heading, nms_score, size_cls, heading_cls}, out);
   return cudaGetLastError();
 }
 

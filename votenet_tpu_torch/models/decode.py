@@ -2,12 +2,14 @@
 (port of votenet_tpu/models/decode.py). Fixed-shape output: corners, class
 scores and a keep mask.
 
-On a CUDA tensor the head is three launches: the decode kernel
-(``csrc/decode.cu``), the IoU kernel and the NMS greedy. Its floats and
-bits do not depend on the device: the decode's plain version writes every
-operation in the kernel's order, with sin and cos written out
-(:func:`sincos_plain`) where ``torch.sin``/``torch.cos`` round otherwise on
-the card and the CPU."""
+On a CUDA tensor the head (:func:`predict_boxes`) is two launches: the
+decode and the IoU self-matrix of its boxes in one kernel
+(``csrc/iou3d.cu``'s ``decode_iou_kernel``, the decode in the order of
+``csrc/decode.cuh``), then the NMS greedy; :func:`decode_proposals` alone
+is one launch of ``csrc/decode.cu``. Its floats and bits do not depend on
+the device: the decode's plain version writes every operation in the
+kernels' order, with sin and cos written out (:func:`sincos_plain`) where
+``torch.sin``/``torch.cos`` round otherwise on the card and the CPU."""
 
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ import torch
 
 from votenet_tpu_torch.config import Config
 from votenet_tpu_torch.data.geometry import CLASS_MEAN_SIZE
-from votenet_tpu_torch.ops import nms3d
 from votenet_tpu_torch.ops.common import kernel_route
-from votenet_tpu_torch.ops.cuda.decode import decode_proposals_cuda, heading_scale
+from votenet_tpu_torch.ops.cuda.decode import decode_iou_cuda, decode_proposals_cuda, heading_scale
+from votenet_tpu_torch.ops.iou3d import box3d_iou_matrix
+from votenet_tpu_torch.ops.nms3d import nms3d_on_iou
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,29 +125,54 @@ def decode_proposals_plain(end_points: Dict[str, torch.Tensor], config: Config) 
     }
 
 
+def _kernel_inputs(end_points: Dict[str, torch.Tensor], config: Config):
+    """The kernels' arguments: the head's channels and centres as contiguous
+    f32, the class mean sizes on their device, NH, NS, NC."""
+    out = end_points["proposals_output"].float().contiguous()
+    return (out, end_points["proposals_xyz"].float().contiguous(), class_mean_size(out.device),
+            config.num_heading_bin, config.num_size_cluster, config.num_class)
+
+
+def _with_views(fields: Dict[str, torch.Tensor], out: torch.Tensor, NC: int) -> Dict[str, torch.Tensor]:
+    """A kernel's decode fields with ``class_scores`` and ``objectness``, views
+    of the head's output, in the plain version's order."""
+    return {"bboxes": fields["bboxes"], "class_scores": out[..., -NC:], "objectness": out[..., :2], **{
+        k: fields[k] for k in ("nms_scores", "center_pred", "size_pred", "heading_pred", "size_cls", "heading_cls")}}
+
+
 def decode_proposals(end_points: Dict[str, torch.Tensor], config: Config) -> Dict[str, torch.Tensor]:
     """Head channels -> boxes, class scores and the NMS inputs. A CUDA tensor
     runs the kernel of ``csrc/decode.cu`` (one launch), a CPU tensor
     :func:`decode_proposals_plain` (equal floats); any other device raises.
     ``class_scores`` and ``objectness`` are views of the head's output."""
-    out = end_points["proposals_output"]
-    if kernel_route(out, "decode_proposals") != "cuda":
+    if kernel_route(end_points["proposals_output"], "decode_proposals") != "cuda":
         return decode_proposals_plain(end_points, config)
-    NC = config.num_class
-    out = out.float().contiguous()
-    fields = decode_proposals_cuda(out, end_points["proposals_xyz"].float().contiguous(),
-                                   class_mean_size(out.device), config.num_heading_bin,
-                                   config.num_size_cluster, NC)
-    return {"bboxes": fields["bboxes"], "class_scores": out[..., -NC:], "objectness": out[..., :2], **{
-        k: fields[k] for k in ("nms_scores", "center_pred", "size_pred", "heading_pred", "size_cls", "heading_cls")}}
+    args = _kernel_inputs(end_points, config)
+    return _with_views(decode_proposals_cuda(*args), args[0], config.num_class)
+
+
+def decode_with_iou(end_points: Dict[str, torch.Tensor], config: Config):
+    """:func:`decode_proposals` and the IoU self-matrix of its boxes,
+    ``ops.box3d_iou_matrix(bboxes, bboxes)`` (B, P, P): (decoded, iou). A
+    CUDA tensor runs one launch of ``csrc/iou3d.cu``'s fused kernel, a CPU
+    tensor :func:`decode_proposals_plain` and the IoU's plain version (equal
+    floats); any other device raises."""
+    if kernel_route(end_points["proposals_output"], "decode_proposals") != "cuda":
+        decoded = decode_proposals_plain(end_points, config)
+        return decoded, box3d_iou_matrix(decoded["bboxes"], decoded["bboxes"])
+    args = _kernel_inputs(end_points, config)
+    fields, iou = decode_iou_cuda(*args)
+    return _with_views(fields, args[0], config.num_class), iou
 
 
 def predict_boxes(end_points: Dict[str, torch.Tensor], config: Config, nms_iou: Optional[float] = None):
     """Decode + NMS -> the decode dict plus ``keep`` (B, P) bool, capped at
-    ``config.max_detections`` survivors per scene (highest scores first)."""
-    decoded = decode_proposals(end_points, config)
+    ``config.max_detections`` survivors per scene (highest scores first). On
+    the card two launches: the decode with the IoU matrix
+    (:func:`decode_with_iou`), then the NMS greedy."""
+    decoded, iou_matrix = decode_with_iou(end_points, config)
     iou = config.nms_iou if nms_iou is None else nms_iou
-    keep = nms3d(decoded["bboxes"], decoded["nms_scores"], decoded["objectness"], iou)
+    keep = nms3d_on_iou(iou_matrix, decoded["nms_scores"], decoded["objectness"], iou)
     if config.max_detections < keep.shape[-1]:
         score = torch.where(keep, decoded["nms_scores"], torch.full_like(decoded["nms_scores"], -math.inf))
         order = torch.argsort(score, dim=-1, descending=True, stable=True)

@@ -18,9 +18,10 @@ and its plain PyTorch version below for a CPU tensor; anything else raises.
 The per-channel arithmetic between the sums and the next stage (C floats:
 :func:`bn_channel_stats_plain`, :func:`bn_channel_coefficients_plain`) runs
 at the end of stages 1 and 3 on either device (inside the kernels on the
-card, one torch op at a time on the CPU, the same bits on the card), and
-eval's ``mul`` inside stage 2; so a site's training forward is two
-launches, its backward two, an eval forward one.
+card, one torch op at a time on the CPU, the same bits on the card), under
+a data-parallel group at the start of stage 2, and eval's ``mul`` inside
+stages 2-4; so a site's training forward is two launches, its backward
+two, an eval forward one, with or without a group.
 
 Semantics (those of the port's earlier eager ``(h - corr) + b``, batch
 norm, ``torch.relu`` and ``torch.amax``, which follow flax; the plain stages
@@ -38,10 +39,10 @@ give their bits):
   (``(gp / count) * (y == max)``, each rounded to ``dtype``). The stage
   writes the maxima and the counts; the full output is never stored.
 - ``group`` (a data-parallel process group) makes the sums the group's:
-  they are all-reduced between stages 1 and 2, in f64 (the kernel's sums
-  are f64 until then, so that a split batch's statistics are the whole
-  batch's), then the statistics' end runs alone (one launch on the card),
-  and the row count is this rank's times the group's size; in the backward
+  they are all-reduced in place between stages 1 and 2, in f64 (the
+  kernel's sums are f64 until then, so that a split batch's statistics are
+  the whole batch's), stage 2 runs the statistics' end from them, and the
+  row count is this rank's times the group's size; in the backward
   a and b are summed over the group before stage 4 (``comm.psum_varying``'s
   rule on the sums' cotangents: b is twice that of ``sum(x * x)``, and
   doubling commutes with the sum), while ``weight``'s and ``bias``'s stay
@@ -73,7 +74,7 @@ import torch
 
 from votenet_tpu_torch.ops.common import kernel_route
 from votenet_tpu_torch.ops.cuda.batchnorm import (BnChannels, BnCoefficients, bn_apply_cuda, bn_bwd_apply_cuda,
-                                                  bn_bwd_reduce_cuda, bn_channels_cuda, bn_stats_cuda)
+                                                  bn_bwd_reduce_cuda, bn_stats_cuda)
 from votenet_tpu_torch.parallel import comm
 
 
@@ -94,15 +95,16 @@ def layer_rows_plain(h: torch.Tensor, corr: Optional[torch.Tensor] = None,
 
 def bn_stats_plain(x: torch.Tensor, corr: Optional[torch.Tensor] = None, dense_bias: Optional[torch.Tensor] = None,
                    channels: Optional[BnChannels] = None):
-    """Stage 1: per-channel ``sum(x)`` and ``sum(x * x)`` of (R, C) rows, f32;
-    x through the prologue (:func:`layer_rows_plain`). With ``channels`` the
-    statistics' end (:func:`bn_channel_stats_plain`) of them."""
+    """Stage 1: per-channel ``sum(x)`` and ``sum(x * x)`` of (R, C) rows, f32
+    (2, C); x through the prologue (:func:`layer_rows_plain`). With
+    ``channels`` the statistics' end (:func:`bn_channel_stats_plain`) of
+    them."""
     x = layer_rows_plain(x, corr, dense_bias).float()
-    s, sq = x.sum(0), (x * x).sum(0)
-    return (s, sq) if channels is None else bn_channel_stats_plain((s, sq), channels)
+    sums = torch.stack([x.sum(0), (x * x).sum(0)])
+    return sums if channels is None else bn_channel_stats_plain(sums, channels)
 
 
-def bn_channel_stats_plain(sums: Optional[tuple[torch.Tensor, torch.Tensor]], ch: BnChannels) -> torch.Tensor:
+def bn_channel_stats_plain(sums, ch: BnChannels) -> torch.Tensor:
     """The statistics' end, torch ops on C floats (``csrc/batchnorm.cu``'s
     ``stats_end`` gives their bits on the card): from the sums (s, sq) (f32,
     or f64 after a data-parallel all-reduce, rounded to f32 first) ``mean =
@@ -139,20 +141,34 @@ def _max_pool(y: torch.Tensor, S: int) -> tuple[torch.Tensor, torch.Tensor]:
     return ymax, (y3 == ymax[:, None]).sum(1, dtype=torch.int32)
 
 
-def bn_apply_plain(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype,
-                   relu: bool, corr: Optional[torch.Tensor] = None, dense_bias: Optional[torch.Tensor] = None,
-                   pool: int = 0, eval_var: Optional[torch.Tensor] = None, eps: float = 1e-5):
+def _eval_mul(mul, eval_var, eps):
+    """Eval's ``mul = rsqrt(eval_var + eps) * weight`` (``mul`` the BN
+    weight), or ``mul`` itself without ``eval_var``."""
+    return mul if eval_var is None else torch.rsqrt(eval_var + eps) * mul
+
+
+def bn_apply_plain(x: torch.Tensor, mean: Optional[torch.Tensor], mul: Optional[torch.Tensor], bias: torch.Tensor,
+                   dtype: torch.dtype, relu: bool, corr: Optional[torch.Tensor] = None,
+                   dense_bias: Optional[torch.Tensor] = None, pool: int = 0, eval_var: Optional[torch.Tensor] = None,
+                   eps: float = 1e-5, group_sums: Optional[torch.Tensor] = None,
+                   channels: Optional[BnChannels] = None):
     """Stage 2: ``((x - mean) * mul) + bias`` in f32, rounded to ``dtype``,
     then ``torch.relu`` where ``relu``; x through the prologue. With
     ``eval_var`` (eval: ``mean`` the running mean, ``mul`` the BN weight)
-    ``mul = rsqrt(eval_var + eps) * weight`` first. With ``pool`` = S:
-    ``torch.amax`` over each unit of S rows and the int32 count of the rows
-    equal to it, each (R / S, C)."""
-    if eval_var is not None:
-        mul = torch.rsqrt(eval_var + eps) * mul
-    y = _normalized(layer_rows_plain(x, corr, dense_bias), mean, mul, bias, dtype)
+    ``mul = rsqrt(eval_var + eps) * weight`` first. With ``group_sums`` (a
+    data-parallel group's all-reduced stage-1 sums, (2, C)) and
+    ``channels`` in place of mean and mul (None), the statistics' end
+    (:func:`bn_channel_stats_plain`) first, and returns (y, st). With
+    ``pool`` = S: ``torch.amax`` over each unit of S rows and the int32
+    count of the rows equal to it, each (R / S, C), in place of y."""
+    st = None
+    if group_sums is not None:
+        st = bn_channel_stats_plain(group_sums, channels)
+        mean, mul = st[0], st[1]
+    y = _normalized(layer_rows_plain(x, corr, dense_bias), mean, _eval_mul(mul, eval_var, eps), bias, dtype)
     y = torch.relu(y) if relu else y
-    return _max_pool(y, pool) if pool else y
+    out = _max_pool(y, pool) if pool else y
+    return out if st is None else (out, st)
 
 
 def _slot_cotangent(y, gp, ymax, count):
@@ -177,27 +193,35 @@ def bn_bwd_reduce_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, m
                         bias: torch.Tensor, relu: bool, corr: Optional[torch.Tensor] = None,
                         dense_bias: Optional[torch.Tensor] = None,
                         pooled: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-                        coefficients: Optional[BnCoefficients] = None):
+                        coefficients: Optional[BnCoefficients] = None, eval_var: Optional[torch.Tensor] = None,
+                        eps: float = 1e-5):
     """Stage 3: per-channel ``sum(g)`` and ``sum(g * (x - mean))``, g the
-    masked cotangent; x through the prologue; with ``pooled = (ymax,
-    count)``, dy is the pooled cotangent (R / S, C). With ``coefficients``
-    the coefficients' end (:func:`bn_channel_coefficients_plain`) of them."""
+    masked cotangent; x through the prologue; mean, mul and ``eval_var`` as
+    in :func:`bn_apply_plain`; with ``pooled = (ymax, count)``, dy is the
+    pooled cotangent (R / S, C). With ``coefficients`` the coefficients' end
+    (:func:`bn_channel_coefficients_plain`) of them; in eval without
+    ``coefficients.st``, inv is ``rsqrt(eval_var + eps)``."""
     x = layer_rows_plain(x, corr, dense_bias)
-    g = _masked(x, dy, mean, mul, bias, relu, pooled)
+    g = _masked(x, dy, mean, _eval_mul(mul, eval_var, eps), bias, relu, pooled)
     sums = g.sum(0), (g * (x.float() - mean)).sum(0)
-    return sums if coefficients is None else bn_channel_coefficients_plain(sums, coefficients)
+    if coefficients is None:
+        return sums
+    inv = torch.rsqrt(eval_var + eps) if coefficients.st is None else None
+    return bn_channel_coefficients_plain(sums, coefficients, inv)
 
 
 def bn_bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
                        a: Optional[torch.Tensor], b: Optional[torch.Tensor], relu: bool,
                        corr: Optional[torch.Tensor] = None, dense_bias: Optional[torch.Tensor] = None,
-                       pooled: Optional[tuple[torch.Tensor, torch.Tensor]] = None, sums: bool = False):
+                       pooled: Optional[tuple[torch.Tensor, torch.Tensor]] = None, sums: bool = False,
+                       eval_var: Optional[torch.Tensor] = None, eps: float = 1e-5):
     """Stage 4: ``((g * mul) + a) + (b * x)`` (``g * mul`` without a and b:
-    eval) in x's dtype; x, g as in :func:`bn_bwd_reduce_plain`. With
-    ``sums`` also the prologue's cotangents, (dx, d_corr, d_dense_bias):
-    :func:`prologue_cotangents_plain`."""
+    eval) in x's dtype; x, g, mul and ``eval_var`` as in
+    :func:`bn_bwd_reduce_plain`. With ``sums`` also the prologue's
+    cotangents, (dx, d_corr, d_dense_bias): :func:`prologue_cotangents_plain`."""
     h = x
     x = layer_rows_plain(x, corr, dense_bias)
+    mul = _eval_mul(mul, eval_var, eps)
     g = _masked(x, dy, mean, mul, bias, relu, pooled)
     dx = g * mul if a is None else (g * mul + a) + b * x.float()
     dx = dx.to(x.dtype)
@@ -222,11 +246,11 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _stages(x: torch.Tensor):
-    """(stats, channels, apply, bwd_reduce, bwd_apply) for x's device. Looked
-    up at each call, so that a test can substitute a stage."""
+    """(stats, apply, bwd_reduce, bwd_apply) for x's device. Looked up at each
+    call, so that a test can substitute a stage."""
     if kernel_route(x, "batch_norm_relu") == "cuda":
-        return bn_stats_cuda, bn_channels_cuda, bn_apply_cuda, bn_bwd_reduce_cuda, bn_bwd_apply_cuda
-    return bn_stats_plain, bn_channel_stats_plain, bn_apply_plain, bn_bwd_reduce_plain, bn_bwd_apply_plain
+        return bn_stats_cuda, bn_apply_cuda, bn_bwd_reduce_cuda, bn_bwd_apply_cuda
+    return bn_stats_plain, bn_apply_plain, bn_bwd_reduce_plain, bn_bwd_apply_plain
 
 
 def bn_input_coefficients(sum_g, sum_gx, mean, mul, inv, weight, var_raw, count: int):
@@ -244,15 +268,19 @@ def bn_input_coefficients(sum_g, sum_gx, mean, mul, inv, weight, var_raw, count:
     return d_s, 2.0 * d_sq
 
 
-def bn_channel_coefficients_plain(sums: tuple[torch.Tensor, torch.Tensor], co: BnCoefficients) -> torch.Tensor:
+def bn_channel_coefficients_plain(sums: tuple[torch.Tensor, torch.Tensor], co: BnCoefficients,
+                                  inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The coefficients' end, torch ops on C floats (``csrc/batchnorm.cu``'s
     ``coef_end`` gives their bits on the card): from stage 3's sums
-    (``sum_g``, ``sum_gx``) and the statistics' end's (4, C) output, (4, C)
-    f32: a and b (:func:`bn_input_coefficients`; zeros in eval), the BN
-    weight's cotangent ``sum_gx * inv`` and the BN bias's ``sum_g``."""
+    (``sum_g``, ``sum_gx``) and the statistics' end's (4, C) output (in eval
+    ``inv`` in its place where ``co.st`` is None), (4, C) f32: a and b
+    (:func:`bn_input_coefficients`; zeros in eval), the BN weight's
+    cotangent ``sum_gx * inv`` and the BN bias's ``sum_g``."""
     sum_g, sum_gx = sums
-    mean, mul, inv, var_raw = co.st
+    if co.st is not None:
+        inv = co.st[2]
     if co.training:
+        mean, mul, _, var_raw = co.st
         a, b = bn_input_coefficients(sum_g, sum_gx, mean, mul, inv, co.weight, var_raw, co.count)
     else:
         a = b = torch.zeros_like(sum_g)
@@ -263,12 +291,13 @@ class _BatchNormReLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, corr, dense_bias, weight, bias, running, training, momentum, eps, group, update_stats, dtype,
                 relu, pool):
-        stats, channels, apply, _, _ = _stages(h)
+        stats, apply, _, _ = _stages(h)
         rows = _rows(h)
         C = h.shape[-1]
         if dense_bias is not None and dense_bias.dtype != torch.float32:
             dense_bias = dense_bias.float()  # the stages take the f32 bias and round it to h's dtype
         pro = dict(corr=None if corr is None else _rows(corr), dense_bias=dense_bias)
+        at = dict(pro, pool=h.shape[-2]) if pool else pro  # stage 2's
         running_mean, running_var = running
         count = rows.shape[0] * comm.size(group)
         st = None
@@ -276,43 +305,38 @@ class _BatchNormReLU(torch.autograd.Function):
             ch = BnChannels(count, weight, eps, momentum, running_mean, running_var, update_stats)
             if group is None:
                 st = stats(rows, **pro, channels=ch)  # the statistics' end at the end of stage 1
-            else:  # in f64: the group's sums as one process's, then the end alone
-                s, sq = stats(rows, **pro)
-                st = channels(comm.all_reduce(torch.cat([s, sq]).double(), group).chunk(2), ch)
-            avec = dict(mean=st[0], mul=st[1])
+                out = apply(rows, st[0], st[1], bias, dtype, relu, **at)
+            else:  # in f64: the group's sums as one process's, summed in place; stage 2 runs the end
+                sums = stats(rows, **pro).double()
+                comm.all_reduce_([sums], group)
+                out, st = apply(rows, None, None, bias, dtype, relu, **at, group_sums=sums, channels=ch)
         else:  # stage 2 forms mul from the running statistics
-            avec = dict(mean=running_mean, mul=weight, eval_var=running_var, eps=eps)
-        ymax = slots = None
-        if pool:
-            ymax, slots = apply(rows, bias=bias, dtype=dtype, relu=relu, **avec, **pro, pool=h.shape[-2])
-            y = ymax.view(*h.shape[:-2], C)
-        else:
-            y = apply(rows, bias=bias, dtype=dtype, relu=relu, **avec, **pro).view(h.shape)
+            out = apply(rows, running_mean, weight, bias, dtype, relu, **at, eval_var=running_var, eps=eps)
+        ymax, slots = out if pool else (None, None)
+        y = ymax.view(*h.shape[:-2], C) if pool else out.view(h.shape)
         eval_stats = (None, None) if training else (running_mean, running_var)  # read by an eval backward
         ctx.save_for_backward(h, corr, dense_bias, weight, bias, st, *eval_stats, ymax, slots)
-        ctx.count, ctx.group, ctx.relu, ctx.eps, ctx.momentum = count, group, relu, eps, momentum
+        ctx.count, ctx.group, ctx.relu, ctx.eps = count, group, relu, eps
         return y
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
-        h, corr, dense_bias, weight, bias, st, running_mean, running_var, ymax, slots = ctx.saved_tensors
-        _, channels, _, bwd_reduce, bwd_apply = _stages(h)
+        h, corr, dense_bias, weight, bias, st, running_mean, eval_var, ymax, slots = ctx.saved_tensors
+        _, _, bwd_reduce, bwd_apply = _stages(h)
         training = st is not None
-        if not training:  # eval: the statistics from the running ones, as stage 2 formed them
-            st = channels(None, BnChannels(ctx.count, weight, ctx.eps, ctx.momentum, running_mean, running_var,
-                                           False))
-        mean, mul = st[0], st[1]
+        # eval: the stages form mul from the running statistics, as stage 2 did
+        mean, mul = (st[0], st[1]) if training else (running_mean, weight)
         rows, dy_rows = _rows(h), _rows(dy.contiguous())
         pro = dict(corr=None if corr is None else _rows(corr), dense_bias=dense_bias,
-                   pooled=None if ymax is None else (ymax, slots))
+                   pooled=None if ymax is None else (ymax, slots), eval_var=eval_var, eps=ctx.eps)
         co = bwd_reduce(rows, dy_rows, mean, mul, bias, ctx.relu, **pro,
                         coefficients=BnCoefficients(st, weight, ctx.count, training))
         a = b = None
         if training:
+            # the sums' cotangents over the group, in place (b: twice sq's, doubling commutes)
+            comm.all_reduce_([co[:2]], ctx.group)
             a, b = co[0], co[1]
-            if ctx.group is not None:  # the sums' cotangents over the group (b: twice sq's, doubling commutes)
-                a, b = comm.all_reduce(co[:2].reshape(-1), ctx.group).chunk(2)
         d_h = d_corr = d_bias = None
         need_h, need_corr, need_bias = ctx.needs_input_grad[:3]
         if need_h or need_corr or need_bias:

@@ -1,9 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``votenet_tpu_torch/csrc/*.cu`` are compiled on first use into one shared
-library with a plain C interface, ``build/libvotenet_kernels_<hash>.so``
-inside the package, and loaded with :mod:`ctypes`. The hash covers the
-sources and the flags, so an edited source builds anew and an unchanged one
+``votenet_tpu_torch/csrc/*.cu`` (and the ``*.cuh`` headers they include) are
+compiled on first use into one shared library with a plain C interface,
+``build/libvotenet_kernels_<hash>.so`` inside the package, and loaded with
+:mod:`ctypes`. The hash covers the sources, the headers and the flags, so an edited source builds anew and an unchanged one
 is loaded as built. Nothing here runs at import time: this module is
 imported on machines without ``nvcc`` or a GPU, where only the plain PyTorch
 versions of the kernels run.
@@ -59,7 +59,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvotenet_kernels_{h.hexdigest()[:16]}.so"
@@ -122,25 +122,28 @@ def library() -> ctypes.CDLL:
             lib.votenet_decode.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr,
                                            ptr, ptr]
             lib.votenet_decode.restype = i32
+            lib.votenet_decode_iou.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, i32, ctypes.c_longlong,
+                                               ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+            lib.votenet_decode_iou.restype = i32
             # R, C, vec, W, ctas, tiles, units a CTA (after the prologue's corr, dense bias and S)
             bn_plan = [i64, i32, i32, i32, i32, i32, i64]
             bn_pro = [ptr, ptr, i32]
             # the statistics' end: st, weight, running mean and var, update, 1 / count, eps, momentum, 1 - momentum
             bn_stats_end = [ptr, ptr, ptr, ptr, i32, f32, f32, f32, f32]
             lib.votenet_bn_stats.argtypes = [ptr, i32, *bn_pro, *bn_plan, i32, ptr, ptr, ptr, ptr, *bn_stats_end, ptr]
+            # ..., mean, mul, bias, eval_var, eps, relu, the group's sums and the statistics' end
             lib.votenet_bn_apply.argtypes = [ptr, i32, *bn_pro, ptr, i32, ptr, *bn_plan, ptr, ptr, ptr, ptr, f32, i32,
-                                             ptr]
+                                             ptr, *bn_stats_end, ptr]
             bn_dy = [ptr, i32, ptr, ptr]  # dy, its bf16 flag, the pool's maxima and counts
-            # sums, the coefficients' end (out, st, weight, 1 / count, training)
-            lib.votenet_bn_bwd_reduce.argtypes = [ptr, i32, *bn_pro, *bn_dy, *bn_plan, i32, ptr, ptr, ptr, i32,
-                                                  ptr, ptr, ptr, ptr, ptr, ptr, ptr, f32, i32, ptr]
-            # ..., a, b, relu, the epilogue (0, 1 or 2), its d_corr and d_dense_bias, its tree's workspace,
-            # tickets and fan-in
-            lib.votenet_bn_bwd_apply.argtypes = [ptr, i32, *bn_pro, *bn_dy, ptr, *bn_plan, ptr, ptr, ptr, ptr, ptr,
-                                                 i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
-            lib.votenet_bn_channels.argtypes = [ptr, ptr, i32, *bn_stats_end, ptr]
-            for fn in (lib.votenet_bn_stats, lib.votenet_bn_apply, lib.votenet_bn_bwd_reduce, lib.votenet_bn_bwd_apply,
-                       lib.votenet_bn_channels):
+            # ..., mean, mul, bias, eval_var, eps, relu, the workspace, tickets, sums, the coefficients' end (out,
+            # st, weight, 1 / count, training)
+            lib.votenet_bn_bwd_reduce.argtypes = [ptr, i32, *bn_pro, *bn_dy, *bn_plan, i32, ptr, ptr, ptr, ptr, f32,
+                                                  i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, f32, i32, ptr]
+            # ..., mean, mul, bias, eval_var, eps, a, b, relu, the epilogue (0, 1 or 2), its d_corr and
+            # d_dense_bias, its tree's workspace, tickets and fan-in
+            lib.votenet_bn_bwd_apply.argtypes = [ptr, i32, *bn_pro, *bn_dy, ptr, *bn_plan, ptr, ptr, ptr, ptr, f32,
+                                                 ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
+            for fn in (lib.votenet_bn_stats, lib.votenet_bn_apply, lib.votenet_bn_bwd_reduce, lib.votenet_bn_bwd_apply):
                 fn.restype = i32
             lib.votenet_error_string.argtypes = [i32]
             lib.votenet_error_string.restype = ctypes.c_char_p

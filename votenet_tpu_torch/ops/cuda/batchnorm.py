@@ -14,10 +14,11 @@ autograd op.
 
 The per-channel end runs inside the kernels: K1's last CTA turns its sums
 into the statistics and moves the running statistics (``channels=``), K3's
-into the backward's coefficients (``coefficients=``), K2 forms eval's mul
-from the running statistics (``eval_var=``), and K4 writes the prologue's
-cotangents (``sums=True``); ``bn_channels_cuda`` runs the statistics' end
-alone, one CTA, after a data-parallel all-reduce or for an eval backward.
+into the backward's coefficients (``coefficients=``), K2, K3 and K4 form
+eval's mul from the running statistics (``eval_var=``), K2 runs the
+statistics' end from a data-parallel group's all-reduced sums
+(``group_sums=``, ``channels=``), and K4 writes the prologue's cotangents
+(``sums=True``).
 
 Each wrapper checks what its kernel takes (contiguous CUDA tensors on one
 device: a non-contiguous one raises, it is not copied), allocates its
@@ -26,8 +27,9 @@ error, and adds one to its count: ``.launches`` for the kernel over full
 rows, ``bn_apply_cuda.pool.launches`` for K2's pool variant and
 ``bn_bwd_*_cuda.pooled.launches`` for K3 and K4 at a pooled site,
 ``bn_bwd_apply_cuda.sums.launches`` for a K4 launch that wrote the
-prologue's cotangents (either variant), ``bn_channels_cuda.launches``; a
-launch with a prologue also adds one to ``PROLOGUE_LAUNCHES["centre"]``
+prologue's cotangents (either variant), ``bn_apply_cuda.group.launches``
+for a K2 launch that ran the statistics' end (either variant); a launch
+with a prologue also adds one to ``PROLOGUE_LAUNCHES["centre"]``
 (corr given) or ``["bias"]`` (the dense bias alone). Given a tensor that is
 not on a CUDA device it raises; it never computes the plain version.
 """
@@ -88,8 +90,9 @@ def bn_plan(R: int, C: int, vec: bool, sms: int, kind: str, S: int = 1,
     ``BN_CTAS_PER_SM[kind] * sms`` over all tiles (the kinds are listed
     there). A reduction adds its CTAs' partials in blocks of ``fan_in =
     ceil(sqrt(CTAs))`` consecutive CTAs, then the blocks' sums (0 for the
-    apply kernels). Depends on the shape and the SM count alone, so
-    a reduction's order is the same in every run on one card."""
+    apply kernels). No rows: one CTA a channel tile, which takes none (a
+    kernel's per-channel end alone). Depends on the shape and the SM count
+    alone, so a reduction's order is the same in every run on one card."""
     if R % S:
         raise ValueError(f"bn_plan: {R} rows are not units of {S}")
     lanes = C // width if vec else C
@@ -97,6 +100,8 @@ def bn_plan(R: int, C: int, vec: bool, sms: int, kind: str, S: int = 1,
     groups = BN_THREADS // W
     tiles = -(-lanes // W)
     units = R // S
+    if units == 0:
+        return W, 1, tiles, 1, 1 if kind.startswith("reduce") else 0
     min_units = -(-BN_MIN_ROWS // S)
     ctas = max(1, min(-(-units // (groups * min_units)), BN_CTAS_PER_SM[kind] * sms // tiles))
     per_cta = -(-units // ctas)
@@ -134,7 +139,7 @@ def _check_same_device(name: str, x, **tensors) -> None:
 
 
 class BnChannels(NamedTuple):
-    """The statistics' end's inputs (K1's ``channels=``, ``bn_channels_cuda``,
+    """The statistics' end's inputs (K1's and K2's ``channels=``,
     ``ops.batchnorm.bn_channel_stats_plain``): the row count (the group's),
     the BN weight, eps, the momentum and the running statistics (f32 (C,)),
     which move in place when ``update``."""
@@ -150,8 +155,9 @@ class BnChannels(NamedTuple):
 class BnCoefficients(NamedTuple):
     """The coefficients' end's inputs (K3's ``coefficients=``,
     ``ops.batchnorm.bn_channel_coefficients_plain``): the statistics' end's
-    (4, C) output (mean, mul, inv, var_raw), the BN weight, the row count
-    (the group's) and whether a and b are wanted (training)."""
+    (4, C) output (mean, mul, inv, var_raw; None in eval, where the end forms
+    inv from the running variance), the BN weight, the row count (the
+    group's) and whether a and b are wanted (training)."""
     st: torch.Tensor
     weight: torch.Tensor
     count: int
@@ -267,8 +273,7 @@ def _channel_vectors(name: str, device, C: int, ch) -> None:
 
 
 def _stats_args(st, ch: Optional[BnChannels]) -> list:
-    """K1's and bn_channels' arguments of the statistics' end (nulls without
-    one)."""
+    """K1's and K2's arguments of the statistics' end (nulls without one)."""
     if ch is None:
         return [None, None, None, None, 0, 0.0, 0.0, 0.0, 0.0]
     inv_count, eps, f_old, f_new = channel_scalars(ch.count, ch.eps, ch.momentum)
@@ -278,23 +283,23 @@ def _stats_args(st, ch: Optional[BnChannels]) -> list:
 
 def bn_stats_cuda(x: torch.Tensor, corr: torch.Tensor | None = None, dense_bias: torch.Tensor | None = None,
                   channels: BnChannels | None = None):
-    """K1: per-channel ``sum(x)`` and ``sum(x * x)`` (f64, (C,) each),
-    x = ``(h - corr[unit]) + dense_bias`` in h's dtype (either term
-    optional; the dense bias f32, rounded to h's dtype) of a contiguous (R,
-    C) f32 or bf16 CUDA tensor h, added in f64 in the kernel's fixed order.
-    With ``channels`` the kernel's last CTA runs the statistics' end: returns
-    (4, C) f32, mean, mul, inv and var_raw (``ops.batchnorm.
-    bn_channel_stats_plain``'s bits on the card), and moves the running
-    statistics in place when ``channels.update``. Adds one to
-    ``bn_stats_cuda.launches``."""
+    """K1: per-channel ``sum(x)`` and ``sum(x * x)``, (2, C) f64, x = ``(h -
+    corr[unit]) + dense_bias`` in h's dtype (either term optional; the dense
+    bias f32, rounded to h's dtype) of a contiguous (R, C) f32 or bf16 CUDA
+    tensor h, added in f64 in the kernel's fixed order. With ``channels``
+    the kernel's last CTA runs the statistics' end: returns (4, C) f32,
+    mean, mul, inv and var_raw (``ops.batchnorm.bn_channel_stats_plain``'s
+    bits on the card), and moves the running statistics in place when
+    ``channels.update``; without rows, one CTA that takes none runs it on
+    zero sums. Adds one to ``bn_stats_cuda.launches`` (none for the sums of
+    no rows, which are zeros)."""
     _check_rows("bn_stats_cuda", x)
     R, C = x.shape
     S = _prologue("bn_stats_cuda", x, corr, dense_bias)
     if channels is not None:
         _channel_vectors("bn_stats_cuda", x.device, C, channels)
-    if x.numel() == 0:
-        sums = torch.zeros((2, C), dtype=torch.float64, device=x.device)
-        return (sums[0], sums[1]) if channels is None else bn_channels_cuda((sums[0], sums[1]), channels)
+    if x.numel() == 0 and channels is None:
+        return torch.zeros((2, C), dtype=torch.float64, device=x.device)
     vec = _vec(C, x, corr)
     plan = bn_plan(R, C, vec, sm_count(x.device.index), "reduce", S)
     W, ctas, tiles, per_cta, fan_in = plan
@@ -313,59 +318,54 @@ def bn_stats_cuda(x: torch.Tensor, corr: torch.Tensor | None = None, dense_bias:
     bn_stats_cuda.launches += 1
     _count_prologue(corr, dense_bias)
     if channels is not None and channels.update:
-        torch.autograd.graph.increment_version(channels.running_mean)  # moved in place by the kernel
-        torch.autograd.graph.increment_version(channels.running_var)
-    return (sums[0], sums[1]) if channels is None else st
+        _moved(channels)
+    return sums if channels is None else st
 
 
-def bn_channels_cuda(sums: tuple[torch.Tensor, torch.Tensor] | None, channels: BnChannels) -> torch.Tensor:
-    """The statistics' end alone, one CTA: from f64 sums (s, sq) (C,) each (a
-    data-parallel group's, after their all-reduce), or with ``sums`` None
-    from the running statistics (eval: mean the running mean, mul and inv
-    from the running variance). Returns (4, C) f32: mean, mul, inv, var_raw
-    (0 in eval); moves the running statistics in place when
-    ``channels.update`` (never in eval). Adds one to
-    ``bn_channels_cuda.launches``."""
-    device = channels.weight.device
-    C = channels.weight.shape[0]
-    _channel_vectors("bn_channels_cuda", device, C, channels)
-    if sums is not None:
-        for what, t in zip(("s", "sq"), sums):
-            if not isinstance(t, torch.Tensor) or t.dtype != torch.float64 or t.shape != (C,) or t.device != device \
-                    or not t.is_contiguous():
-                raise ValueError(f"bn_channels_cuda: {what} must be a contiguous ({C},) float64 tensor on {device}")
-    elif channels.update:
-        raise ValueError("bn_channels_cuda: the running statistics move only from a batch's sums")
-    st = torch.empty((4, C), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = library().votenet_bn_channels(
-            *((None, None) if sums is None else (sums[0].data_ptr(), sums[1].data_ptr())), C,
-            *_stats_args(st, channels), torch.cuda.current_stream().cuda_stream)
-    check_launch(err, "bn_channels")
-    bn_channels_cuda.launches += 1
-    if channels.update:
-        torch.autograd.graph.increment_version(channels.running_mean)
-        torch.autograd.graph.increment_version(channels.running_var)
-    return st
+def _moved(channels: BnChannels) -> None:
+    """Bump the autograd versions of the running statistics a kernel moved
+    in place."""
+    torch.autograd.graph.increment_version(channels.running_mean)
+    torch.autograd.graph.increment_version(channels.running_var)
 
 
-def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype,
-                  relu: bool, corr: torch.Tensor | None = None, dense_bias: torch.Tensor | None = None,
-                  pool: int = 0, eval_var: torch.Tensor | None = None, eps: float = 1e-5):
+def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor | None, mul: torch.Tensor | None, bias: torch.Tensor,
+                  dtype: torch.dtype, relu: bool, corr: torch.Tensor | None = None,
+                  dense_bias: torch.Tensor | None = None, pool: int = 0, eval_var: torch.Tensor | None = None,
+                  eps: float = 1e-5, group_sums: torch.Tensor | None = None, channels: BnChannels | None = None):
     """K2: ``y = ((x - mean) * mul) + bias`` rounded to ``dtype``, then the
     ReLU where ``relu``, x as in :func:`bn_stats_cuda`, the rest f32 (C,).
     With ``eval_var`` (eval: ``mean`` the running mean, ``mul`` the BN
     weight) the kernel forms ``mul = rsqrt(eval_var + eps) * weight`` itself.
-    With ``pool`` = S, the pool variant: each unit of S rows' max of y
-    (torch.amax's) and the int32 count of its rows equal to it, each (R / S,
-    C); the full y is not written; in bf16 with C % 8 == 0, 8 channels a
-    lane. Equal to ``ops.batchnorm.bn_apply_plain`` on the card. Adds one to
-    ``bn_apply_cuda.launches`` (or ``.pool.launches``)."""
+    With ``group_sums`` (a data-parallel group's all-reduced K1 sums, (2, C)
+    f64) and ``channels`` in place of mean and mul (None), every CTA runs the
+    statistics' end on the sums (``ops.batchnorm.bn_channel_stats_plain``'s
+    bits on the card) and the first along the rows writes it and moves the
+    running statistics in place when ``channels.update``; returns (y, st),
+    st the (4, C) f32 mean, mul, inv and var_raw (without rows, one CTA that
+    takes none runs the end). With ``pool`` = S, the pool variant: each unit
+    of S rows' max of y (torch.amax's) and the int32 count of its rows equal
+    to it, each (R / S, C), in place of y; the full y is not written; in
+    bf16 with C % 8 == 0, 8 channels a lane. Equal to
+    ``ops.batchnorm.bn_apply_plain`` on the card. Adds one to
+    ``bn_apply_cuda.launches`` (or ``.pool.launches``), and with the group's
+    sums to ``bn_apply_cuda.group.launches``."""
     _check_rows("bn_apply_cuda", x)
     R, C = x.shape
     S = _prologue("bn_apply_cuda", x, corr, dense_bias)
-    _check_channels("bn_apply_cuda", x.device, C, mean=mean, mul=mul, bias=bias,
-                    **({} if eval_var is None else dict(eval_var=eval_var)))
+    if (group_sums is None) != (channels is None) or (group_sums is None) == (mean is None or mul is None):
+        raise ValueError("bn_apply_cuda: mean and mul, or group_sums and channels")
+    if group_sums is None:
+        _check_channels("bn_apply_cuda", x.device, C, mean=mean, mul=mul, bias=bias,
+                        **({} if eval_var is None else dict(eval_var=eval_var)))
+    else:
+        if eval_var is not None:
+            raise ValueError("bn_apply_cuda: eval_var takes no group sums (eval normalises by the running statistics)")
+        _check_channels("bn_apply_cuda", x.device, C, bias=bias)
+        _channel_vectors("bn_apply_cuda", x.device, C, channels)
+        if (not isinstance(group_sums, torch.Tensor) or group_sums.dtype != torch.float64
+                or group_sums.shape != (2, C) or not group_sums.is_contiguous() or group_sums.device != x.device):
+            raise ValueError(f"bn_apply_cuda: group_sums must be a contiguous (2, {C}) float64 tensor on {x.device}")
     if dtype not in BN_DTYPES:
         raise ValueError(f"bn_apply_cuda: output dtype must be float32 or bfloat16, got {dtype}")
     if pool:
@@ -374,8 +374,10 @@ def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: 
         S = pool
     y = torch.empty((R // S if pool else R, C), dtype=dtype, device=x.device)
     count = torch.empty((R // S, C), dtype=torch.int32, device=x.device) if pool else None
-    if x.numel() == 0:
-        return (y, count) if pool else y
+    out = (y, count) if pool else y
+    st = None if channels is None else torch.empty((4, C), dtype=torch.float32, device=x.device)
+    if x.numel() == 0 and st is None:
+        return out
     wide = bool(pool) and _wide(x, y, corr, count)
     vec = wide or _vec(C, x, y, corr, count)
     W, ctas, tiles, per_cta, _ = bn_plan(R, C, vec, sm_count(x.device.index), "apply_wide" if wide else "apply", S,
@@ -383,39 +385,51 @@ def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: 
     with torch.cuda.device(x.device):
         err = library().votenet_bn_apply(
             x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, y.data_ptr(), _bf16(y), _ptr(count), R, C,
-            8 if wide else 4 if vec else 1, W, ctas, tiles, per_cta, mean.data_ptr(), mul.data_ptr(),
-            bias.data_ptr(), _ptr(eval_var), float(eps), int(relu), torch.cuda.current_stream().cuda_stream)
+            8 if wide else 4 if vec else 1, W, ctas, tiles, per_cta, _ptr(mean), _ptr(mul), bias.data_ptr(),
+            _ptr(eval_var), float(eps), int(relu), _ptr(group_sums), *_stats_args(st, channels),
+            torch.cuda.current_stream().cuda_stream)
     check_launch(err, "bn_apply_pool" if pool else "bn_apply")
     (bn_apply_cuda.pool if pool else bn_apply_cuda).launches += 1
     _count_prologue(corr, dense_bias)
-    return (y, count) if pool else y
+    if st is None:
+        return out
+    bn_apply_cuda.group.launches += 1
+    if channels.update:
+        _moved(channels)
+    return out, st
 
 
 def bn_bwd_reduce_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
                        relu: bool, corr: torch.Tensor | None = None, dense_bias: torch.Tensor | None = None,
                        pooled: tuple[torch.Tensor, torch.Tensor] | None = None,
-                       coefficients: BnCoefficients | None = None):
-    """K3: per-channel ``sum(g)`` and ``sum(g * (x - mean))`` (f32, (C,)
-    each), x as in :func:`bn_stats_cuda`, g = dy with the ReLU's mask
-    recomputed from x (zero where the pre-ReLU output, in dy's dtype, is <=
-    0). dy is (R, C) f32 or bf16, or with ``pooled = (ymax, count)`` (K2's
-    pool outputs) the pooled cotangent, (R / S, C), which each row takes as
-    torch.amax's backward gives it (in bf16 with C % 8 == 0, 8 channels a
-    lane). With ``coefficients`` the kernel's last CTA runs the
-    coefficients' end: returns (4, C) f32, a and b (training only; else
-    left unwritten), the BN weight's cotangent ``sum_gx * inv`` and the BN
-    bias's ``sum_g`` (``ops.batchnorm.bn_channel_coefficients_plain``'s bits
-    on the card). Adds one to ``bn_bwd_reduce_cuda.launches`` (or
-    ``.pooled.launches``)."""
+                       coefficients: BnCoefficients | None = None, eval_var: torch.Tensor | None = None,
+                       eps: float = 1e-5):
+    """K3: per-channel ``sum(g)`` and ``sum(g * (x - mean))`` (f32, (C,) each),
+    x as in :func:`bn_stats_cuda`, g = dy with the ReLU's mask recomputed
+    from x (zero where the pre-ReLU output, in dy's dtype, is <= 0); mean,
+    mul and ``eval_var`` as in :func:`bn_apply_cuda`. dy is (R, C) f32 or
+    bf16, or with ``pooled = (ymax, count)`` (K2's pool outputs) the pooled
+    cotangent, (R / S, C), which each row takes as torch.amax's backward
+    gives it (in bf16 with C % 8 == 0, 8 channels a lane). With
+    ``coefficients`` the kernel's last CTA runs the coefficients' end:
+    returns (4, C) f32, a and b (training only; else left unwritten), the
+    BN weight's cotangent ``sum_gx * inv`` and the BN bias's ``sum_g``
+    (``ops.batchnorm.bn_channel_coefficients_plain``'s bits on the card; in
+    eval with ``coefficients.st`` None, inv is ``rsqrt(eval_var + eps)``).
+    Adds one to ``bn_bwd_reduce_cuda.launches`` (or ``.pooled.launches``)."""
     _check_rows("bn_bwd_reduce_cuda", x)
     R, C = x.shape
     S = _pooled("bn_bwd_reduce_cuda", x, dy, pooled, _prologue("bn_bwd_reduce_cuda", x, corr, dense_bias))
-    _check_channels("bn_bwd_reduce_cuda", x.device, C, mean=mean, mul=mul, bias=bias)
+    _check_channels("bn_bwd_reduce_cuda", x.device, C, mean=mean, mul=mul, bias=bias,
+                    **({} if eval_var is None else dict(eval_var=eval_var)))
     co = None
     if coefficients is not None:
         _check_channels("bn_bwd_reduce_cuda", x.device, C, weight=coefficients.weight)
         st = coefficients.st
-        if st.dtype != torch.float32 or st.shape != (4, C) or not st.is_contiguous() or st.device != x.device:
+        if st is None:
+            if coefficients.training or eval_var is None:
+                raise ValueError("bn_bwd_reduce_cuda: coefficients without st need eval_var, and not training")
+        elif st.dtype != torch.float32 or st.shape != (4, C) or not st.is_contiguous() or st.device != x.device:
             raise ValueError(f"bn_bwd_reduce_cuda: coefficients.st must be a contiguous (4, {C}) float32 tensor")
         co = torch.zeros((4, C), dtype=torch.float32, device=x.device) if x.numel() == 0 else \
             torch.empty((4, C), dtype=torch.float32, device=x.device)
@@ -435,13 +449,13 @@ def bn_bwd_reduce_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mu
     if coefficients is None:
         end = [None, None, 0.0, 0]
     else:
-        end = [coefficients.st.data_ptr(), coefficients.weight.data_ptr(),
+        end = [_ptr(coefficients.st), coefficients.weight.data_ptr(),
                channel_scalars(coefficients.count, 0.0, 0.0)[0], int(coefficients.training)]
     with torch.cuda.device(x.device):
         err = library().votenet_bn_bwd_reduce(
             x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, dy.data_ptr(), _bf16(dy), _ptr(ymax),
             _ptr(count), R, C, 8 if wide else 4 if vec else 1, W, ctas, tiles, per_cta, fan_in, mean.data_ptr(),
-            mul.data_ptr(), bias.data_ptr(), int(relu), ws.data_ptr(), tickets.data_ptr(),
+            mul.data_ptr(), bias.data_ptr(), _ptr(eval_var), float(eps), int(relu), ws.data_ptr(), tickets.data_ptr(),
             _ptr(None if sums is None else sums[0]), _ptr(None if sums is None else sums[1]), _ptr(co), *end,
             stream.cuda_stream)
     check_launch(err, "bn_bwd_reduce")
@@ -453,24 +467,27 @@ def bn_bwd_reduce_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mu
 def bn_bwd_apply_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
                       a: torch.Tensor | None, b: torch.Tensor | None, relu: bool, corr: torch.Tensor | None = None,
                       dense_bias: torch.Tensor | None = None,
-                      pooled: tuple[torch.Tensor, torch.Tensor] | None = None, sums: bool = False):
+                      pooled: tuple[torch.Tensor, torch.Tensor] | None = None, sums: bool = False,
+                      eval_var: torch.Tensor | None = None, eps: float = 1e-5):
     """K4: ``dx = ((g * mul) + a) + (b * x)`` (``g * mul`` where a and b are
     None: eval) in h's dtype, x and g as in :func:`bn_bwd_reduce_cuda`
-    (dx is the cotangent of x, and so of h). Equal to
-    ``ops.batchnorm.bn_bwd_apply_plain`` on the card. With ``sums`` the
-    epilogue, and returns (dx, d_corr, d_dense_bias): corr's cotangent
-    ``-sum(dx)`` over each unit (corr's shape and dtype; None without corr)
-    and the dense bias's ``sum(dx)`` over the rows (f32 (C,) holding a value
-    of h's dtype; None without a dense bias), each the f64 sum of the
-    rounded dx values in the kernel's order rounded once. Adds one to
-    ``bn_bwd_apply_cuda.launches`` (or ``.pooled.launches``), and with the
-    epilogue to ``bn_bwd_apply_cuda.sums.launches``."""
+    (dx is the cotangent of x, and so of h); mean, mul and ``eval_var`` as in
+    :func:`bn_apply_cuda`. Equal to ``ops.batchnorm.bn_bwd_apply_plain`` on
+    the card. With ``sums`` the epilogue, and returns (dx, d_corr,
+    d_dense_bias): corr's cotangent ``-sum(dx)`` over each unit (corr's
+    shape and dtype; None without corr) and the dense bias's ``sum(dx)``
+    over the rows (f32 (C,) holding a value of h's dtype; None without a
+    dense bias), each the f64 sum of the rounded dx values in the kernel's
+    order rounded once. Adds one to ``bn_bwd_apply_cuda.launches`` (or
+    ``.pooled.launches``), and with the epilogue to
+    ``bn_bwd_apply_cuda.sums.launches``."""
     _check_rows("bn_bwd_apply_cuda", x)
     R, C = x.shape
     S = _pooled("bn_bwd_apply_cuda", x, dy, pooled, _prologue("bn_bwd_apply_cuda", x, corr, dense_bias))
     if (a is None) != (b is None):
         raise ValueError("bn_bwd_apply_cuda: a and b both or none")
-    vectors = dict(mean=mean, mul=mul, bias=bias) | ({} if a is None else dict(a=a, b=b))
+    vectors = (dict(mean=mean, mul=mul, bias=bias) | ({} if a is None else dict(a=a, b=b))
+               | ({} if eval_var is None else dict(eval_var=eval_var)))
     _check_channels("bn_bwd_apply_cuda", x.device, C, **vectors)
     ymax, count = pooled if pooled is not None else (None, None)
     dx = torch.empty_like(x)
@@ -490,8 +507,8 @@ def bn_bwd_apply_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mul
         err = library().votenet_bn_bwd_apply(
             x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, dy.data_ptr(), _bf16(dy), _ptr(ymax),
             _ptr(count), dx.data_ptr(), R, C, 4 if vec else 1, W, ctas, tiles, per_cta, mean.data_ptr(),
-            mul.data_ptr(), bias.data_ptr(), _ptr(a), _ptr(b), int(relu), epi, _ptr(d_corr), _ptr(d_bias),
-            _ptr(ws), _ptr(tickets), fan_in, stream.cuda_stream)
+            mul.data_ptr(), bias.data_ptr(), _ptr(eval_var), float(eps), _ptr(a), _ptr(b), int(relu), epi,
+            _ptr(d_corr), _ptr(d_bias), _ptr(ws), _ptr(tickets), fan_in, stream.cuda_stream)
     check_launch(err, "bn_bwd_apply")
     (bn_bwd_apply_cuda.pooled if pooled is not None else bn_bwd_apply_cuda).launches += 1
     if tree:
@@ -501,11 +518,11 @@ def bn_bwd_apply_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mul
 
 
 bn_stats_cuda.launches = 0
-bn_channels_cuda.launches = 0
 bn_apply_cuda.launches = 0
 bn_bwd_reduce_cuda.launches = 0
 bn_bwd_apply_cuda.launches = 0
 bn_apply_cuda.pool = SimpleNamespace(launches=0)  # the pool variant's own count
+bn_apply_cuda.group = SimpleNamespace(launches=0)  # K2 launches that ran the statistics' end (either variant)
 bn_bwd_reduce_cuda.pooled = SimpleNamespace(launches=0)  # at a pooled site
 bn_bwd_apply_cuda.pooled = SimpleNamespace(launches=0)
 bn_bwd_apply_cuda.sums = SimpleNamespace(launches=0)  # K4 launches that wrote the prologue's cotangents

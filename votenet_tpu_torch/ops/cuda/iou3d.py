@@ -13,9 +13,23 @@ note at the top of the source.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from votenet_tpu_torch.ops.cuda import check_launch, library, require_cuda
+
+IOU_TILE = 16  # rows and columns of a tile (csrc/iou3d.cu kTile)
+
+
+def self_tiles(N: int) -> tuple[np.ndarray, np.ndarray]:
+    """The self-matrix's launch over N boxes: (ti, tj) of each block along
+    the grid's x, in blockIdx order, the tiles ti <= tj of ``IOU_TILE``
+    boxes a side row by row (csrc/iou3d.cu ``self_tile``); the grid is
+    their count, tiles (tiles + 1) / 2."""
+    tiles = -(-N // IOU_TILE)
+    ti = np.repeat(np.arange(tiles), tiles - np.arange(tiles))
+    start = np.cumsum(np.concatenate([[0], tiles - np.arange(tiles)]))[:-1]
+    return ti, ti + (np.arange(len(ti)) - start[ti])
 
 
 def box3d_iou_matrix_cuda(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:

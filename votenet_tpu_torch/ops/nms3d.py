@@ -45,7 +45,14 @@ def nms3d(
     host sync, no sort. A CPU tensor runs the IoU's plain version, the
     stable argsort and :func:`nms3d_jacobi_plain`; any other device raises.
     """
-    iou = box3d_iou_matrix(corners, corners)  # (B, N, N)
+    return nms3d_on_iou(box3d_iou_matrix(corners, corners), scores, objectness, iou_threshold)
+
+
+def nms3d_on_iou(iou: torch.Tensor, scores: torch.Tensor, objectness: torch.Tensor,
+                 iou_threshold: float) -> torch.Tensor:
+    """The greedy of :func:`nms3d` on its IoU self-matrix (B, N, N): the
+    kernel of ``csrc/nms3d.cu`` for a CUDA tensor, the stable argsort and
+    :func:`nms3d_jacobi_plain` for a CPU tensor."""
     if kernel_route(scores, "nms3d") == "cuda":
         return nms3d_greedy_cuda(iou, scores.float(), objectness.float(), iou_threshold)
     cand = objectness[..., 1] > objectness[..., 0]

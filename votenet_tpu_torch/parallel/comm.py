@@ -72,10 +72,14 @@ def all_reduce(x: torch.Tensor, group: Group, op: str = "sum") -> torch.Tensor:
 
 
 def all_reduce_(tensors: Iterable[torch.Tensor], group: Group) -> None:
-    """Sum each tensor over the group in place, in one collective over a flat
-    buffer (the gradient sum of a data-parallel step)."""
+    """Sum each tensor over the group in place, in one collective (over a
+    flat buffer where there are several: the gradient sum of a data-parallel
+    step; a single contiguous tensor is summed where it lies)."""
     tensors = list(tensors)
     if group is None or not tensors:
+        return
+    if len(tensors) == 1 and tensors[0].is_contiguous():
+        dist.all_reduce(tensors[0], group=group)
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, group=group)
