@@ -11,8 +11,10 @@ paths on one NVIDIA GPU.
     python3 chip_smoke.py --bn-library  # batch norm's K1 and K3 beside their library calls alone (no final line)
     python3 chip_smoke.py --bn  # phase 32 alone (no final line)
     python3 chip_smoke.py --sass  # SASS instructions an element of the batch-norm pool kernels' hot loops
+    python3 chip_smoke.py --split  # phase 33 alone (no final line)
+    python3 chip_smoke.py --cast-sites  # a bf16 forward's and step's and a mixed step's launches, copies by call site
     python3 chip_smoke.py --outputs PATH  # serving, training-step and eval outputs saved for --compare-outputs
-    python3 chip_smoke.py --compare-outputs A B  # two checkouts' --outputs files: bit-equal, or each gradient's gap
+    python3 chip_smoke.py --compare-outputs A B  # two checkouts' --outputs files: bit-equal but MOVED_GROUPS
 
 ``--kernel-times`` also runs from a copy of this file placed at the root of
 another checkout of the port (an earlier commit's archive), so that both
@@ -30,7 +32,9 @@ precision presets has, with each B=8 training step's and serving forward's
 device launches (torch.profiler) and host ms until the call returns; and
 ``--bn-library``, ``--bn``, ``--sass`` and ``--outputs``, through names every
 checkout with the batch-norm kernels has (phase 32's per-channel end and
-epilogue gates only where the checkout has them).
+epilogue gates only where the checkout has them); and ``--cast-sites``
+(the device launches of a bf16 serving forward, a bf16 and a mixed
+training step, and every copy kernel among them by call site).
 
 Phases, each checked; any failure exits non-zero without the final line:
 
@@ -296,6 +300,22 @@ Phases, each checked; any failure exits non-zero without the final line:
    forward two 35 under remat; the launches that took the centred or the
    bias prologue; K4's with the epilogue; a data-parallel step's 23 K2
    launches with the statistics' end).
+33. The split prologue and the bf16 weight copies: K1-K4 with mixed
+   precision's (and bf16_hilo's) coordinate term formed inside them
+   (``csrc/batchnorm.cu``'s SPLIT kernels: ``x = (T(dot3(xyz, W3) -
+   dot3(centre, W3)) + h) + T(b)``) against their plain versions on the
+   card at sa2-sa4's split sites, B=8 and B=1 in bf16 and B=8 in f32, on
+   inputs with the ball query's padding and, for K2 and K4, with NaNs in h
+   and the coordinates (``split_check``: K2, K4, the ends bit for bit, the
+   sums and W3's and the bias's cotangents within the f64 gate); and
+   ``csrc/cast.cu``'s ``cast_bf16_multi`` on a full-width bf16 model's 27
+   weight views and special values, bit-equal to the card's own casts both
+   ways (``cast_check``), beside the per-leaf ``.to()`` it replaces and
+   ``torch._foreach_copy_``. Every training path's launch check counts the
+   copies' two casts a step (``step_launches``), every serving and eval
+   forward's none after the first, and the split stages at each split site
+   (``bn_launches``: ``bn_split_*``, ``bn_prologue_split``). It runs after
+   phase 32.
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
@@ -324,7 +344,10 @@ sites of a B=8 step in f32 that take each, phase 32; ``bf16_us`` and
 ``bf16_bound_us`` of the pool kernels over the bf16 step's pooled sites),
 K4 with its epilogue (``bn_bwd_apply_sums``) and K2 with a data-parallel
 group's statistics' end (``bn_apply_group``: ``launches`` phase 19's
-distributed step).
+distributed step); the split prologue's K1-K4 (``bn_split_*``: ``launches``
+phase 15's mixed training path, 3 steps; ``ms`` over a B=8 mixed step's 3
+split sites in bf16) and ``cast_bf16_multi`` (``launches`` phase 15's bf16
+training path: a refresh and a gradient cast a step).
 Kernel times are device times:
 ``cuda_ms`` queues its timed calls behind a sleep kernel, so the wrappers'
 host time between launches does not count (a call whose kernel is shorter
@@ -357,7 +380,9 @@ DECODE_OPS and 2 a compared score a proposal. Batch norm: the (R, C) input
 (and cotangent) read and the output written, the prologue's centre rows
 and bias read, at a pool the maxima, counts and pooled cotangent in place
 of the full output or cotangent, a few f32 operations an element
-(``bn_bounds``): bound by bytes.
+(``bn_bounds``): bound by bytes. The split prologue's kernels: theirs,
+plus the coordinates (12 bytes a row), the centres and W3 read and 8 f32
+operations an element (``split_bounds``). The cast: 6 bytes an element.
 """
 
 from __future__ import annotations
@@ -683,10 +708,10 @@ def phase_serve(cfg, scenes, predictor, label="phase 4"):
 
     P, NC = cfg.proposal_num, cfg.num_class
     counters = {k: c for k, c in eval_counters().items()
-                if k in ("fps", "ballquery", "ballquery_fast_bf16", *HEAD_LAUNCHES, *bn_counters())}
+                if k in ("fps", "ballquery", "ballquery_fast_bf16", *HEAD_LAUNCHES, *bn_counters(), *CAST_NONE)}
     bq = "ballquery_fast_bf16" if cfg.bq_precision == "fast_bf16" else "ballquery"
     per_forward = ({"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, **HEAD_LAUNCHES} | {bq: 5}
-                   | bn_launches(cfg, train=False, samlp=cfg.samlp == "on"))
+                   | bn_launches(cfg, train=False, samlp=cfg.samlp == "on") | CAST_NONE)
     requests, detects = serve_times(predictor, scenes, 3, counters)
     launches = launch_counts(counters)
     for _, got, _ in requests + detects:
@@ -837,7 +862,17 @@ def phase_scatter_fast(cfg, scenes, report):
 
 
 BN_COUNTS = ("bn_stats", "bn_apply", "bn_apply_pool", "bn_bwd_reduce", "bn_bwd_reduce_pooled", "bn_bwd_apply",
-             "bn_bwd_apply_pooled", "bn_prologue_centre", "bn_prologue_bias", "bn_bwd_apply_sums", "bn_apply_group")
+             "bn_bwd_apply_pooled", "bn_prologue_centre", "bn_prologue_bias", "bn_bwd_apply_sums", "bn_apply_group",
+             "bn_prologue_split", "bn_split_stats", "bn_split_apply", "bn_split_bwd_reduce", "bn_split_bwd_apply")
+# the launches of csrc/cast.cu's kernel: the bf16 copies' refresh and their
+# gradients' cast (models/bf16_copies.py), none in a steady serving forward
+CAST_NONE = {"cast_bf16_multi": 0}
+
+
+def bf16_layers(cfg) -> bool:
+    """Whether the model of ``cfg`` has bf16 dense layers (bf16, or mixed
+    precision's sa2-sa4), whose weights it keeps bf16 copies of."""
+    return cfg.compute_dtype == "bfloat16" or (cfg.mixed_precision and cfg.compute_dtype == "float32")
 
 
 def bn_counters():
@@ -845,8 +880,10 @@ def bn_counters():
     K2's pool variant's and K3's and K4's at a pooled site, the launches
     (of any stage) that took the centred or the bias prologue, K4's launches
     with the epilogue (the prologue's cotangents) and K2's launches that ran
-    the statistics' end from a data-parallel group's sums. A checkout
-    without the last two counts them 0."""
+    the statistics' end from a data-parallel group's sums; the launches
+    that took the split prologue (mixed precision's and bf16_hilo's first
+    layer), of any stage and of each. A checkout without the last two, or
+    without the split prologue, counts them 0."""
     from types import SimpleNamespace
 
     from votenet_tpu_torch.ops.cuda import batchnorm as bn
@@ -857,7 +894,21 @@ def bn_counters():
             "bn_bwd_apply": bn.bn_bwd_apply_cuda, "bn_bwd_apply_pooled": bn.bn_bwd_apply_cuda.pooled,
             "bn_prologue_centre": bn.PROLOGUE_LAUNCHES["centre"], "bn_prologue_bias": bn.PROLOGUE_LAUNCHES["bias"],
             "bn_bwd_apply_sums": getattr(bn.bn_bwd_apply_cuda, "sums", none),
-            "bn_apply_group": getattr(bn.bn_apply_cuda, "group", none)}
+            "bn_apply_group": getattr(bn.bn_apply_cuda, "group", none),
+            "bn_prologue_split": bn.PROLOGUE_LAUNCHES.get("split", none),
+            **{f"bn_split_{k}": getattr(getattr(bn, f"bn_{k}_cuda"), "split", none)
+               for k in ("stats", "apply", "bwd_reduce", "bwd_apply")}}
+
+
+def cast_counter():
+    """csrc/cast.cu's wrapper (a checkout without it: a counter at 0)."""
+    import importlib
+    from types import SimpleNamespace
+
+    try:
+        return importlib.import_module("votenet_tpu_torch.ops.cuda.cast").cast_bf16_multi_cuda
+    except ImportError:
+        return SimpleNamespace(launches=0)
 
 
 def train_counters():
@@ -867,7 +918,7 @@ def train_counters():
 
     return {"fps": farthest_point_sample_cuda, "ballquery": query_ball_point_cuda,
             "ballquery_fast_bf16": query_ball_point_cuda.fast_bf16, "scatter": scatter_add_cuda,
-            "scatter_fast_bf16": scatter_add_cuda.fast_bf16, **bn_counters()}
+            "scatter_fast_bf16": scatter_add_cuda.fast_bf16, **bn_counters(), "cast_bf16_multi": cast_counter()}
 
 
 def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True, group: bool = False) -> dict:
@@ -882,8 +933,11 @@ def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True, gr
     site takes its prologue: the centred one at an SA layer's first width
     (but the split first layers of sa2-sa4 under mixed precision and, in
     training, of sa1-sa4 under ``gather_packing="bf16_hilo"``, which add
-    their bias themselves), the bias elsewhere; each backward K4 with a
-    dense bias writes the prologue's cotangents (``bn_bwd_apply_sums``).
+    their coordinate term in the split prologue, ``bn_prologue_split`` and
+    ``bn_split_*``; a split first layer that the pool ends, none at the
+    reference widths, takes the bias prologue), the bias elsewhere; each
+    backward K4 with a dense bias writes the prologue's cotangents
+    (``bn_bwd_apply_sums``).
     ``group`` (a data-parallel group): each training forward's K2 runs the
     statistics' end from the group's sums (``bn_apply_group``; 0 in a
     checkout whose end had a kernel of its own, which this file does not
@@ -910,9 +964,15 @@ def bn_launches(cfg, train: bool, samlp: bool = False, backward: bool = True, gr
             n["bn_bwd_reduce_pooled" if pooled else "bn_bwd_reduce"] += bwd
             n["bn_bwd_apply_pooled" if pooled else "bn_bwd_apply"] += bwd
         n["bn_apply_pool" if pooled else "bn_apply"] += fwd
-        if not (prologue == "centre" and layer in split):
-            n[f"bn_prologue_{prologue}"] += (2 * fwd + 2 * bwd) if train else 1
-            n["bn_bwd_apply_sums"] += bwd
+        if prologue == "centre" and layer in split:
+            prologue = "bias" if pooled else "split"
+        n[f"bn_prologue_{prologue}"] += (2 * fwd + 2 * bwd) if train else 1
+        n["bn_bwd_apply_sums"] += bwd
+        if prologue == "split":
+            n["bn_split_stats"] += fwd if train else 0
+            n["bn_split_apply"] += fwd
+            n["bn_split_bwd_reduce"] += bwd
+            n["bn_split_bwd_apply"] += bwd
         n["bn_apply_group"] += fwd if train and group_end else 0
     return n
 
@@ -925,7 +985,8 @@ def step_launches(cfg, group: bool = False) -> dict:
     exact where it is bf16 (mixed precision's sa2-sa4 feature gathers, and
     the packed ones of ``gather_packing="bf16_hilo"``); the batch-norm
     kernels as :func:`bn_launches` counts them (``group``: a data-parallel
-    step's)."""
+    step's); with bf16 layers two casts (``cast_bf16_multi``: the copies'
+    refresh after the optimizer's step, their gradients' return)."""
     mixed = cfg.mixed_precision and cfg.compute_dtype == "float32"
     fast = cfg.scatter_precision == "fast_bf16"
     n_f32 = 1 if mixed or cfg.gather_packing == "bf16_hilo" else 4
@@ -933,7 +994,7 @@ def step_launches(cfg, group: bool = False) -> dict:
     bq_fast = cfg.bq_precision == "fast_bf16"
     return {"fps": n_bq, "ballquery": 0 if bq_fast else n_bq, "ballquery_fast_bf16": n_bq if bq_fast else 0,
             "scatter": 4 - n_f32 * fast, "scatter_fast_bf16": n_f32 * fast,
-            **bn_launches(cfg, train=True, group=group)}
+            **bn_launches(cfg, train=True, group=group), "cast_bf16_multi": 2 * bf16_layers(cfg)}
 
 
 def train_times(cfg, scenes, n, counters=None):
@@ -1270,7 +1331,7 @@ def phase_eval(cfg, state_dict, profile=False, maps=None, samlp_per_forward=5, l
         want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 0, "samlp": 0, "samlp_bf16": 0, **HEAD_LAUNCHES}
         want[bq] = 5
         want[samlp_counter] = samlp_per_forward if mode == "on" else 0
-        want |= bn_launches(cfg, train=False, samlp=mode == "on")
+        want |= bn_launches(cfg, train=False, samlp=mode == "on") | CAST_NONE
         for i, d in enumerate(per_forward):
             if d != want:
                 raise AssertionError(f"samlp={mode}: forward {i} launched {d}, not {want}")
@@ -1786,6 +1847,8 @@ def phase_fit(bare_step_ms, preset="full", n_points=24000, device="cuda", label=
     want = want | {"fps": want["fps"] + 5 * fwd, bq: want[bq] + 5 * fwd, "samlp": 5 * fwd, "samlp_bf16": 0,
                    **{k: n * fwd for k, n in HEAD_LAUNCHES.items()}}
     want |= {k: per_step[k] * steps + n * fwd for k, n in bn_launches(run_cfg, train=False, samlp=True).items()}
+    # the eval forward after training steps refreshes the bf16 copies once
+    want["cast_bf16_multi"] = per_step["cast_bf16_multi"] * steps + fwd * bf16_layers(run_cfg)
     records = stats[0] + stats[1]
     checks = {
         "resumed from epoch 2": "resumed from epoch 2" in outs[1][0],
@@ -2173,10 +2236,10 @@ def phase_two_ranks(cfg, scenes, preset="full", device="cuda"):
         no_bn = dict.fromkeys(bn_counters(), 0)
         # sa1's FPS: a torch loop; batch norm's training forward, no backward
         want_sp = {"fps": 4, "ballquery": 5, "ballquery_fast_bf16": 0, "scatter": 0, "scatter_fast_bf16": 0,
-                   **bn_launches(cfg, train=True, backward=False)}
+                   **bn_launches(cfg, train=True, backward=False), "cast_bf16_multi": bf16_layers(cfg)}
         checks[f"rank {r} sp forward launches {want_sp}"] = res["sp_forward_launches"] == want_sp
         want_ops = {"fps": 0, "ballquery": 1, "ballquery_fast_bf16": 0, "scatter": 1, "scatter_fast_bf16": 0,
-                    **no_bn}
+                    **no_bn, **CAST_NONE}
         checks[f"rank {r} sharded ops launches {want_ops}"] = res["sp_ops_launches"] == want_ops
     print(f"phase 21: sp=2 over gloo at B=2, sa1's shape ({cfg.point_num} -> {npoint} points, r={radius}, "
           f"K={nsample}), each rank a {cfg.point_num // 2}-point slab, against the single-device kernels")
@@ -2676,7 +2739,7 @@ def phase_bq_fast(cfg, scenes, report, production_ms, state_dict=None, f32_maps=
     out = {k: v.cpu() for k, v in predictor(batch).items()}
     paths = {"serve_bq_fast_bf16": {k: c.launches for k, c in counters.items()}}
     want = {"fps": 5, "ballquery": 0, "ballquery_fast_bf16": 5, "samlp": 0, "samlp_bf16": 0, **HEAD_LAUNCHES,
-            **bn_launches(fcfg, train=False)}
+            **bn_launches(fcfg, train=False), **CAST_NONE}
     checks[f"one B=8 serving forward launches {paths['serve_bq_fast_bf16']} == {want}"] = (
         paths["serve_bq_fast_bf16"] == want)
     checks["its outputs finite"] = all(torch.isfinite(out[k]).all() for k in ("bboxes", "class_scores"))
@@ -4045,6 +4108,443 @@ def e2e_times(cfg, scenes, state_dict, reps=3):
     print(json.dumps({"e2e_times": res}))
 
 
+# ------------------------------------------------------------------ phase 33
+# The split prologue's four kernels (K1-K4 with mixed precision's and
+# bf16_hilo's coordinate term formed inside them) and the bf16 weight
+# copies' cast kernel, in the JSON line beside phase 32's rows.
+SPLIT_ROWS = ("bn_split_stats", "bn_split_apply", "bn_split_bwd_reduce", "bn_split_bwd_apply")
+SPLIT_OF = dict(zip(SPLIT_ROWS, ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")))
+CAST_ROW = "cast_bf16_multi"
+
+
+def split_sites(cfg):
+    """(layer, rows a scene, S, C, input width) of the split first layers,
+    sa2-sa4 (mixed precision; in training under bf16_hilo sa1 too, whose
+    features are its coordinates)."""
+    return [(f"sa{i + 1}", cfg.sa_npoints[i] * cfg.sa_nsamples[i], cfg.sa_nsamples[i], cfg.sa_mlps[i][0],
+             3 + cfg.sa_mlps[i - 1][-1]) for i in (1, 2, 3)]
+
+
+def split_site_inputs(R, S, C, cin, dtype, seed, device="cuda"):
+    """A split site's random inputs: h (R, C) (the features' product), the
+    grouped f32 coordinates (R, 3) around each unit's f32 centre (R / S, 3),
+    with the ball query's padding (each unit keeps a random count of its
+    rows and repeats its first in the rest: coordinates and h alike), W3 as
+    the model passes it (the first 3 rows of a (C, cin) f32 weight's
+    transpose, a strided view), the f32 dense bias, the BN weight and bias,
+    and a full dy."""
+    import torch
+
+    from votenet_tpu_torch.ops.cuda.batchnorm import Coords
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    units = R // S
+    centre = torch.rand((units, 3), generator=g, device=device) * 6 - 3
+    xyz = centre.repeat_interleave(S, 0) + torch.randn((R, 3), generator=g, device=device) * 0.3
+    h = torch.randn((R, C), generator=g, device=device) * 3 + 1
+    keep = torch.randint(1, S + 1, (units, 1, 1), generator=g, device=device)
+    pad = torch.arange(S, device=device)[None, :, None] >= keep
+    xyz = torch.where(pad, xyz.view(units, S, 3)[:, :1], xyz.view(units, S, 3)).reshape(R, 3).contiguous()
+    h = torch.where(pad, h.view(units, S, C)[:, :1], h.view(units, S, C)).reshape(R, C).to(dtype).contiguous()
+    weight = torch.randn((C, cin), generator=g, device=device) * (2.0 / cin) ** 0.5
+    db = torch.randn(C, generator=g, device=device) * 0.1
+    bn_w = torch.rand(C, generator=g, device=device) + 0.5
+    bn_b = torch.randn(C, generator=g, device=device)
+    dy = torch.randn((R, C), generator=g, device=device).to(dtype)
+    return h, Coords(xyz, centre, weight.t()[:3]), db, bn_w, bn_b, dy
+
+
+def split_bounds(R, S, C, es):
+    """(ops ms, bytes ms) of the split kernels at R x C in units of S rows:
+    h read (and dy, y or dx as the stage reads or writes them), the
+    coordinates (12 bytes a row), the centres (12 a unit), W3 and the dense
+    bias; the prologue's f32 operations an element: the row's dot3 (3
+    multiplies, 2 adds), the subtraction, the add of h and of the bias (8),
+    and the centre's dot3 (5) once a unit and channel; then K1 3, K2 4, K3
+    9, K4 9 more an element (phase 32's counts), and K4's epilogue 7 (the
+    bias's add, W3's three products and adds) and W3's and the bias's
+    cotangents written."""
+    n, G = float(R) * C, float(R) // S
+    pro_ops = 8 * n + 5 * G * C
+    pro_bytes = n * es + 12 * R + 12 * G + 16 * C
+    return {"bn_split_stats": bound_ms(3 * n + pro_ops, pro_bytes + 16 * C),
+            "bn_split_apply": bound_ms(4 * n + pro_ops, pro_bytes + n * es + 12 * C),
+            "bn_split_bwd_reduce": bound_ms(9 * n + pro_ops, pro_bytes + n * es + 20 * C),
+            "bn_split_bwd_apply": bound_ms(16 * n + pro_ops, pro_bytes + 2 * n * es + 36 * C)}
+
+
+def split_check(R, S, C, cin, dtype, seed, times=True, device="cuda"):
+    """K1-K4 with the split prologue at R x C in ``dtype`` against their plain
+    versions (``ops/batchnorm.py``, the stated dot3 order) on the card: K2
+    (training's, eval's, and a data-parallel group's statistics' end) and K4
+    bit for bit, also on inputs with a NaN in h and in the coordinates; K1's
+    and K3's sums within an f32 ulp of torch's f64 sums of the plain x's
+    terms (BN_F64_ULPS, BN_F64_FLOOR) and their per-channel ends bit for bit;
+    K4's epilogue, the dense bias's and W3's cotangents, within the f64
+    gate of torch's f64 sums of the same terms; every kernel rerun
+    bit-identical. Returns ({row: [ok, err, ms, plain ms, library ms]},
+    failed gates, the readings, {row: eager ms}): with ``times`` the device
+    ms of each kernel, its plain version, its stage's PyTorch call on the
+    stored x (phase 32's library column) and the eager passes it replaces
+    (the parent's f32 (R, C) term ``xyz @ W3 - centre @ W3``, its cast and
+    the adds, and in the backward the bias's and W3's sums)."""
+    import torch
+
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    h, coords, db, weight, bias, dy = split_site_inputs(R, S, C, cin, dtype, seed, device)
+    pro = dict(dense_bias=db, coords=coords)
+
+    def bits_equal(a, b):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        nan = torch.isnan(a)
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
+
+    def twice(fn):
+        a, b = fn(), fn()
+        return a, all(u is v is None or bits_equal(u, v) for u, v in zip(a, b)) if isinstance(a, tuple) \
+            else bits_equal(a, b)
+
+    def f64_gap(got, want, terms, ulps=BN_F64_ULPS):  # the largest |got - f64 sum| over its allowance (<= 1 passes)
+        d = (got.double() - want).abs()
+        return float((d / (ulps * want.abs() + BN_F64_FLOOR * terms).clamp_min(1e-300)).max())
+
+    x = bn.layer_rows_plain(h, None, db, coords)  # the plain prologue, stored
+    xd = x.double()
+    s64, same1 = twice(lambda: bnc.bn_stats_cuda(h, **pro))
+    u1 = max(f64_gap(s64[0].float(), xd.sum(0), xd.abs().sum(0)), f64_gap(s64[1].float(), (xd * xd).sum(0),
+                                                                           (xd * xd).sum(0)))
+    rm0 = torch.randn(C, generator=torch.Generator(device=device).manual_seed(seed + 1), device=device)
+    rv0 = torch.rand(C, generator=torch.Generator(device=device).manual_seed(seed + 2), device=device) + 0.5
+
+    def channels(update=True):
+        return bnc.BnChannels(R, weight, 1e-5, 0.9, rm0.clone(), rv0.clone(), update)
+
+    ch_k, ch_p = channels(), channels()
+    st = bnc.bn_stats_cuda(h, **pro, channels=ch_k)
+    st_p = bn.bn_channel_stats_plain(s64, ch_p)
+    eq_st = all(bits_equal(u, v) for u, v in ((st, st_p), (ch_k.running_mean, ch_p.running_mean),
+                                              (ch_k.running_var, ch_p.running_var)))
+    mean, mul = st[0], st[1]
+    y, same2 = twice(lambda: bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True, **pro))
+    eq2 = bits_equal(y, bn.bn_apply_plain(h, mean, mul, bias, dtype, True, **pro))
+    eq2e = bits_equal(bnc.bn_apply_cuda(h, rm0, weight, bias, dtype, True, **pro, eval_var=rv0, eps=1e-5),
+                      bn.bn_apply_plain(h, rm0, weight, bias, dtype, True, **pro, eval_var=rv0, eps=1e-5))
+    ch_g, ch_q = channels(), channels()
+    yg, st_g = bnc.bn_apply_cuda(h, None, None, bias, dtype, True, **pro, group_sums=s64, channels=ch_g)
+    st_q = bn.bn_channel_stats_plain(s64, ch_q)
+    eq2g = bits_equal(st_g, st_q) and bits_equal(yg, bn.bn_apply_plain(h, st_q[0], st_q[1], bias, dtype, True, **pro))
+    (sg, sgx), same3 = twice(lambda: bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **pro))
+    gm = bn._masked(x, dy, mean, mul, bias, True).double()
+    gx = gm * (x.float() - mean).double()
+    u3 = max(f64_gap(sg, gm.sum(0), gm.abs().sum(0)), f64_gap(sgx, gx.sum(0), gx.abs().sum(0)))
+    cof = bnc.BnCoefficients(st, weight, R, True)
+    co = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **pro, coefficients=cof)
+    eq_co = bits_equal(co, bn.bn_channel_coefficients_plain((sg, sgx), cof))
+    a, b = co[0], co[1]
+    (dx, _, d_bias, d_w3), same4 = twice(lambda: bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **pro))
+    pdx, _, _, p_w3 = bn.bn_bwd_apply_plain(h, dy, mean, mul, bias, a, b, True, **pro, sums=True)
+    eq4 = bits_equal(dx, pdx)
+    dd = dx.double()
+    diff = (coords.xyz.double().view(-1, S, 3) - coords.centre.double()[:, None]).view(-1, 3)
+    ulps = BN_F64_ULPS if dtype == torch.float32 else BN_F64_ULPS_BF16
+    u5 = max(f64_gap(d_bias, dd.sum(0), dd.abs().sum(0), ulps), f64_gap(d_w3, diff.t() @ dd, diff.abs().t() @ dd.abs()))
+    e_w3 = float(((d_w3.double() - p_w3.double()).abs() / (diff.abs().t() @ dd.abs()).clamp_min(1e-300)).max())
+    # an eval backward from the running statistics, against the stages on the end's mean and mul
+    st_e = bn.bn_channel_stats_plain(None, channels(False))
+    eq_eb = bits_equal(bnc.bn_bwd_apply_cuda(h, dy, rm0, weight, bias, None, None, True, **pro, eval_var=rv0)[0],
+                       bn.bn_bwd_apply_plain(h, dy, st_e[0], st_e[1], bias, None, None, True, **pro, sums=True)[0])
+    # NaNs: one in h and one among the coordinates (its row's every channel)
+    h_n, xyz_n = h.clone(), coords.xyz.clone()
+    h_n[R // 3, C // 2] = float("nan")
+    xyz_n[R // 5, 1] = float("nan")
+    pro_n = dict(dense_bias=db, coords=bnc.Coords(xyz_n, coords.centre, coords.w3))
+    y_n = bnc.bn_apply_cuda(h_n, mean, mul, bias, dtype, True, **pro_n)
+    eq_n = bits_equal(y_n, bn.bn_apply_plain(h_n, mean, mul, bias, dtype, True, **pro_n)) and bool(torch.isnan(y_n).any())
+    eq_n &= bits_equal(bnc.bn_bwd_apply_cuda(h_n, dy, mean, mul, bias, a, b, True, **pro_n)[0],
+                       bn.bn_bwd_apply_plain(h_n, dy, mean, mul, bias, a, b, True, **pro_n)[0])
+    gates = {
+        "bn_split_stats": (u1 <= 1 and same1 and eq_st, 0.0,
+                           f"K1 sums at {u1:.3g} of the f64 allowance (<= 1), rerun equal {same1}, the end {eq_st}"),
+        "bn_split_apply": (eq2 and eq2e and eq2g and same2 and eq_n, 0.0,
+                           f"K2 bit-equal: train {eq2}, eval {eq2e}, a group's end {eq2g}, with NaNs {eq_n}; "
+                           f"rerun equal {same2}"),
+        "bn_split_bwd_reduce": (u3 <= 1 and same3 and eq_co, 0.0,
+                                f"K3 sums at {u3:.3g} of the f64 allowance (<= 1), coefficients {eq_co}, "
+                                f"rerun equal {same3}"),
+        "bn_split_bwd_apply": (eq4 and eq_eb and u5 <= 1 and same4 and eq_n, e_w3,
+                               f"K4 dx bit-equal {eq4} (eval {eq_eb}, NaNs {eq_n}); the dense bias's and W3's "
+                               f"cotangents at {u5:.3g} of the f64 allowance (<= 1; W3's from the plain f64 sum "
+                               f"{e_w3:.3g} of its sum of |terms|), rerun equal {same4}"),
+    }
+    out = {k: [ok, err, None, None, None] for k, (ok, err, _) in gates.items()}
+    bad = [msg for ok, _, msg in gates.values() if not ok]
+    summary = "; ".join(msg for _, _, msg in gates.values())
+    eager = {}
+    if times:
+        reps = 20
+        calls = {
+            "bn_split_stats": (lambda: bnc.bn_stats_cuda(h, **pro), lambda: bn.bn_stats_plain(h, **pro)),
+            "bn_split_apply": (lambda: bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True, **pro),
+                               lambda: bn.bn_apply_plain(h, mean, mul, bias, dtype, True, **pro)),
+            "bn_split_bwd_reduce": (lambda: bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **pro),
+                                    lambda: bn.bn_bwd_reduce_plain(h, dy, mean, mul, bias, True, **pro)),
+            "bn_split_bwd_apply": (lambda: bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **pro),
+                                   lambda: bn.bn_bwd_apply_plain(h, dy, mean, mul, bias, a, b, True, **pro,
+                                                                 sums=True)),
+        }
+        for k, (kern, plain) in calls.items():
+            out[k][2] = cuda_ms(kern, reps)
+            out[k][3] = cuda_ms(plain, max(2, reps // 4))
+        eps = 1e-5
+        l_mean, l_inv = torch.batch_norm_stats(x, eps)
+        l_sg, l_sgx, _, _ = torch.batch_norm_backward_reduce(dy, x, l_mean, l_inv, weight, True, True, True)
+        count = torch.tensor([R], dtype=torch.int32, device=device)
+        library = {"bn_split_stats": lambda: torch.batch_norm_stats(x, eps),
+                   "bn_split_apply": lambda: torch.batch_norm_elemt(x, weight, bias, l_mean, l_inv, eps),
+                   "bn_split_bwd_reduce": lambda: torch.batch_norm_backward_reduce(dy, x, l_mean, l_inv, weight,
+                                                                                   True, True, True),
+                   "bn_split_bwd_apply": lambda: torch.batch_norm_backward_elemt(dy, x, l_mean, l_inv, weight, l_sg,
+                                                                                 l_sgx, count)}
+        for k, call in library.items():
+            out[k][4] = cuda_ms(call, reps)
+        # the eager passes the split prologue replaces (the parent's forward: the f32 term, its cast, the adds;
+        # its backward: the bias's sum, dx's cast and W3's two products)
+        xyz4, cen3 = coords.xyz.view(-1, S, 3), coords.centre.view(-1, 1, 3)
+        w3, dbc = coords.w3, db.to(dtype)
+        fwd = cuda_ms(lambda: ((xyz4 @ w3 - cen3 @ w3).to(dtype).view(R, C) + h) + dbc, reps)
+
+        def backward_passes():
+            g = dx.float()
+            return dx.sum(0), coords.xyz.t() @ g, coords.centre.t() @ -g.view(-1, S, C).sum(1)
+
+        bwd = cuda_ms(backward_passes, reps)
+        eager = {"bn_split_stats": fwd, "bn_split_apply": fwd, "bn_split_bwd_reduce": 0.0, "bn_split_bwd_apply": bwd}
+    return out, bad, summary, eager
+
+
+def cast_specials(device):
+    """f32 values at the bf16 rounding's edges: ties to even both ways,
+    subnormals (f32 and bf16), the largest finite values and the overflow
+    to inf, +-inf, +-0, NaNs with payloads."""
+    import torch
+
+    vals = torch.tensor([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -(1.0 + 2.0 ** -8), 1.0 + 2.0 ** -8 + 2.0 ** -20,
+                         2.0 ** -130, -(2.0 ** -140), 2.0 ** -149, 1e-40, 2.0 ** -126, 3.3895314e38, 3.4028235e38,
+                         float("inf"), float("-inf"), 0.0, -0.0, 65504.0, 1.00390625, 1.01171875])
+    nans = torch.tensor([0x7FC00000, 0x7FC00001, 0xFFC12345 - 2 ** 32, 0x7F800001], dtype=torch.int32)
+    return torch.cat([vals, nans.view(torch.float32)]).to(device)
+
+
+def cast_check(device="cuda"):
+    """csrc/cast.cu against torch's own casts on the card: the 27 f32 views a
+    full-width bf16 VoteNet keeps bf16 copies of (``bf16_copies``) and
+    :func:`cast_specials`, one launch: bit-equal to ``.to(torch.bfloat16)``
+    on the card (NaN bits included); the reverse into strided f32
+    destinations (a transposed layout, as the split layer's gradient is
+    written) and zero-filled ones bit-equal to ``.float()`` and zeros.
+    Times: the kernel, the per-leaf ``.to()`` it replaces (the plain
+    version), and ``torch._foreach_copy_`` into the same bf16 tensors (the
+    library column). Returns (checks, [err, ms, plain ms, library ms], the
+    bound, the tensors' count and elements)."""
+    import torch
+
+    from votenet_tpu_torch.config import default_config
+    from votenet_tpu_torch.models import VoteNet
+    from votenet_tpu_torch.models.bf16_copies import source_view
+    from votenet_tpu_torch.ops.cuda.cast import cast_bf16_multi_cuda
+
+    model = VoteNet(default_config().replace(compute_dtype="bfloat16")).to(device)
+    srcs = [source_view(e.layer, e.kind).detach() for e in model.bf16_copies.entries.values()]
+    n_model = len(srcs)
+    srcs.append(cast_specials(device))
+    dsts = [torch.empty(s.shape, dtype=torch.bfloat16, device=device) for s in srcs]
+    pairs = list(zip(srcs, dsts))
+    before = cast_bf16_multi_cuda.launches
+    cast_bf16_multi_cuda(pairs)
+    one = cast_bf16_multi_cuda.launches - before
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    eq = all(torch.equal(bits(d), bits(s.to(torch.bfloat16))) for s, d in pairs)
+    back = [torch.empty(tuple(reversed(d.shape)), dtype=torch.float32, device=device).t() if d.dim() == 2
+            else torch.empty(d.shape, dtype=torch.float32, device=device) for d in dsts]
+    zeros = [torch.full((7, 5), 3.0, device=device)[:, 1:4]]
+    cast_bf16_multi_cuda(list(zip(dsts, back)) + [(None, z) for z in zeros])
+    eq_back = all(torch.equal(bits(o), bits(d.float())) for d, o in zip(dsts, back))
+    eq_back &= all(torch.equal(bits(z), bits(torch.zeros_like(z))) for z in zeros)
+    elems = sum(s.numel() for s in srcs)
+    ms = cuda_ms(lambda: cast_bf16_multi_cuda(pairs), 50)
+    plain_ms = cuda_ms(lambda: [s.to(torch.bfloat16) for s in srcs], 20)
+    try:
+        library_ms = cuda_ms(lambda: torch._foreach_copy_(dsts, srcs), 50)
+        eq_lib = all(torch.equal(bits(d), bits(s.to(torch.bfloat16))) for s, d in pairs)
+    except (RuntimeError, TypeError) as e:  # a torch without the mixed-dtype foreach copy
+        print(f"  torch._foreach_copy_ f32 -> bf16: {e}")
+        library_ms, eq_lib = None, True
+    checks = {f"{n_model} weight views and {len(srcs) - n_model} of special values cast in {one} launch, bit-equal "
+              f"to torch's .to(torch.bfloat16) on the card, NaN bits included": eq and one == 1,
+              "bf16 -> f32 into transposed destinations and zero fills bit-equal to .float() and zeros": eq_back,
+              "torch._foreach_copy_ (the library column) writes the same bits": eq_lib}
+    return checks, [0.0, ms, plain_ms, library_ms], bound_ms(0.0, 6.0 * elems), (len(srcs), elems)
+
+
+def phase_split_copies(cfg, report, device="cuda"):
+    """Phase 33: the split prologue's K1-K4 (``split_check``) at sa2-sa4's
+    split first layers, B=8 and B=1, in bf16 (mixed precision) and at B=8 in
+    f32 (bf16_hilo in an f32 config), and the cast kernel
+    (``cast_check``). Returns the rows' extra fields for the JSON line."""
+    import torch
+
+    print("phase 33: the split prologue's K1-K4 (the coordinate term inside the kernels) against their plain "
+          "versions on the card, and csrc/cast.cu's cast_bf16_multi against torch's casts (CUDA events, warm L2)")
+    print(TABLE_HEAD)
+    checks, extra = {}, {k: {"eager_ms": 0.0} for k in SPLIT_ROWS}
+    seed = SEED
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in ((8, 1) if dtype == torch.bfloat16 else (8,)):
+            for layer, rows, S, C, cin in split_sites(cfg):
+                R = B * rows
+                seed += 1
+                out, bad, summary, eager = split_check(R, S, C, cin, dtype, seed, device=device)
+                name = "bf16" if dtype == torch.bfloat16 else "f32"
+                bounds = split_bounds(R, S, C, 2 if dtype == torch.bfloat16 else 4)
+                for k in SPLIT_ROWS:
+                    ok, err, ms, p_ms, l_ms = out[k]
+                    report(k, layer, B, f"{name} {R}x{C} S={S}", ok, err, ms, p_ms, bounds[k], l_ms,
+                           total=dtype == torch.bfloat16)
+                    if B == 8 and dtype == torch.bfloat16:
+                        extra[k]["eager_ms"] += eager[k]
+                checks[f"{layer} B={B} {name}: {summary}"] = not bad
+    c_checks, (err, ms, p_ms, l_ms), bound, (n, elems) = cast_check(device)
+    report(CAST_ROW, "weights", 8, f"{n} tensors, {elems} elements", all(c_checks.values()), err, ms, p_ms, bound,
+           l_ms)
+    faster = l_ms is not None and l_ms < ms
+    print(f"  cast_bf16_multi: {ms * 1e3:.1f} us against the per-leaf .to() {p_ms * 1e3:.1f} us and "
+          f"torch._foreach_copy_ {'-' if l_ms is None else f'{l_ms * 1e3:.1f}'} us "
+          f"({'the library call is faster' if faster else 'the kernel is not slower than the library call'})")
+    checks.update(c_checks)
+    extra[CAST_ROW] = {"library_faster": faster, "tensors": n, "elements": elems}
+    return finish(checks, "split prologue and weight-cast checks", extra)
+
+
+def call_site(e) -> str:
+    """Where a profiled op ran: the innermost ``cast@`` range of its parents
+    (:func:`cast_site_mode`'s, the line that made the conversion), else the
+    autograd node that ran it, else its outermost op."""
+    top, node, p = e, None, e.cpu_parent
+    while p is not None:
+        if p.name.startswith("cast@"):
+            return p.name[5:]
+        if node is None and p.name.startswith("autograd::engine::evaluate_function"):
+            node = p.name.split(": ", 1)[-1]
+        top, p = p, p.cpu_parent
+    return node or top.name
+
+
+def cast_site_mode():
+    """A dispatch mode that runs each floating-point dtype conversion
+    (``aten._to_copy``, ``aten.to``, ``aten.copy_`` between float dtypes; a
+    concatenation's promotion is the concatenation's) inside a profiler
+    range ``cast@`` named by the repository's innermost Python line that
+    made it ("backward" for the autograd engine's, whose stacks hold none),
+    the conversion and the input's shape."""
+    import traceback
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    root = str(Path(__file__).resolve().parent) + os.sep
+
+    class CastSites(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func.overloadpacket not in (aten._to_copy, aten.to, aten.copy_):
+                return func(*args, **kwargs)
+            copy = func.overloadpacket is aten.copy_
+            src = args[1] if copy else args[0]
+            dst_dtype = args[0].dtype if copy else kwargs.get("dtype") or next(
+                (a for a in args[1:] if isinstance(a, torch.dtype)), src.dtype)
+            if not src.is_floating_point() or dst_dtype == src.dtype:
+                return func(*args, **kwargs)
+            frames = [f for f in traceback.extract_stack() if "votenet_tpu_torch" in f.filename]
+            site = f"{frames[-1].filename.replace(root, '')}:{frames[-1].lineno}" if frames else "backward"
+            name = f"cast@{site} {str(src.dtype)[6:]} -> {str(dst_dtype)[6:]} {tuple(src.shape)}"
+            with torch.profiler.record_function(name):
+                return func(*args, **kwargs)
+
+    return CastSites()
+
+
+def cast_sites(scenes):
+    """``--cast-sites``: the device launches of one B=8 bf16 serving forward,
+    one bf16 training step and one mixed step (full width, seed-SEED
+    weights, after a warm-up of each), and every copy kernel among them by
+    the repository's line that made the conversion (:func:`cast_site_mode`),
+    else the autograd node or op that launched it: count and device us.
+    Public names only, so a copy of this file at an earlier checkout's root
+    lists that checkout's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from votenet_tpu_torch.config import throughput_config
+    from votenet_tpu_torch.data.dataflow import batch_scenes
+    from votenet_tpu_torch.models import VoteNet
+    from votenet_tpu_torch.train import create_train_state, forward_backward
+
+    points = torch.as_tensor(np.stack([s["points"] for s in scenes[:8]])).cuda()
+
+    def listing(fn, label):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, cast_site_mode():
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        # the device's events but the ranges' annotations (cast_site_mode's ranges show on the device's timeline too)
+        device = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("cast@")]
+        sites = {}
+        for e in events:
+            if e.device_type != DeviceType.CPU or not e.kernels or "copy" not in e.name:
+                continue
+            site = call_site(e)
+            for k in e.kernels:
+                c = sites.setdefault((site, k.name[:60]), [0, 0.0])
+                c[0] += 1
+                c[1] += k.duration
+        own = [e for e in device if "cast_multi_kernel" in e.name]
+        copies = sum(c for c, _ in sites.values())
+        print(f"  {label}: {len(device)} device launches, {copies} copy kernels from aten ops, "
+              f"{len(own)} cast_bf16_multi ({sum(e.time_range.elapsed_us() for e in own):.1f} us)")
+        for (site, kname), (c, us) in sorted(sites.items(), key=lambda kv: -kv[1][1]):
+            print(f"    {c:>4} x {us:>8.1f} us  {site}  [{kname}]")
+
+    for name, overrides in PRECISION_MODES.items():
+        cfg = throughput_config(**overrides)
+        model = VoteNet(cfg, torch.Generator().manual_seed(SEED)).cuda().eval()
+        if name == "bf16":
+            with torch.inference_mode():
+                listing(lambda: model(points), f"{name} B=8 serving forward")
+        del model
+        batch = next(batch_scenes(iter(scenes[:8]), 8, cfg.max_gt_boxes))
+        state = create_train_state(cfg, 512, torch.Generator().manual_seed(SEED), device="cuda")
+
+        def step():
+            forward_backward(state.model, batch, cfg)
+            with torch.no_grad():  # the parameters move, as the optimizer moves them
+                for p in state.model.parameters():
+                    p.add_(p.grad, alpha=-1e-6)
+
+        listing(step, f"{name} B=8 training step (forward_backward and a parameter update)")
+        del state
+
+
 def dump_outputs(cfg, scenes, state_dict, path):
     """``--outputs PATH``: what the kernels feed, through public names, saved
     with torch.save for ``--compare-outputs`` against another checkout's (a
@@ -4055,7 +4555,10 @@ def dump_outputs(cfg, scenes, state_dict, path):
     (``forward_backward``): every gradient leaf, the running statistics and
     the losses, twice from a fresh state (the rerun's bits); the same f32
     step through the data-parallel path on a one-rank NCCL group (the
-    batch-norm sums all-reduced, the gradient all-reduce; phase 19's); and
+    batch-norm sums all-reduced, the gradient all-reduce; phase 19's) in f32
+    and bf16; the bf16 step under remat; four bf16 steps of
+    ``Trainer(steps_per_dispatch=4)`` (the parameters, Adam's moments and
+    the running statistics after them); and
     the committed checkpoint's eval predictions of scenes[:8] (samlp off
     and on). Deterministic algorithms on: the scatter's and the gather's
     library backwards are atomic otherwise."""
@@ -4068,10 +4571,11 @@ def dump_outputs(cfg, scenes, state_dict, path):
     from votenet_tpu_torch.models import VoteNet, predict_boxes
     from votenet_tpu_torch.parallel import comm, make_mesh
     from votenet_tpu_torch.parallel.launch import free_port, init_process_group
-    from votenet_tpu_torch.train import create_train_state, forward_backward
+    from votenet_tpu_torch.train import Trainer, create_train_state, forward_backward
 
     out = {}
     points = torch.as_tensor(np.stack([s["points"] for s in scenes[:8]])).cuda()
+    bf16 = throughput_config(**PRECISION_MODES["bf16"])
 
     def step(c, key, group=None):
         state = create_train_state(c, 512, torch.Generator().manual_seed(SEED), device="cuda")
@@ -4094,10 +4598,21 @@ def dump_outputs(cfg, scenes, state_dict, path):
             batch = next(batch_scenes(iter(scenes[:8]), 8, c.max_gt_boxes))
             for run in ("", "_rerun"):
                 step(c, f"train_{name}{run}")
+        batch = next(batch_scenes(iter(scenes[:8]), 8, bf16.max_gt_boxes))
+        step(bf16.replace(remat=True), "train_bf16_remat")
+        state = create_train_state(bf16, 512, torch.Generator().manual_seed(SEED), device="cuda")
+        Trainer(bf16, state, steps_per_dispatch=4).train_epoch([batch] * 4, metrics_every=4)
+        out.update({f"train_bf16_k4/param/{n}": p.detach().cpu() for n, p in state.model.named_parameters()})
+        out.update({f"train_bf16_k4/stats/{n}": b.cpu() for n, b in state.model.named_buffers() if "running" in n})
+        for n, p in state.model.named_parameters():
+            out.update({f"train_bf16_k4/adam_{k}/{n}": v.cpu() for k, v in state.optimizer.state[p].items()
+                        if torch.is_tensor(v) and v.dim()})
+        del state
         init_process_group("nccl", 1, 0, free_port(), 300)
         try:
-            batch = next(batch_scenes(iter(scenes[:8]), 8, cfg.max_gt_boxes))
-            step(cfg, "train_dp_f32", make_mesh().group("data"))
+            for c, key in ((cfg, "train_dp_f32"), (bf16, "train_dp_bf16")):
+                batch = next(batch_scenes(iter(scenes[:8]), 8, c.max_gt_boxes))
+                step(c, key, make_mesh().group("data"))
         finally:
             dist.destroy_process_group()
         for samlp in ("off", "on"):
@@ -4124,24 +4639,40 @@ def bit_equal(a, b) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
 
 
+# --compare-outputs: the groups whose bits a change may move (mixed
+# precision's: the split prologue's dot3 order against cuBLAS's K=3 product,
+# and W3's and the split bias's cotangents summed in f64); each tensor of
+# them that moved is listed with its largest difference of scale, none
+# gated. Every other tensor is held bit for bit.
+MOVED_GROUPS = ("serve_mixed", "train_mixed")
+
+
 def compare_outputs(path_a, path_b):
     """``--compare-outputs A B``: ``--outputs`` files of two checkouts (A the
     earlier). Every tensor of A must be in B and bit-equal (serving end
     points and the head's outputs, every gradient leaf, running statistic
     and loss of each step, the data-parallel step's, the eval predictions),
-    and B's rerun bit-equal to B's run; the tensors that differ are printed
-    by group with their largest gaps."""
+    but those of MOVED_GROUPS, which are listed where they moved with their
+    largest difference of scale (max |A - B| / max |A|); B's rerun bit-equal
+    to B's run; the tensors that differ are printed by group with their
+    largest gaps."""
     import torch
 
     a, b = torch.load(path_a), torch.load(path_b)
-    checks, moved = {}, {}
+    checks, moved, allowed = {}, {}, {}
     for k, va in a.items():
         vb = b.get(k)
         if vb is None:
             checks[f"{k} in both"] = False
             continue
-        checks[f"{k} bit-equal"] = bit_equal(va, vb)
-        if not checks[f"{k} bit-equal"] and va.shape == vb.shape:
+        same = bit_equal(va, vb)
+        if k.split("/")[0].startswith(MOVED_GROUPS):  # their reruns too: B's rerun is held to B's run below
+            if not same:
+                allowed[k] = (float((va.double() - vb.double()).abs().max())
+                              / max(float(va.double().abs().max()), 1e-30) if va.shape == vb.shape else float("nan"))
+            continue
+        checks[f"{k} bit-equal"] = same
+        if not same and va.shape == vb.shape:
             moved[k] = float((va.double() - vb.double()).abs().max())
     for k in b:
         if "_rerun/" in k:
@@ -4153,6 +4684,10 @@ def compare_outputs(path_a, path_b):
           f"{ {g: len(v) for g, v in groups.items()} }")
     for k in sorted(moved, key=lambda k: -moved[k])[:12]:
         print(f"    differs: {k} (max |A - B| {moved[k]:.3g})")
+    n_free = sum(1 for k in a if k.split("/")[0].startswith(MOVED_GROUPS))
+    print(f"  {MOVED_GROUPS}: {len(allowed)} of {n_free} tensors moved (largest difference of scale, by group):")
+    for k in sorted(allowed, key=lambda k: -allowed[k]):
+        print(f"    moved: {k} {allowed[k]:.3g}")
     finish(checks, "outputs against the other checkout", None)
 
 
@@ -4189,7 +4724,7 @@ def main() -> int:
                  "bound_ms": 0.0}
              for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d", "decode_iou", "iou3d",
                        "decode")
-             + variants + BN_ROWS}
+             + variants + BN_ROWS + SPLIT_ROWS + (CAST_ROW,)}
     production_ms = dict.fromkeys(variants, 0.0)  # phases 16-18: the production kernels' sums beside
 
     def report(kernel, layer, B, shape, equal, err, k_ms, p_ms, bound, l_ms=None, total=True):
@@ -4237,6 +4772,17 @@ def main() -> int:
                           "failed": failed}))
         print(card)
         return 1 if failed else 0
+    if "--split" in sys.argv[1:]:  # phase 33 alone: the split prologue's kernels and the weight-cast kernel
+        run("split prologue and weight casts", lambda: phase_split_copies(cfg, report))
+        print(json.dumps({"split_times": {k: {"ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
+                                              "bound_ms": stats[k]["bound_ms"], "library_ms": stats[k]["library_ms"]}
+                                          for k in SPLIT_ROWS + (CAST_ROW,)}, "failed": failed}))
+        print(card)
+        return 1 if failed else 0
+    if "--cast-sites" in sys.argv[1:]:  # the copy kernels of a bf16 forward and step and a mixed step, by call site
+        run("cast sites", lambda: cast_sites(scenes))
+        print(card)
+        return 1 if failed else 0
     if "--outputs" in sys.argv[1:]:  # what batch norm feeds, saved for --compare-outputs
         state_dict = run("read checkpoint", trained_state_dict)
         if state_dict is not None:
@@ -4264,6 +4810,8 @@ def main() -> int:
     bn_extra = {}
     if importlib.util.find_spec("votenet_tpu_torch.ops.cuda.batchnorm") is not None:  # absent in earlier checkouts
         bn_extra = run("batch-norm kernels", lambda: phase_batchnorm(cfg, report)) or {}
+    if importlib.util.find_spec("votenet_tpu_torch.ops.cuda.cast") is not None:  # absent in earlier checkouts
+        bn_extra.update(run("split prologue and weight casts", lambda: phase_split_copies(cfg, report)) or {})
     if "--kernel-times" in sys.argv[1:]:  # phases 1-3, 9 and 16-18's kernels: to set beside another checkout's
         from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
         from votenet_tpu_torch.ops.cuda import fps as fps_mod
@@ -4541,6 +5089,39 @@ def main() -> int:
         }
         for k in BN_ROWS
     ]
+    # phase 33: the split prologue's K1-K4 (launches: phase 15's mixed
+    # training path, 3 steps) and the weight-cast kernel (launches: phase
+    # 15's bf16 training path, 3 steps: a refresh and a gradient cast each)
+    kernels += [
+        {
+            "name": k, "route": "cuda", "source": "votenet_tpu_torch/csrc/batchnorm.cu",
+            "replaces": ("votenet_tpu/models/pointnet2.py:105-130 CenteredDense._split_call (f32 coordinates' "
+                         "product, the centre's subtracted, cast, added to the features' product, the bias) + "
+                         "nn.BatchNorm + nn.relu (flax, XLA; no Pallas kernel)"),
+            "variant": f"{SPLIT_OF[k]} with the split prologue (SPLIT): x = (T(dot3(xyz, W3) - dot3(centre, W3)) + h)"
+                       f" + T(b)" + (", and W3's and the bias's cotangents" if k == "bn_split_bwd_apply" else ""),
+            "launches": paths["train_mixed"][k], "launches_serve_mixed": paths["serve_mixed"][k],
+            "launches_paths": path_launches(k), **measured(k),
+            "tolerance": {"bn_split_stats": "an f32 ulp of |sum| + 2^-40 of the sum of |terms| from torch's f64 sum",
+                          "bn_split_apply": 0, "bn_split_bwd_reduce": "as bn_split_stats",
+                          "bn_split_bwd_apply": "dx 0; the bias's and W3's cotangents as bn_bwd_apply_sums"}[k],
+            "library_is": bn_library[SPLIT_OF[k]] + " (x stored)", **bn_extra.get(k, {}),
+            "ms_is": "sum over the 3 split sites (sa2-sa4) of a B=8 mixed step, bf16; eager_ms: the eager passes "
+                     "the split prologue replaced there (the f32 term, its cast, the adds; the bias's and W3's sums)",
+        }
+        for k in SPLIT_ROWS
+    ]
+    kernels.append({
+        "name": CAST_ROW, "route": "cuda", "source": "votenet_tpu_torch/csrc/cast.cu",
+        "replaces": ("votenet_tpu/models/pointnet2.py:95-99 flax nn.Dense's promote_dtype cast of the kernel and "
+                     "bias (XLA fuses it into the dot; no Pallas kernel)"),
+        "launches": paths["train_bf16"][CAST_ROW], "launches_mixed": paths["train_mixed"][CAST_ROW],
+        "launches_serve_bf16": paths["serve_bf16"][CAST_ROW], "launches_paths": path_launches(CAST_ROW),
+        **measured(CAST_ROW), "tolerance": 0, **bn_extra.get(CAST_ROW, {}),
+        "library_is": "torch._foreach_copy_ into the same bf16 tensors",
+        "ms_is": "one launch over a full-width bf16 VoteNet's 27 weight views and the special values; plain_ms: "
+                 "the per-leaf .to() it replaces",
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -401,7 +401,8 @@ def counted_stages(monkeypatch):
     """Substitute counting wrappers for the plain stages; returns the counts,
     keyed as ``chip_smoke.bn_counters``: each stage's calls over full rows,
     K2's pool variant's and K3's and K4's at a pooled site, the calls that
-    took the centred or the bias prologue, stage 4's calls that summed the
+    took the centred, the split or the bias prologue (and each stage's with
+    the split one), stage 4's calls that summed the
     dense bias's cotangent and stage 2's that ran the statistics' end from a
     data-parallel group's sums."""
     import chip_smoke
@@ -416,7 +417,10 @@ def counted_stages(monkeypatch):
                 counts["bn_bwd_apply_sums"] += 1
             if kw.get("group_sums") is not None:
                 counts["bn_apply_group"] += 1
-            if kw.get("corr") is not None:
+            if kw.get("coords") is not None:  # the split prologue (mixed precision's, bf16_hilo's first layer)
+                counts["bn_prologue_split"] += 1
+                counts["bn_split_" + _name[3:]] += 1
+            elif kw.get("corr") is not None:
                 counts["bn_prologue_centre"] += 1
             elif kw.get("dense_bias") is not None:
                 counts["bn_prologue_bias"] += 1

@@ -1918,3 +1918,151 @@ def test_bn_site_launches_its_kernels_and_nothing_else(cuda, dtype, prologue, po
     y = ops.batch_norm_relu(h, w, b, rm, rv, training=False, **kw)
     ev_bwd = kernels(lambda: y.backward(gp))
     assert ev_bwd == ["bn_bwd_reduce_kernel", "bn_bwd_apply_kernel"], ev_bwd
+
+
+# ------------------------------------- the split prologue and the weight casts
+
+def test_cast_bf16_multi_matches_torch_cast_on_the_card(cuda):
+    """chip_smoke.py's phase-33 cast gates: a full-width bf16 VoteNet's weight
+    views and the special values (ties, subnormals, +-inf, NaNs with
+    payloads) cast in one launch bit-equal to the card's
+    ``.to(torch.bfloat16)``, NaN bits included; the reverse into transposed
+    f32 destinations and zero fills bit-equal to ``.float()`` and zeros."""
+    import chip_smoke
+
+    checks, _, _, _ = chip_smoke.cast_check()
+    assert all(checks.values()), checks
+
+
+def test_cast_bf16_multi_splits_a_long_table(cuda):
+    """More than CAST_MAX_ENTRIES pairs take a launch per CAST_MAX_ENTRIES,
+    each pair cast as torch casts it."""
+    from votenet_tpu_torch.ops.cuda.cast import CAST_MAX_ENTRIES, cast_bf16_multi_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    srcs = [torch.randn((i % 7 + 1, i % 5 + 2), generator=g, device="cuda") * 1e3 for i in range(CAST_MAX_ENTRIES + 5)]
+    dsts = [torch.empty(s.shape, dtype=torch.bfloat16, device="cuda") for s in srcs]
+    before = cast_bf16_multi_cuda.launches
+    cast_bf16_multi_cuda(list(zip(srcs, dsts)))
+    assert cast_bf16_multi_cuda.launches - before == 2
+    assert all(torch.equal(d.view(torch.int16), s.to(torch.bfloat16).view(torch.int16)) for s, d in zip(srcs, dsts))
+
+
+SPLIT_CASES = [(8 * 1024 * 64, 64, 128, 131, "sa2 B=8"), (1024 * 64, 64, 128, 131, "sa2 B=1"),
+               (8 * 512 * 32, 32, 128, 259, "sa3 B=8"), (256 * 32, 32, 128, 259, "sa4 B=1"),
+               (40 * 16, 16, 13, 20, "unaligned"), (3 * 5, 5, 36, 9, "small")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("R,S,C,cin,what", SPLIT_CASES, ids=[c[-1] for c in SPLIT_CASES])
+def test_split_prologue_kernels_match_plain(cuda, dtype, R, S, C, cin, what):
+    """chip_smoke.py's phase-33 gates: K2 (training, eval, a group's end, NaN
+    inputs) and K4 with the split prologue bit-equal to their plain
+    versions, K1's and K3's sums within the f64 gate and their ends bit for
+    bit, K4's bias and W3 cotangents within the f64 gate; at the sites'
+    shapes and at C % 4 != 0 (one channel a lane)."""
+    import chip_smoke
+
+    _, bad, summary, _ = chip_smoke.split_check(R, S, C, cin, dtype, seed=R + C, times=False)
+    assert not bad, summary
+
+
+@pytest.mark.parametrize("mode", ["bf16", "bf16-remat", "mixed"])
+def test_training_step_launches_and_bits_with_the_copies(cuda, mode):
+    """A tiny training step on the card in bf16 (and under remat) and in
+    mixed precision: the copies' two casts a step (the refresh after the
+    optimizer's step, the gradients' return), the split kernels at mixed
+    precision's split first layers, every launch as chip_smoke.py's
+    step_launches counts it; in bf16 the losses, gradients and running
+    statistics bit-equal to the same step without the copies (casts at every
+    call), under deterministic algorithms."""
+    import chip_smoke
+
+    from tests.test_torch_weight_cast import without_copies
+    from votenet_tpu_torch.data.dataflow import batch_scenes
+    from votenet_tpu_torch.data.synthetic import synthetic_scenes
+    from votenet_tpu_torch.train import create_train_state, forward_backward, make_train_step
+
+    overrides = {"bf16": dict(compute_dtype="bfloat16"), "bf16-remat": dict(compute_dtype="bfloat16", remat=True),
+                 "mixed": dict(mixed_precision=True)}[mode]
+    cfg = tiny_config(**overrides)
+    batch = next(batch_scenes(iter(synthetic_scenes(0, cfg, 2)), 2, cfg.max_gt_boxes))
+    state = create_train_state(cfg, 10, torch.Generator().manual_seed(2), device="cuda")
+    step = make_train_step(cfg)
+    step(state, batch)  # the first step makes the copies
+    counters = chip_smoke.train_counters()
+    chip_smoke.zero_counts(counters)
+    step(state, batch)
+    torch.cuda.synchronize()
+    assert chip_smoke.launch_counts(counters) == chip_smoke.step_launches(cfg)
+    if mode == "mixed":
+        return
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for copies in (True, False):
+            st = create_train_state(cfg, 10, torch.Generator().manual_seed(2), device="cuda")
+            if not copies:
+                without_copies(st.model)
+            losses = forward_backward(st.model, batch, cfg)
+            runs.append([*losses] + [p.grad for p in st.model.parameters()] + list(st.model.buffers()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_copies_follow_the_optimizer_on_the_card(cuda):
+    """Adam's step on the card (its multi-tensor form) moves the parameters'
+    versions: the next forward's copies are the new parameters' casts, made
+    in one launch; a serving forward after it launches none."""
+    from votenet_tpu_torch.data.dataflow import batch_scenes
+    from votenet_tpu_torch.data.synthetic import synthetic_scenes
+    from votenet_tpu_torch.ops.cuda.cast import cast_bf16_multi_cuda
+    from votenet_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = tiny_config(compute_dtype="bfloat16")
+    batch = next(batch_scenes(iter(synthetic_scenes(1, cfg, 2)), 2, cfg.max_gt_boxes))
+    state = create_train_state(cfg, 10, device="cuda")
+    make_train_step(cfg)(state, batch)
+    model = state.model.eval()
+    pts = torch.as_tensor(batch["points"]).cuda()
+    before = cast_bf16_multi_cuda.launches
+    with torch.inference_mode():
+        model(pts)
+        once = cast_bf16_multi_cuda.launches - before
+        model(pts)
+    torch.cuda.synchronize()
+    assert once == 1 and cast_bf16_multi_cuda.launches - before == 1
+    for e in model.bf16_copies.entries.values():
+        from votenet_tpu_torch.models.bf16_copies import source_view
+
+        want = source_view(e.layer, e.kind).detach().to(torch.bfloat16)
+        assert torch.equal(e.copy.view(torch.int16), want.contiguous().view(torch.int16))
+
+
+def test_copies_follow_the_model_to_the_card(cuda):
+    """A bf16 model whose copies were made on the CPU, moved to the card
+    (``.cuda()`` swaps every parameter's storage): its next forward makes
+    the copies anew on the card in one launch, each the card's cast of its
+    parameter, and the output equals a model built on the card's."""
+    from votenet_tpu_torch.models import VoteNet
+    from votenet_tpu_torch.models.bf16_copies import source_view
+    from votenet_tpu_torch.ops.cuda.cast import cast_bf16_multi_cuda
+
+    cfg = tiny_config(compute_dtype="bfloat16")
+    pts = torch.from_numpy(cloud(4, 2, 1024, "scene"))
+    model = VoteNet(cfg, torch.Generator().manual_seed(3)).eval()
+    with torch.no_grad():
+        model(pts)  # the copies on the CPU
+        model.cuda()
+        before = cast_bf16_multi_cuda.launches
+        got = model(pts.cuda())
+        torch.cuda.synchronize()
+        assert cast_bf16_multi_cuda.launches - before == 1
+        for e in model.bf16_copies.entries.values():
+            want = source_view(e.layer, e.kind).detach().to(torch.bfloat16).contiguous()
+            assert e.copy.is_cuda and torch.equal(e.copy.view(torch.int16), want.view(torch.int16))
+        fresh = VoteNet(cfg, torch.Generator().manual_seed(3)).cuda().eval()
+        want = fresh(pts.cuda())
+    assert all(torch.equal(got[k], want[k]) for k in want)

@@ -36,6 +36,20 @@
 // type as it is read: the bits of the bias cast to h's type) are optional.
 // So x is never written, and the backward needs h alone.
 //
+// The split prologue (the SPLIT kernels: K1, K2, K3 and K4 over full rows,
+// mixed precision's and bf16_hilo's first layer, CenteredDense._split_call,
+// votenet_tpu/models/pointnet2.py:105-130): h is the features' product
+// alone, and the coordinates' term is formed here from the f32 grouped
+// coordinates xyz (R x 3), each unit's f32 centre (R / S x 3) and the f32
+// rows W3 (3 x C) of the kernel that take them:
+//   x = (T(dot3(xyz_r, W3) - dot3(centre_u, W3)) + h) + T(dbias),
+// dot3(p, W3)[c] = (p0 * W3[0][c] + p1 * W3[1][c]) + p2 * W3[2][c], each
+// operation one f32 rounding (no FMA), then each step rounded to T. The f32
+// (R, C) term is never stored. K4's epilogue then also writes W3's
+// cotangent, sum_r (xyz_r - centre_u)[k] * dx_r[c] (the difference and the
+// product in f64; exact where the coordinates' exponents lie close), added
+// as the dense bias's sum is and rounded once to f32.
+//
 // The epilogue (K4). The prologue's cotangents leave K4 with dx: corr's,
 // -sum(dx) over each unit of S rows (a row group takes whole units, so the
 // sum is the thread's own), and the dense bias's, sum(dx) over all rows.
@@ -139,11 +153,14 @@ constexpr int kThreads = 256;
 // register cap each kernel is compiled to, so that the plan's CTAs are
 // resident at once
 constexpr int kCtasReduce = 4;            // "reduce": K1
+constexpr int kCtasReduceSplit = 3;       // "reduce_split": K1 with the split prologue (W3 and the coordinates)
 constexpr int kCtasReduceDy = 2;          // "reduce_dy": K3 over a full dy
 constexpr int kCtasReducePooled = 3;      // "reduce_pooled": K3 at a pooled site
 constexpr int kCtasReducePooledWide = 2;  // "reduce_pooled_wide": the pooled K3 in bf16, 8 channels a lane
 constexpr int kCtasReduceDx = 3;          // "reduce_dx": K4 with the epilogue (the dense bias's tree)
+constexpr int kCtasReduceDxSplit = 2;     // "reduce_dx_split": K4 with the split prologue (4 f64 sums a channel)
 constexpr int kCtasApply = 4;             // "apply": K2 and its f32 pool variant, K4 without the epilogue
+constexpr int kCtasApplySplit = 3;        // "apply_split": K2 with the split prologue
 constexpr int kCtasApplyWide = 3;         // "apply_wide": K2's pool variant in bf16, 8 channels a lane
 // Rows a thread loads before it uses them: K1 and K2 read one
 // (R, C) tensor, K3 and K4 two (x and dy; at a pooled site x and the
@@ -286,6 +303,12 @@ template <typename T>
 struct Prologue {
   const T* __restrict__ corr;
   const float* __restrict__ dbias;
+  // the split prologue's (SPLIT kernels): xyz (R x 3), centre (units x 3),
+  // W3[k][c] = w3[k * w3_k + c * w3_c]; all f32
+  const float* __restrict__ xyz;
+  const float* __restrict__ centre;
+  const float* __restrict__ w3;
+  int64_t w3_k, w3_c;
 };
 
 // Where a thread works: its lane's first channel c (or -1 when idle), its
@@ -375,6 +398,69 @@ __device__ __forceinline__ void prologue8(const uint32_t (&corr)[4], const uint3
   for (int i = 0; i < 4; ++i) {
     if (has_corr) w[i] = as_u32(__hsub2(as_bf2(w[i]), as_bf2(corr[i])));
     if (has_db) w[i] = as_u32(__hadd2(as_bf2(w[i]), as_bf2(db[i])));
+  }
+}
+
+// The split prologue's W3 for a lane's V channels, in registers (SPLIT
+// kernels; empty elsewhere)
+template <int V, bool SPLIT>
+struct W3Lane {
+  template <typename T>
+  __device__ __forceinline__ void load(const Prologue<T>&, int) {}
+};
+
+template <int V>
+struct W3Lane<V, true> {
+  float w[3][V];
+  template <typename T>
+  __device__ __forceinline__ void load(const Prologue<T>& p, int c) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) w[k][j] = p.w3[k * p.w3_k + static_cast<int64_t>(c + j) * p.w3_c];
+    }
+  }
+};
+
+// (p0 * w0 + p1 * w1) + p2 * w2, each operation one f32 rounding
+__device__ __forceinline__ float dot3(const float (&p)[3], float w0, float w1, float w2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(p[0], w0), __fmul_rn(p[1], w1)), __fmul_rn(p[2], w2));
+}
+
+// A row's coordinates and its unit's centre (the split prologue's)
+template <typename T>
+__device__ __forceinline__ void load_coords(const Prologue<T>& pro, int row, int unit, float (&p)[3], float (&q)[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p[k] = __ldg(pro.xyz + static_cast<int64_t>(row) * 3 + k);
+    q[k] = __ldg(pro.centre + static_cast<int64_t>(unit) * 3 + k);
+  }
+}
+
+// x = (T(dot3(p, W3) - dot3(q, W3)) + h) + T(dbias) in place, each step
+// rounded to T
+template <typename T, int V>
+__device__ __forceinline__ void split_prologue(const W3Lane<V, true>& wl, const float (&p)[3], const float (&q)[3],
+                                               const float (&db)[V], bool has_db, float (&v)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float a = dot3(p, wl.w[0][j], wl.w[1][j], wl.w[2][j]);
+    const float b = dot3(q, wl.w[0][j], wl.w[1][j], wl.w[2][j]);
+    v[j] = round_to<T>(__fadd_rn(round_to<T>(__fsub_rn(a, b)), v[j]));
+    if (has_db) v[j] = round_to<T>(__fadd_rn(v[j], db[j]));
+  }
+}
+
+// x of a row: the split prologue (SPLIT) or the centred / bias one
+template <typename T, int V, bool SPLIT>
+__device__ __forceinline__ void layer_x(const Prologue<T>& pro, const W3Lane<V, SPLIT>& wl, int row, int unit, int C,
+                                        int c, const float (&db)[V], float (&v)[V]) {
+  if constexpr (SPLIT) {
+    float p[3], q[3];
+    load_coords(pro, row, unit, p, q);
+    split_prologue<T, V>(wl, p, q, db, pro.dbias != nullptr, v);
+  } else {
+    prologue<T, V>(pro, unit, C, c, db, v);
   }
 }
 
@@ -587,8 +673,8 @@ struct Plan {
 };
 
 // K1
-template <typename Tin, int V>
-__global__ void __launch_bounds__(kThreads, kCtasReduce)
+template <typename Tin, int V, bool SPLIT = false>
+__global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceSplit : kCtasReduce)
     bn_stats_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Plan pl, int fan_in, double* __restrict__ ws,
                     int* __restrict__ tickets, double* __restrict__ sum, double* __restrict__ sumsq, StatsEnd e) {
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
@@ -596,6 +682,8 @@ __global__ void __launch_bounds__(kThreads, kCtasReduce)
   if (s.c >= 0) {
     float db[V];
     load_dbias<Tin, V>(pro, s.c, db);
+    W3Lane<V, SPLIT> wl;
+    wl.load(pro, s.c);
     Rows it(s, pl.S);
     while (true) {
       int row[kRows], unit[kRows];
@@ -610,7 +698,7 @@ __global__ void __launch_bounds__(kThreads, kCtasReduce)
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
         if (!ok[k]) continue;
-        prologue<Tin, V>(pro, unit[k], pl.C, s.c, db, v[k]);
+        layer_x<Tin, V, SPLIT>(pro, wl, row[k], unit[k], pl.C, s.c, db, v[k]);
 #pragma unroll
         for (int j = 0; j < V; ++j) {  // x and x * x exact in f64
           const double xv = v[k][j];
@@ -673,8 +761,8 @@ __device__ __forceinline__ void load_apply(const ApplyChannels& ch, const Slot& 
 }
 
 // K2
-template <typename Tin, typename Tout, int V>
-__global__ void __launch_bounds__(kThreads, kCtasApply)
+template <typename Tin, typename Tout, int V, bool SPLIT = false>
+__global__ void __launch_bounds__(kThreads, SPLIT ? kCtasApplySplit : kCtasApply)
     bn_apply_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Plan pl, Tout* __restrict__ y, ApplyChannels ch,
                     bool relu_on) {
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
@@ -682,6 +770,8 @@ __global__ void __launch_bounds__(kThreads, kCtasApply)
   float m[V], k[V], b[V], db[V];
   load_apply<V>(ch, s, pl.C, m, k, b);
   load_dbias<Tin, V>(pro, s.c, db);
+  W3Lane<V, SPLIT> wl;
+  wl.load(pro, s.c);
   Rows it(s, pl.S);
   while (true) {
     int row[kRows], unit[kRows];
@@ -696,7 +786,7 @@ __global__ void __launch_bounds__(kThreads, kCtasApply)
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (!ok[r]) continue;
-      prologue<Tin, V>(pro, unit[r], pl.C, s.c, db, v[r]);
+      layer_x<Tin, V, SPLIT>(pro, wl, row[r], unit[r], pl.C, s.c, db, v[r]);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float t = normalized<Tout>(v[r][j], m[j], k[j], b[j]);
@@ -875,7 +965,7 @@ __device__ __forceinline__ void cotangent(const PooledUnit<Tout, V>& pu, const f
 // (q * (y == max), masked where the pre-ReLU y <= 0) pairwise.
 constexpr int kDyRows = 4;
 
-template <typename Tin, typename Tout, int V, bool POOLED, bool WIDE = V == 8>
+template <typename Tin, typename Tout, int V, bool POOLED, bool SPLIT = false, bool WIDE = V == 8>
 __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWide : kCtasReducePooled : kCtasReduceDy)
     bn_bwd_reduce_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Cotangent<Tout> ct, Plan pl, int fan_in,
                          ApplyChannels ch, bool relu_on, double* __restrict__ ws,
@@ -936,6 +1026,9 @@ __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWid
         }
       }
     } else {
+      static_assert(!(SPLIT && POOLED), "the split prologue runs at a layer's first width, never pooled");
+      W3Lane<V, SPLIT> wl;
+      wl.load(pro, s.c);
       PooledUnit<Tout, V> pu;
       Rows it(s, pl.S);
       while (true) {
@@ -956,7 +1049,7 @@ __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWid
         for_rows<kU>([&](auto r_) {
           constexpr int r = decltype(r_)::value;
           if (!ok[r]) return;
-          prologue<Tin, V>(pro, unit[r], pl.C, s.c, db, v[r]);
+          layer_x<Tin, V, SPLIT>(pro, wl, row[r], unit[r], pl.C, s.c, db, v[r]);
           if constexpr (POOLED) pu.at(ct, unit[r], pl.C, s.c);
           float g[V];
           cotangent<Tout, POOLED, V>(pu, d[r], v[r], m, k, b, relu_on, g);
@@ -983,11 +1076,13 @@ __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWid
 
 // K4's epilogue: where the prologue's cotangents go. dcorr (units x C, in
 // x's type; with EPI 2) and dbias (C floats, through the tree's workspace
-// and tickets) may each be null.
+// and tickets) may each be null; dw3 (3 x C floats, the split prologue's
+// W3; with SPLIT) goes through the tree beside dbias.
 template <typename Tin>
 struct Epilogue {
   Tin* __restrict__ dcorr;
   float* __restrict__ dbias;
+  float* __restrict__ dw3;
   double* __restrict__ ws;
   int* __restrict__ tickets;
   int fan_in;
@@ -996,23 +1091,30 @@ struct Epilogue {
 // K4; a and b are null in eval (dx = g * mul). The epilogue: EPI 0 none; 1
 // the dense bias's sum(dx), a thread's rows added in order; 2 also each
 // unit's -sum(dx) (corr's cotangent), the unit's rows from +0, and the
-// thread's sum adds its units' sums.
-template <typename Tin, typename Tout, int V, bool POOLED, int EPI>
-__global__ void __launch_bounds__(kThreads, EPI ? kCtasReduceDx : kCtasApply)
+// thread's sum adds its units' sums. SPLIT (with EPI 1): the split prologue,
+// and beside the dense bias's sum the three sums of W3's cotangent, a
+// thread's rows added in order, each term (xyz_r - centre_u)[k] * dx_r[c]
+// formed in f64.
+template <typename Tin, typename Tout, int V, bool POOLED, int EPI, bool SPLIT = false>
+__global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceDxSplit : EPI ? kCtasReduceDx : kCtasApply)
     bn_bwd_apply_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Cotangent<Tout> ct, Plan pl,
                         Tin* __restrict__ dx, ApplyChannels ch, const float* __restrict__ a,
                         const float* __restrict__ b, bool relu_on, Epilogue<Tin> ep) {
+  static_assert(!SPLIT || (EPI == 1 && !POOLED), "the split prologue: full rows, the dense bias's and W3's sums");
   constexpr bool SUMS = EPI != 0;
+  constexpr int NS = SPLIT ? 4 : 1;  // the tree's sums: the dense bias's, and W3's three
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
   if constexpr (!SUMS) {
     if (s.c < 0) return;
   }
-  double tot[1][V] = {}, un[V] = {};  // the thread's sum, and (EPI 2) the current unit's
+  double tot[NS][V] = {}, un[V] = {};  // the thread's sums, and (EPI 2) the current unit's
   if (s.c >= 0) {
     const bool stats = a != nullptr;
     float m[V], k[V], bi[V], db[V], ca[V] = {}, cb[V] = {};
     load_apply<V>(ch, s, pl.C, m, k, bi);
     load_dbias<Tin, V>(pro, s.c, db);
+    W3Lane<V, SPLIT> wl;
+    wl.load(pro, s.c);
     if (stats) {
       load_channels<V>(a, s.c, ca);
       load_channels<V>(b, s.c, cb);
@@ -1050,7 +1152,13 @@ __global__ void __launch_bounds__(kThreads, EPI ? kCtasReduceDx : kCtasApply)
       for_rows<kPairRows>([&](auto r_) {
         constexpr int r = decltype(r_)::value;
         if (!ok[r]) return;
-        prologue<Tin, V>(pro, unit[r], pl.C, s.c, db, v[r]);
+        float pc[3], qc[3];  // (SPLIT) the row's coordinates and its unit's centre
+        if constexpr (SPLIT) {
+          load_coords(pro, row[r], unit[r], pc, qc);
+          split_prologue<Tin, V>(wl, pc, qc, db, pro.dbias != nullptr, v[r]);
+        } else {
+          prologue<Tin, V>(pro, unit[r], pl.C, s.c, db, v[r]);
+        }
         if constexpr (POOLED) pu.at(ct, unit[r], pl.C, s.c);
         float g[V];
         cotangent<Tout, POOLED, V>(pu, d[r], v[r], m, k, bi, relu_on, g);
@@ -1060,7 +1168,18 @@ __global__ void __launch_bounds__(kThreads, EPI ? kCtasReduceDx : kCtasApply)
           v[r][j] = round_to<Tin>(stats ? __fadd_rn(__fadd_rn(t, ca[j]), __fmul_rn(cb[j], v[r][j])) : t);
         }
         store<Tin, V>(dx + static_cast<int64_t>(row[r]) * pl.C + s.c, v[r]);
-        if constexpr (EPI == 2) {
+        if constexpr (SPLIT) {
+          double dk[3];  // (xyz_r - centre_u)[k] in f64
+#pragma unroll
+          for (int q = 0; q < 3; ++q) dk[q] = __dsub_rn(static_cast<double>(pc[q]), static_cast<double>(qc[q]));
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const double dv = v[r][j];
+            tot[0][j] = __dadd_rn(tot[0][j], dv);
+#pragma unroll
+            for (int q = 0; q < 3; ++q) tot[1 + q][j] = __dadd_rn(tot[1 + q][j], __dmul_rn(dk[q], dv));
+          }
+        } else if constexpr (EPI == 2) {
           if (unit[r] != cur) {
             flush();
             cur = unit[r];
@@ -1075,7 +1194,14 @@ __global__ void __launch_bounds__(kThreads, EPI ? kCtasReduceDx : kCtasApply)
     }
     if constexpr (EPI == 2) flush();
   }
-  if constexpr (SUMS) {
+  if constexpr (SPLIT) {  // W3's sums always (dbias may be null)
+    const int C = pl.C;
+    finish_sums<NS, V>(s, C, pl.W, ep.fan_in, tot, ep.ws, ep.tickets, [&](int c, const double (&p)[NS]) {
+      if (ep.dbias != nullptr) ep.dbias[c] = round_from_double<Tin>(p[0]);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) ep.dw3[q * C + c] = __double2float_rn(p[1 + q]);
+    });
+  } else if constexpr (SUMS) {
     if (ep.dbias != nullptr) {  // the same for every CTA: the tree's barriers are safe
       finish_sums<1, V>(s, pl.C, pl.W, ep.fan_in, tot, ep.ws, ep.tickets, [&](int c, const double (&p)[1]) {
         ep.dbias[c] = round_from_double<Tin>(p[0]);
@@ -1104,9 +1230,26 @@ cudaError_t dispatch(int a_bf16, int b_bf16, int vec, F&& f) {
 
 dim3 grid_of(int ctas, int tiles) { return dim3(static_cast<unsigned>(ctas), static_cast<unsigned>(tiles)); }
 
+// The prologue's inputs; `sp` the split prologue's (null xyz: none)
+struct SplitArgs {
+  const float* xyz;
+  const float* centre;
+  const float* w3;
+  int64_t w3_k, w3_c;
+};
+
 template <typename T>
-Prologue<T> prologue_of(const void* corr, const float* dbias) {
-  return Prologue<T>{static_cast<const T*>(corr), dbias};
+Prologue<T> prologue_of(const void* corr, const float* dbias, const SplitArgs& sp = SplitArgs{}) {
+  return Prologue<T>{static_cast<const T*>(corr), dbias, sp.xyz, sp.centre, sp.w3, sp.w3_k, sp.w3_c};
+}
+
+// f(Tag<T>, V) for the split kernels, whose input and output share the type
+template <typename F>
+cudaError_t dispatch_split(int a_bf16, int vec, F&& f) {
+  auto with_v = [&](auto ta) -> cudaError_t {
+    return vec == 4 ? f(ta, std::integral_constant<int, 4>{}) : f(ta, std::integral_constant<int, 1>{});
+  };
+  return a_bf16 ? with_v(Tag<bf16>{}) : with_v(Tag<float>{});
 }
 
 }  // namespace
@@ -1117,7 +1260,10 @@ extern "C" {
 // `ctas` CTAs along the units (units_per_cta each, a unit S rows) and
 // `tiles` along the channels; vec is V, the channels a lane (1, 4, or 8 in
 // the bf16 pool kernels). The prologue's corr (R / S x C) is in x's type,
-// dbias (C) f32, either may be null; fewer than 2^31 rows. The reductions'
+// dbias (C) f32, either may be null; fewer than 2^31 rows. With xyz
+// non-null the split prologue (corr null; xyz R x 3, centre R / S x 3,
+// W3[k][c] = w3[k * w3_k + c * w3_c], all f32; full rows, the output in x's
+// type). The reductions'
 // ws holds NS x (ctas + ceil(ctas / fan_in)) x C doubles (NS = 2 for K1 and
 // K3, 1 for K4's epilogue), and tickets (ceil(ctas / fan_in) + 1) x tiles
 // ints that are 0 on entry and on exit (each is set back by the CTA that
@@ -1126,7 +1272,8 @@ extern "C" {
 
 // With st non-null the statistics' end (mean, mul, inv, var_raw into st,
 // the running statistics moved when `update`); else the f64 sums
-int votenet_bn_stats(const void* x, int x_bf16, const void* corr, const float* dbias, int S, int64_t R, int C,
+int votenet_bn_stats(const void* x, int x_bf16, const void* corr, const float* dbias, int S, const float* xyz,
+                     const float* centre, const float* w3, int64_t w3_k, int64_t w3_c, int64_t R, int C,
                      int vec, int W, int ctas, int tiles, int64_t units_per_cta, int fan_in, double* ws,
                      int* tickets, double* sum, double* sumsq, float* st, const float* weight, float* running_mean,
                      float* running_var, int update, float inv_count, float eps, float f_old, float f_new,
@@ -1134,6 +1281,15 @@ int votenet_bn_stats(const void* x, int x_bf16, const void* corr, const float* d
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const Plan pl{R / S, S, C, W, units_per_cta};
   const StatsEnd e{st, weight, running_mean, running_var, update, inv_count, eps, f_old, f_new};
+  if (xyz != nullptr) {
+    const SplitArgs sp{xyz, centre, w3, w3_k, w3_c};
+    return static_cast<int>(dispatch_split(x_bf16, vec, [&](auto ta, auto v) {
+      using T = typename decltype(ta)::type;
+      bn_stats_kernel<T, decltype(v)::value, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
+          static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), pl, fan_in, ws, tickets, sum, sumsq, e);
+      return cudaGetLastError();
+    }));
+  }
   return static_cast<int>(dispatch(x_bf16, 0, vec, [&](auto ta, auto, auto v) {
     using Tin = typename decltype(ta)::type;
     bn_stats_kernel<Tin, decltype(v)::value><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
@@ -1147,7 +1303,8 @@ int votenet_bn_stats(const void* x, int x_bf16, const void* corr, const float* d
 // `mean` the running mean (eval); with sums non-null (a data-parallel
 // group's (2, C) f64 sums; mean and mul null) the statistics' end (mean,
 // mul, inv, var_raw into st, the running statistics moved when `update`)
-int votenet_bn_apply(const void* x, int x_bf16, const void* corr, const float* dbias, int S, void* y, int y_bf16,
+int votenet_bn_apply(const void* x, int x_bf16, const void* corr, const float* dbias, int S, const float* xyz,
+                     const float* centre, const float* w3, int64_t w3_k, int64_t w3_c, void* y, int y_bf16,
                      int* count, int64_t R, int C, int vec, int W, int ctas, int tiles, int64_t units_per_cta,
                      const float* mean, const float* mul, const float* bias, const float* eval_var, float eps,
                      int relu_on, const double* sums, float* st, const float* weight, float* running_mean,
@@ -1157,6 +1314,16 @@ int votenet_bn_apply(const void* x, int x_bf16, const void* corr, const float* d
   const Plan pl{R / S, S, C, W, units_per_cta};
   const ApplyChannels ch{mean, mul, bias, eval_var, eps, sums,
                          StatsEnd{st, weight, running_mean, running_var, update, inv_count, end_eps, f_old, f_new}};
+  if (xyz != nullptr) {  // the split prologue: full rows, y in x's type
+    if (count != nullptr || x_bf16 != y_bf16 || vec == 8) return static_cast<int>(cudaErrorInvalidValue);
+    const SplitArgs sp{xyz, centre, w3, w3_k, w3_c};
+    return static_cast<int>(dispatch_split(x_bf16, vec, [&](auto ta, auto v) {
+      using T = typename decltype(ta)::type;
+      bn_apply_kernel<T, T, decltype(v)::value, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
+          static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), pl, static_cast<T*>(y), ch, relu_on != 0);
+      return cudaGetLastError();
+    }));
+  }
   if (vec == 8) {  // the bf16 pool variant, 8 channels a lane
     if (count == nullptr || !x_bf16 || !y_bf16) return static_cast<int>(cudaErrorInvalidValue);
     bn_apply_pool_kernel<bf16, bf16, 8><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
@@ -1185,7 +1352,8 @@ int votenet_bn_apply(const void* x, int x_bf16, const void* corr, const float* d
 // votenet_bn_apply. With co non-null the coefficients' end (a, b (training
 // only), the weight's and the bias's cotangents into co, from st, or in
 // eval with st null from eval_var); else the f32 sums
-int votenet_bn_bwd_reduce(const void* x, int x_bf16, const void* corr, const float* dbias, int S, const void* dy,
+int votenet_bn_bwd_reduce(const void* x, int x_bf16, const void* corr, const float* dbias, int S, const float* xyz,
+                          const float* centre, const float* w3, int64_t w3_k, int64_t w3_c, const void* dy,
                           int dy_bf16, const void* ymax, const int* count, int64_t R, int C, int vec, int W, int ctas,
                           int tiles, int64_t units_per_cta, int fan_in, const float* mean, const float* mul,
                           const float* bias, const float* eval_var, float eps, int relu_on, double* ws, int* tickets,
@@ -1195,6 +1363,18 @@ int votenet_bn_bwd_reduce(const void* x, int x_bf16, const void* corr, const flo
   const Plan pl{R / S, S, C, W, units_per_cta};
   const ApplyChannels ch{mean, mul, bias, eval_var, eps, nullptr, StatsEnd{}};
   const CoefEnd e{co, st, eval_var, eps, weight, inv_count, training};
+  if (xyz != nullptr) {  // the split prologue: a full dy in x's type
+    if (ymax != nullptr || x_bf16 != dy_bf16 || vec == 8) return static_cast<int>(cudaErrorInvalidValue);
+    const SplitArgs sp{xyz, centre, w3, w3_k, w3_c};
+    return static_cast<int>(dispatch_split(x_bf16, vec, [&](auto ta, auto v) {
+      using T = typename decltype(ta)::type;
+      const Cotangent<T> ct{static_cast<const T*>(dy), nullptr, nullptr};
+      bn_bwd_reduce_kernel<T, T, decltype(v)::value, false, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
+          static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), ct, pl, fan_in, ch, relu_on != 0, ws,
+          tickets, sum_g, sum_gx, e);
+      return cudaGetLastError();
+    }));
+  }
   if (vec == 8) {  // the pooled K3 in bf16, 8 channels a lane
     if (ymax == nullptr || !x_bf16 || !dy_bf16) return static_cast<int>(cudaErrorInvalidValue);
     const Cotangent<bf16> ct{static_cast<const bf16*>(dy), static_cast<const bf16*>(ymax), count};
@@ -1223,23 +1403,40 @@ int votenet_bn_bwd_reduce(const void* x, int x_bf16, const void* corr, const flo
 // mean, mul and eval_var as in votenet_bn_apply; epi (K4's EPI): 0 none; 1
 // the dense bias's cotangent (C floats) into dbias_out through the tree
 // (ws, tickets, fan_in); 2 also corr's into dcorr (R / S x C, x's type),
-// dbias_out then optional
-int votenet_bn_bwd_apply(const void* x, int x_bf16, const void* corr, const float* dbias, int S, const void* dy,
+// dbias_out then optional. With the split prologue (xyz non-null; epi 1,
+// dbias_out optional) also W3's cotangent (3 x C floats) into dw3 through
+// the same tree (ws of 4 sums)
+int votenet_bn_bwd_apply(const void* x, int x_bf16, const void* corr, const float* dbias, int S, const float* xyz,
+                         const float* centre, const float* w3, int64_t w3_k, int64_t w3_c, const void* dy,
                          int dy_bf16, const void* ymax, const int* count, void* dx, int64_t R, int C, int vec, int W,
                          int ctas, int tiles, int64_t units_per_cta, const float* mean, const float* mul,
                          const float* bias, const float* eval_var, float eps, const float* a, const float* b,
-                         int relu_on, int epi, void* dcorr, float* dbias_out, double* ws, int* tickets, int fan_in,
-                         void* stream) {
+                         int relu_on, int epi, void* dcorr, float* dbias_out, float* dw3, double* ws, int* tickets,
+                         int fan_in, void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const Plan pl{R / S, S, C, W, units_per_cta};
   const ApplyChannels ch{mean, mul, bias, eval_var, eps, nullptr, StatsEnd{}};
+  if (xyz != nullptr) {  // the split prologue: a full dy in x's type, the dense bias's and W3's sums
+    if (ymax != nullptr || x_bf16 != dy_bf16 || vec == 8 || epi != 1 || dw3 == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const SplitArgs sp{xyz, centre, w3, w3_k, w3_c};
+    return static_cast<int>(dispatch_split(x_bf16, vec, [&](auto ta, auto v) {
+      using T = typename decltype(ta)::type;
+      const Cotangent<T> ct{static_cast<const T*>(dy), nullptr, nullptr};
+      const Epilogue<T> ep{nullptr, dbias_out, dw3, ws, tickets, fan_in};
+      bn_bwd_apply_kernel<T, T, decltype(v)::value, false, 1, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
+          static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), ct, pl, static_cast<T*>(dx), ch, a, b,
+          relu_on != 0, ep);
+      return cudaGetLastError();
+    }));
+  }
   return static_cast<int>(dispatch(x_bf16, dy_bf16, vec, [&](auto ta, auto tb, auto v) {
     using Tin = typename decltype(ta)::type;
     using Tout = typename decltype(tb)::type;
     constexpr int V = decltype(v)::value;
     const Prologue<Tin> pro = prologue_of<Tin>(corr, dbias);
     const Cotangent<Tout> ct{static_cast<const Tout*>(dy), static_cast<const Tout*>(ymax), count};
-    const Epilogue<Tin> ep{static_cast<Tin*>(dcorr), dbias_out, ws, tickets, fan_in};
+    const Epilogue<Tin> ep{static_cast<Tin*>(dcorr), dbias_out, nullptr, ws, tickets, fan_in};
     auto launch = [&](auto pooled) {
       auto with = [&](auto e) {
         bn_bwd_apply_kernel<Tin, Tout, V, decltype(pooled)::value, decltype(e)::value>

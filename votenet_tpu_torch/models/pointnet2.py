@@ -14,7 +14,9 @@ Precision: each module takes the ``dtype`` of its flax counterpart
 ``Config.mixed_precision``) and rounds where flax rounds, with explicit
 casts (``torch.autocast`` would fold a dense layer's bias into its GEMM and
 round once, where flax rounds the product and then the sum). Parameters and
-batch-norm statistics stay f32 in every mode, so one checkpoint serves all.
+batch-norm statistics stay f32 in every mode, so one checkpoint serves all;
+a bf16 layer multiplies by a bf16 copy of its weight made once a parameter
+version (``models/bf16_copies.py``), the bits of the per-call cast.
 The bf16 products run on cuBLAS under the caller's
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
 (torch's default lets a split-K GEMM reduce its partial sums in bf16, where
@@ -33,6 +35,8 @@ import torch
 from torch import nn
 
 from votenet_tpu_torch import ops
+from votenet_tpu_torch.models import bf16_copies
+from votenet_tpu_torch.models.bf16_copies import bf16_view
 from votenet_tpu_torch.ops.dispatch import samlp_precision
 from votenet_tpu_torch.parallel import comm
 from votenet_tpu_torch.parallel import point_sharded as sp_ops
@@ -66,14 +70,15 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     norm's prologue instead (:func:`dense_product`)."""
     if dtype == torch.float32:
         return layer(x.float())
-    return dense_product(layer, x, dtype) + layer.bias.to(dtype)
+    return dense_product(layer, x, dtype) + bf16_view(layer, "bias", dtype)
 
 
 def dense_product(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x @ W`` of ``nn.Dense(dtype=dtype)``, rounded to ``dtype``, without
     its bias: the h of a batch-norm site, whose op adds the bias
-    (``BatchNorm.forward``'s ``dense_bias``)."""
-    return x.to(dtype) @ layer.weight.t().to(dtype)
+    (``BatchNorm.forward``'s ``dense_bias``). W is the layer's bf16 copy
+    where it keeps one (``bf16_copies``)."""
+    return x.to(dtype) @ bf16_view(layer, "weight", dtype).t()
 
 
 class BatchNorm(nn.Module):
@@ -96,7 +101,8 @@ class BatchNorm(nn.Module):
     cast to ``dtype``. ``forward(h, relu=True)`` also applies the ReLU, in
     the same op (the MLP stacks' and the voting module's call), and takes
     the layer around it: x = ``h + dense_bias``, or ``(h - corr[..., None,
-    :]) + dense_bias`` (the centred first layer), formed inside the op;
+    :]) + dense_bias`` (the centred first layer), or the split first
+    layer's ``coords`` (its coordinate term), formed inside the op;
     ``pool="max"`` returns the max over the slots (axis -2) of the output
     (an SA layer's last width). See ``ops/batchnorm.py``.
 
@@ -129,11 +135,11 @@ class BatchNorm(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor, relu: bool = False, *, dense_bias: Optional[torch.Tensor] = None,
-                corr: Optional[torch.Tensor] = None, pool: Optional[str] = None) -> torch.Tensor:
+                corr: Optional[torch.Tensor] = None, pool: Optional[str] = None, coords=None) -> torch.Tensor:
         return ops.batch_norm_relu(
             x, self.weight, self.bias, self.running_mean, self.running_var, training=self.training,
             momentum=self.momentum, eps=self.eps, group=self.group, update_stats=not self.frozen, dtype=self.dtype,
-            relu=relu, dense_bias=dense_bias, corr=corr, pool=pool,
+            relu=relu, dense_bias=dense_bias, corr=corr, pool=pool, coords=coords,
         )
 
 
@@ -191,10 +197,13 @@ class MLPStack(nn.Module):
     Each dense layer that a batch norm follows hands the batch norm its
     product h and its f32 bias, which the op rounds to ``dtype`` (and the
     first layer its centre correction
-    ``center @ W[:3]``): the op forms x of them (``BatchNorm.forward``), so
-    x is never stored. The split first layer adds its own bias. ``pool="max"``
+    ``center @ W[:3]``, or the split first layer the grouped coordinates,
+    the centres and W[:3], the split prologue's ``coords``): the op forms x
+    of them (``BatchNorm.forward``), so x is never stored. ``pool="max"``
     (an SA layer's max-pool; the last width must have its batch norm) makes
     the last batch norm return the max over the slots (axis 2), (B, M, C).
+    In bf16 the weights (and the biases that no batch norm takes) are the
+    layers' bf16 copies (``bf16_copies``).
     """
 
     def __init__(
@@ -216,7 +225,11 @@ class MLPStack(nn.Module):
             setattr(self, f"dense{i}", make_linear(cin, w, generator))
             if use_bn and (final_activation or i < self.n - 1):
                 setattr(self, f"bn{i}", BatchNorm(w, eps, dtype=dtype))
+            if dtype == torch.bfloat16:  # the bias too where no batch norm takes it (dense())
+                bf16_copies.register(getattr(self, f"dense{i}"), "weight",
+                                     *(() if hasattr(self, f"bn{i}") else ("bias",)))
             cin = w
+        bf16_copies.attach(self)
         self.eval()
 
     def forward(
@@ -232,11 +245,16 @@ class MLPStack(nn.Module):
         for i in range(self.n):
             layer = getattr(self, f"dense{i}")
             bn = getattr(self, f"bn{i}", None)
-            corr = b = None
+            last_pool = pool if i == self.n - 1 else None
+            corr = b = coords = None
             if i == 0 and isinstance(x, tuple):
-                h = self._split_dense0(*x, center, idx)  # with its bias
+                h, coords = self._split_dense0(*x, center, idx)
+                b = layer.bias  # the op rounds the f32 bias to dt (the prologue), or below without a batch norm
+                if bn is None or last_pool:  # no split prologue (a pooled width): the coordinate term formed here
+                    xyz, cen, w3 = coords
+                    h, coords = (xyz @ w3 - (cen @ w3)[:, :, None, :]).to(dt) + h, None
             elif i == 0 and center is not None:
-                w = layer.weight.t().to(dt)  # (in, out)
+                w = bf16_view(layer, "weight", dt).t()  # (in, out)
                 x = x.to(dt)
                 h = x @ w if idx is None else ops.group_point(x @ w, idx)  # (B, M, S, out)
                 corr, b = center.to(dt) @ w[:3], layer.bias  # the op rounds the f32 bias to dt
@@ -245,33 +263,37 @@ class MLPStack(nn.Module):
             else:
                 h = dense(layer, x, dt)
             if bn is not None:
-                x = bn(h, relu=True, dense_bias=b, corr=corr, pool=pool if i == self.n - 1 else None)
+                x = bn(h, relu=True, dense_bias=b, corr=corr, pool=last_pool, coords=coords)
             else:
-                x = h if corr is None else (h - corr[:, :, None, :]) + b.to(dt)
+                x = h if corr is None else h - corr[:, :, None, :]
+                x = x if b is None else x + bf16_view(layer, "bias", dt)
                 if self.final_activation or i < self.n - 1:
                     x = torch.relu(x)
         return x
 
     def _split_dense0(self, xyz: torch.Tensor, feat: torch.Tensor, center: torch.Tensor,
-                      idx: Optional[torch.Tensor]) -> torch.Tensor:
-        """Mixed precision's first layer: ``xyz @ W[:3]`` in f32 with the
-        centre's product subtracted before the cast, ``feat @ W[3:]`` in
-        ``dtype``, then ``(h_xyz + h_feat) + b`` in ``dtype``. With ``idx``
-        the (B, N, .) sources are gathered here (a narrow f32 gather and a
-        wide one of the projected features: eval's project-first form);
-        without, they come grouped (training)."""
+                      idx: Optional[torch.Tensor]):
+        """Mixed precision's first layer, ``(h_xyz + h_feat) + b`` in
+        ``dtype``: returns ``h_feat = feat @ W[3:]`` in ``dtype`` (the layer's
+        bf16 copy of W[3:] in bf16) and the coordinate term's inputs
+        ``(xyz, center, W[:3])``, the grouped f32 coordinates (B, M, S, 3),
+        the f32 centres and the f32 rows of the kernel, from which the batch
+        norm's split prologue forms ``h_xyz = xyz @ W[:3] - center @ W[:3]``
+        in f32 and rounds it to ``dtype`` (the f32 (B, M, S, C) term is never
+        stored). With ``idx`` the (B, N, .) sources are gathered here (a
+        narrow f32 gather and a wide one of the projected features: eval's
+        project-first form); without, they come grouped (training)."""
         dt = self.dtype
         layer = self.dense0
         w = layer.weight.t()
-        w_xyz, w_feat = w[:3], w[3:].to(dt)
+        w_feat = bf16_view(layer, "feat", dt) if dt == torch.bfloat16 else w[3:].to(dt)
         feat = feat.to(dt)
         if idx is not None:
             h_feat = ops.group_point(feat @ w_feat, idx)
             xyz = ops.group_point(xyz, idx)
         else:
             h_feat = feat @ w_feat
-        h_xyz = xyz @ w_xyz - (center @ w_xyz)[:, :, None, :]
-        return (h_xyz.to(dt) + h_feat) + layer.bias.to(dt)
+        return h_feat, (xyz, center, w[:3])
 
 
 def split_hilo(x: torch.Tensor):
@@ -459,6 +481,9 @@ class PointNetSAModule(nn.Module):
             if mlp2 is not None
             else None
         )
+        if dtype == torch.bfloat16 and (split_coords or self.packed) and len(mlp) > 0:
+            bf16_copies.register(self.mlp.dense0, "feat")  # the split first layer's W[3:]
+        bf16_copies.attach(self)
         self.eval()
 
     def forward(
@@ -527,7 +552,15 @@ class PointNetSAModule(nn.Module):
             grouped = ops.group_point(both, idx, grad_skip_prefix=skip, scatter=self.scatter)
             new_points = self.mlp(grouped, center=new_xyz, pool=self.mlp_pool)
         else:
-            both = xyz if points is None else torch.cat([xyz, points], dim=-1)
+            dt = self.mlp.dtype
+            if points is None:
+                both = xyz
+            elif points.dtype == dt != torch.float32:
+                # features already in dt: the coordinates' rounding alone, no cast of an f32 concatenation (which
+                # would round the features a second time, and costs a launch)
+                both = torch.cat([xyz.to(dt), points], dim=-1)
+            else:
+                both = torch.cat([xyz, points], dim=-1)
             if self.samlp:  # pooled by the fused op
                 return new_xyz, self._fused_eval_mlp_pool(both, new_xyz, idx), idx
             new_points = self.mlp(both, center=new_xyz, idx=idx, pool=self.mlp_pool)
@@ -617,6 +650,7 @@ class PointNetSAModuleMSG(nn.Module):
         c_in = cin + 3 if use_xyz or cin == 0 else cin
         for i, widths in enumerate(mlp_list):
             setattr(self, f"mlp_scale{i}", MLPStack(c_in, widths, generator, eps=eps, dtype=dtype, use_bn=use_bn))
+        bf16_copies.attach(self)
         self.eval()
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor]):

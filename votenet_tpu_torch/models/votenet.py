@@ -20,6 +20,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from votenet_tpu_torch.config import Config
+from votenet_tpu_torch.models import bf16_copies
 from votenet_tpu_torch.models.pointnet2 import (
     BatchNorm,
     PointNetFPModule,
@@ -89,7 +90,10 @@ class VotingModule(nn.Module):
             setattr(self, f"voting{i}", make_linear(cin, w, generator))
             if i < self.n - 1:
                 setattr(self, f"voting{i}_bn", BatchNorm(w, eps, dtype=dtype))
+            if dtype == torch.bfloat16:  # the last layer's bias too (dense())
+                bf16_copies.register(getattr(self, f"voting{i}"), "weight", *(("bias",) if i == self.n - 1 else ()))
             cin = w
+        bf16_copies.attach(self)
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -137,6 +141,11 @@ class VoteNet(nn.Module):
     running statistics move once a step, as flax's do. Under ``sp_mesh``
     every rank recomputes its layers in the same order, so the recompute's
     collectives pair up across the ranks.
+
+    The bf16 layers' weights (``compute_dtype="bfloat16"``, and sa2-sa4
+    under mixed precision) are multiplied in bf16 copies made once a
+    parameter version, all in one launch (``models/bf16_copies.py``;
+    ``self.bf16_copies``, None in f32).
 
     Weights are drawn from ``generator`` (flax's initialisers: he-normal
     kernels, zero biases, unit batch-norm scales); a checkpoint replaces
@@ -208,6 +217,7 @@ class VoteNet(nn.Module):
         for m in self.modules():
             if isinstance(m, BatchNorm):
                 m.momentum = cfg.bn_momentum
+        self.bf16_copies = bf16_copies.attach(self)  # one refresh for the whole model's bf16 layers
         self.eval()
 
     def local_points(self, points):

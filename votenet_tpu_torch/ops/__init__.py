@@ -11,7 +11,8 @@ with an 8-byte candidate exchange (``fps_rowwise_noscalar``). NMS's greedy
 and its IoU matrix run kernels of the port's own on a CUDA tensor
 (``nms3d``, ``box3d_iou_matrix``), and so does batch norm + ReLU, one
 autograd op whose four stages are kernels on the card
-(``batch_norm_relu``). The reference's other ops, on no path
+(``batch_norm_relu``), and the bf16 weight copies' casts, a table of
+tensors in one launch (``cast_bf16_multi``). The reference's other ops, on no path
 (``knn_point``, ``select_top_k``, ``query_ball_point_topk``,
 ``prob_sample``), the ball query's dense and streaming forms
 (``query_ball_point_dense``, ``query_ball_point_streaming``), three_nn's
@@ -20,6 +21,7 @@ autograd op whose four stages are kernels on the card
 """
 
 from votenet_tpu_torch.ops.batchnorm import batch_norm_relu
+from votenet_tpu_torch.ops.cast import cast_bf16_multi
 from votenet_tpu_torch.ops.common import pairwise_sqdist
 from votenet_tpu_torch.ops.grouping import (
     finalize_first_k,
@@ -47,4 +49,5 @@ __all__ = [
     "three_nn", "three_nn_dense", "three_nn_streaming", "three_interpolate",
     "box3d_iou_pairwise", "box3d_iou_matrix", "nms3d", "nms3d_indices", "fused_sa_mlp_pool",
     "knn_point", "select_top_k", "query_ball_point_topk", "prob_sample", "batch_norm_relu",
+    "cast_bf16_multi",
 ]

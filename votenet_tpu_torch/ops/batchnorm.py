@@ -12,7 +12,11 @@ cotangent and of its product with ``x - mean``, and from them the
 coefficients (stage 3), then the input's cotangent and the prologue's
 (stage 4). Each stage reads the dense layer's output h and forms x of it
 (the prologue, ``x = (h - corr) + dense_bias``, each operation rounded once
-to h's dtype, as the eager ops round). Each stage runs a hand-written CUDA
+to h's dtype, as the eager ops round; or, at mixed precision's and
+bf16_hilo's split first layer, the split prologue ``x = (T(dot3(xyz, W3) -
+dot3(centre, W3)) + h) + T(dense_bias)``: h the features' product, the
+coordinates' f32 term formed in the stage and never stored, dot3 ``(p0 *
+w0 + p1 * w1) + p2 * w2`` with each operation one f32 rounding). Each stage runs a hand-written CUDA
 kernel for a CUDA tensor (``ops/cuda/batchnorm.py``, ``csrc/batchnorm.cu``)
 and its plain PyTorch version below for a CPU tensor; anything else raises.
 The per-channel arithmetic between the sums and the next stage (C floats:
@@ -59,7 +63,12 @@ give their bits):
   ``corr``'s is ``-sum(dx)`` over each unit of S rows and the dense bias's
   ``sum(dx)`` over every axis but the last, each the f64 sum of the rounded
   dx values rounded once to h's dtype (the dense bias's then held in f32,
-  as autograd's cast of an f32 bias to h's dtype gives it). In training the
+  as autograd's cast of an f32 bias to h's dtype gives it). At the split
+  prologue W3's is ``sum_r (xyz_r - centre_u)[k] * dx_r[c]``, each term's
+  difference and product in f64, summed in f64 and rounded once to f32;
+  the coordinates' and the centres' (asked for by no path of the model)
+  are autograd's of the f32 term, ``dx @ W3.T`` and ``-(sum over the
+  unit's rows of dx) @ W3.T`` in f32. In training the
   dense bias's sum is 0 in exact arithmetic (batch norm takes out a shift):
   what it holds is the rounding of dx. Saved of the rows: h alone (the
   prologue, the mask and the pool's ties are recomputed from it), and at a
@@ -73,18 +82,37 @@ from typing import Optional
 import torch
 
 from votenet_tpu_torch.ops.common import kernel_route
-from votenet_tpu_torch.ops.cuda.batchnorm import (BnChannels, BnCoefficients, bn_apply_cuda, bn_bwd_apply_cuda,
-                                                  bn_bwd_reduce_cuda, bn_stats_cuda)
+from votenet_tpu_torch.ops.cuda.batchnorm import (BnChannels, BnCoefficients, Coords, bn_apply_cuda,
+                                                  bn_bwd_apply_cuda, bn_bwd_reduce_cuda, bn_stats_cuda)
 from votenet_tpu_torch.parallel import comm
 
 
+def dot3_plain(p: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """``(p0 * W3[0] + p1 * W3[1]) + p2 * W3[2]`` of f32 rows p (N, 3) and W3
+    (3, C): (N, C) f32, each operation one torch op (one rounding, no
+    FMA)."""
+    return (p[:, 0:1] * w3[0] + p[:, 1:2] * w3[1]) + p[:, 2:3] * w3[2]
+
+
+def coord_term_plain(coords: Coords, C: int) -> torch.Tensor:
+    """The split prologue's f32 coordinate term of (R, C) rows: ``dot3(xyz_r,
+    W3) - dot3(centre_u, W3)``, each unit of S rows taking its centre."""
+    xyz, centre, w3 = coords
+    a = dot3_plain(xyz, w3).view(centre.shape[0], -1, C)
+    return (a - dot3_plain(centre, w3)[:, None, :]).view(-1, C)
+
+
 def layer_rows_plain(h: torch.Tensor, corr: Optional[torch.Tensor] = None,
-                     dense_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     dense_bias: Optional[torch.Tensor] = None, coords: Optional[Coords] = None) -> torch.Tensor:
     """The prologue: x = ``(h - corr[unit]) + dense_bias`` of (R, C) rows h,
     each operation one torch op in h's dtype (rounded once), ``corr`` (R / S,
     C) taken by each unit of S consecutive rows, the dense bias (f32 or h's
-    dtype) cast to h's dtype; either term optional."""
+    dtype) cast to h's dtype; either term optional. With ``coords`` (in
+    place of corr) the split prologue: x = ``(T(coordinate term) + h) +
+    dense_bias`` (:func:`coord_term_plain`)."""
     x = h
+    if coords is not None:
+        x = coord_term_plain(coords, h.shape[-1]).to(h.dtype) + h
     if corr is not None:
         C = h.shape[-1]
         x = (h.reshape(corr.shape[0], -1, C) - corr[:, None, :]).reshape(-1, C)
@@ -94,12 +122,12 @@ def layer_rows_plain(h: torch.Tensor, corr: Optional[torch.Tensor] = None,
 
 
 def bn_stats_plain(x: torch.Tensor, corr: Optional[torch.Tensor] = None, dense_bias: Optional[torch.Tensor] = None,
-                   channels: Optional[BnChannels] = None):
+                   channels: Optional[BnChannels] = None, coords: Optional[Coords] = None):
     """Stage 1: per-channel ``sum(x)`` and ``sum(x * x)`` of (R, C) rows, f32
     (2, C); x through the prologue (:func:`layer_rows_plain`). With
     ``channels`` the statistics' end (:func:`bn_channel_stats_plain`) of
     them."""
-    x = layer_rows_plain(x, corr, dense_bias).float()
+    x = layer_rows_plain(x, corr, dense_bias, coords).float()
     sums = torch.stack([x.sum(0), (x * x).sum(0)])
     return sums if channels is None else bn_channel_stats_plain(sums, channels)
 
@@ -151,7 +179,7 @@ def bn_apply_plain(x: torch.Tensor, mean: Optional[torch.Tensor], mul: Optional[
                    dtype: torch.dtype, relu: bool, corr: Optional[torch.Tensor] = None,
                    dense_bias: Optional[torch.Tensor] = None, pool: int = 0, eval_var: Optional[torch.Tensor] = None,
                    eps: float = 1e-5, group_sums: Optional[torch.Tensor] = None,
-                   channels: Optional[BnChannels] = None):
+                   channels: Optional[BnChannels] = None, coords: Optional[Coords] = None):
     """Stage 2: ``((x - mean) * mul) + bias`` in f32, rounded to ``dtype``,
     then ``torch.relu`` where ``relu``; x through the prologue. With
     ``eval_var`` (eval: ``mean`` the running mean, ``mul`` the BN weight)
@@ -165,7 +193,7 @@ def bn_apply_plain(x: torch.Tensor, mean: Optional[torch.Tensor], mul: Optional[
     if group_sums is not None:
         st = bn_channel_stats_plain(group_sums, channels)
         mean, mul = st[0], st[1]
-    y = _normalized(layer_rows_plain(x, corr, dense_bias), mean, _eval_mul(mul, eval_var, eps), bias, dtype)
+    y = _normalized(layer_rows_plain(x, corr, dense_bias, coords), mean, _eval_mul(mul, eval_var, eps), bias, dtype)
     y = torch.relu(y) if relu else y
     out = _max_pool(y, pool) if pool else y
     return out if st is None else (out, st)
@@ -194,14 +222,14 @@ def bn_bwd_reduce_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, m
                         dense_bias: Optional[torch.Tensor] = None,
                         pooled: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
                         coefficients: Optional[BnCoefficients] = None, eval_var: Optional[torch.Tensor] = None,
-                        eps: float = 1e-5):
+                        eps: float = 1e-5, coords: Optional[Coords] = None):
     """Stage 3: per-channel ``sum(g)`` and ``sum(g * (x - mean))``, g the
     masked cotangent; x through the prologue; mean, mul and ``eval_var`` as
     in :func:`bn_apply_plain`; with ``pooled = (ymax, count)``, dy is the
     pooled cotangent (R / S, C). With ``coefficients`` the coefficients' end
     (:func:`bn_channel_coefficients_plain`) of them; in eval without
     ``coefficients.st``, inv is ``rsqrt(eval_var + eps)``."""
-    x = layer_rows_plain(x, corr, dense_bias)
+    x = layer_rows_plain(x, corr, dense_bias, coords)
     g = _masked(x, dy, mean, _eval_mul(mul, eval_var, eps), bias, relu, pooled)
     sums = g.sum(0), (g * (x.float() - mean)).sum(0)
     if coefficients is None:
@@ -214,30 +242,41 @@ def bn_bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mu
                        a: Optional[torch.Tensor], b: Optional[torch.Tensor], relu: bool,
                        corr: Optional[torch.Tensor] = None, dense_bias: Optional[torch.Tensor] = None,
                        pooled: Optional[tuple[torch.Tensor, torch.Tensor]] = None, sums: bool = False,
-                       eval_var: Optional[torch.Tensor] = None, eps: float = 1e-5):
+                       eval_var: Optional[torch.Tensor] = None, eps: float = 1e-5, coords: Optional[Coords] = None):
     """Stage 4: ``((g * mul) + a) + (b * x)`` (``g * mul`` without a and b:
     eval) in x's dtype; x, g, mul and ``eval_var`` as in
     :func:`bn_bwd_reduce_plain`. With ``sums`` also the prologue's
-    cotangents, (dx, d_corr, d_dense_bias): :func:`prologue_cotangents_plain`."""
+    cotangents, (dx, d_corr, d_dense_bias): :func:`prologue_cotangents_plain`;
+    with ``coords`` always, and W3's beside them: (dx, None, d_dense_bias,
+    d_w3)."""
     h = x
-    x = layer_rows_plain(x, corr, dense_bias)
+    x = layer_rows_plain(x, corr, dense_bias, coords)
     mul = _eval_mul(mul, eval_var, eps)
     g = _masked(x, dy, mean, mul, bias, relu, pooled)
     dx = g * mul if a is None else (g * mul + a) + b * x.float()
     dx = dx.to(x.dtype)
-    return (dx, *prologue_cotangents_plain(dx, h.shape[0] // corr.shape[0] if corr is not None else 1,
-                                           corr is not None, dense_bias is not None)) if sums else dx
+    if not (sums or coords is not None):
+        return dx
+    S = h.shape[0] // (corr if corr is not None else coords.centre if coords is not None else h).shape[0]
+    out = prologue_cotangents_plain(dx, S, corr is not None, dense_bias is not None, coords)
+    return (dx, *out) if coords is not None else (dx, *out[:2])
 
 
-def prologue_cotangents_plain(dx: torch.Tensor, S: int, centre: bool, bias: bool):
+def prologue_cotangents_plain(dx: torch.Tensor, S: int, centre: bool, bias: bool, coords: Optional[Coords] = None):
     """The prologue's cotangents from dx (R, C): corr's ``-sum(dx)`` over each
     unit of S rows (None unless ``centre``) and the dense bias's ``sum(dx)``
     over the rows (None unless ``bias``), each summed in f64 and rounded once
-    to dx's dtype, the dense bias's held in f32."""
+    to dx's dtype, the dense bias's held in f32; and W3's (None without
+    ``coords``), ``sum_r (xyz_r - centre_u)[k] * dx_r[c]``, each difference
+    and product in f64, summed in f64 and rounded once to f32 (3, C)."""
     d = dx.double()
     d_corr = (-d).view(-1, S, d.shape[-1]).sum(1).to(dx.dtype) if centre else None
     d_bias = d.sum(0).to(dx.dtype).float() if bias else None
-    return d_corr, d_bias
+    d_w3 = None
+    if coords is not None:
+        diff = (coords.xyz.double().view(-1, S, 3) - coords.centre.double()[:, None, :]).view(-1, 3)
+        d_w3 = (diff.t() @ d).float()  # products of f32 and dx's values: exact in f64
+    return d_corr, d_bias, d_w3
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -289,14 +328,15 @@ def bn_channel_coefficients_plain(sums: tuple[torch.Tensor, torch.Tensor], co: B
 
 class _BatchNormReLU(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, corr, dense_bias, weight, bias, running, training, momentum, eps, group, update_stats, dtype,
-                relu, pool):
+    def forward(ctx, h, corr, dense_bias, xyz, centre, w3, weight, bias, running, training, momentum, eps, group,
+                update_stats, dtype, relu, pool):
         stats, apply, _, _ = _stages(h)
         rows = _rows(h)
         C = h.shape[-1]
         if dense_bias is not None and dense_bias.dtype != torch.float32:
             dense_bias = dense_bias.float()  # the stages take the f32 bias and round it to h's dtype
-        pro = dict(corr=None if corr is None else _rows(corr), dense_bias=dense_bias)
+        coords = None if xyz is None else Coords(_rows(xyz), _rows(centre), w3)
+        pro = dict(corr=None if corr is None else _rows(corr), dense_bias=dense_bias, coords=coords)
         at = dict(pro, pool=h.shape[-2]) if pool else pro  # stage 2's
         running_mean, running_var = running
         count = rows.shape[0] * comm.size(group)
@@ -315,21 +355,22 @@ class _BatchNormReLU(torch.autograd.Function):
         ymax, slots = out if pool else (None, None)
         y = ymax.view(*h.shape[:-2], C) if pool else out.view(h.shape)
         eval_stats = (None, None) if training else (running_mean, running_var)  # read by an eval backward
-        ctx.save_for_backward(h, corr, dense_bias, weight, bias, st, *eval_stats, ymax, slots)
+        ctx.save_for_backward(h, corr, dense_bias, xyz, centre, w3, weight, bias, st, *eval_stats, ymax, slots)
         ctx.count, ctx.group, ctx.relu, ctx.eps = count, group, relu, eps
         return y
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
-        h, corr, dense_bias, weight, bias, st, running_mean, eval_var, ymax, slots = ctx.saved_tensors
+        h, corr, dense_bias, xyz, centre, w3, weight, bias, st, running_mean, eval_var, ymax, slots = ctx.saved_tensors
         _, _, bwd_reduce, bwd_apply = _stages(h)
         training = st is not None
         # eval: the stages form mul from the running statistics, as stage 2 did
         mean, mul = (st[0], st[1]) if training else (running_mean, weight)
         rows, dy_rows = _rows(h), _rows(dy.contiguous())
+        coords = None if xyz is None else Coords(_rows(xyz), _rows(centre), w3)
         pro = dict(corr=None if corr is None else _rows(corr), dense_bias=dense_bias,
-                   pooled=None if ymax is None else (ymax, slots), eval_var=eval_var, eps=ctx.eps)
+                   pooled=None if ymax is None else (ymax, slots), eval_var=eval_var, eps=ctx.eps, coords=coords)
         co = bwd_reduce(rows, dy_rows, mean, mul, bias, ctx.relu, **pro,
                         coefficients=BnCoefficients(st, weight, ctx.count, training))
         a = b = None
@@ -337,30 +378,44 @@ class _BatchNormReLU(torch.autograd.Function):
             # the sums' cotangents over the group, in place (b: twice sq's, doubling commutes)
             comm.all_reduce_([co[:2]], ctx.group)
             a, b = co[0], co[1]
-        d_h = d_corr = d_bias = None
-        need_h, need_corr, need_bias = ctx.needs_input_grad[:3]
-        if need_h or need_corr or need_bias:
+        d_h = d_corr = d_bias = d_xyz = d_centre = d_w3 = None
+        need_h, need_corr, need_bias, need_xyz, need_centre, need_w3 = ctx.needs_input_grad[:6]
+        if need_h or need_corr or need_bias or need_xyz or need_centre or need_w3:
             sums = (corr is not None and need_corr) or (dense_bias is not None and need_bias)
             out = bwd_apply(rows, dy_rows, mean, mul, bias, a, b, ctx.relu, **pro, sums=sums)
-            dx, d_corr, d_bias = out if sums else (out, None, None)
+            if coords is not None:  # the split prologue's K4 writes the sums always
+                dx, _, d_bias, d_w3 = out
+            else:
+                dx, d_corr, d_bias = out if sums else (out, None, None)
             d_h = dx.view(h.shape) if need_h else None
             d_corr = d_corr.view(corr.shape) if d_corr is not None and need_corr else None
             d_bias = d_bias if need_bias else None
-        return (d_h, d_corr, d_bias, co[2], co[3]) + (None,) * 9
+            d_w3 = d_w3 if need_w3 else None
+            if need_xyz or need_centre:  # autograd's of the f32 coordinate term (no path of the model asks)
+                d_rows = dx.float() @ w3.t()
+                d_xyz = d_rows.view(xyz.shape) if need_xyz else None
+                if need_centre:
+                    unit_sums = dx.float().view(coords.centre.shape[0], -1, dx.shape[-1]).sum(1)
+                    d_centre = (-unit_sums @ w3.t()).view(centre.shape)
+        return (d_h, d_corr, d_bias, d_xyz, d_centre, d_w3, co[2], co[3]) + (None,) * 9
 
 
 def batch_norm_relu(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, running_mean: torch.Tensor,
                     running_var: torch.Tensor, *, training: bool, momentum: float = 0.9, eps: float = 1e-5,
                     group: comm.Group = None, update_stats: bool = True, dtype: Optional[torch.dtype] = None,
                     relu: bool = True, dense_bias: Optional[torch.Tensor] = None, corr: Optional[torch.Tensor] = None,
-                    pool: Optional[str] = None) -> torch.Tensor:
+                    pool: Optional[str] = None, coords: Optional[tuple] = None) -> torch.Tensor:
     """Batch norm over the last axis of x (..., C), then the ReLU where
     ``relu``, as one autograd op; the output in ``dtype`` (h's by default).
     x is the dense layer's output h with the layer's prologue: ``x = (h -
     corr[..., None, :]) + dense_bias`` in h's dtype (the centred first
     layer, h (..., S, C) and ``corr`` (..., C), each unit of S rows taking
     its row of corr), or ``h + dense_bias``, or h itself; x is never stored.
-    ``pool="max"`` takes ``torch.amax`` over the S axis (-2) of the output,
+    ``coords = (xyz, centre, W3)`` (in place of corr: the split first layer,
+    xyz (..., S, 3) and centre (..., 3) f32, W3 (3, C) f32, any strides)
+    makes x ``(T(dot3(xyz, W3) - dot3(centre, W3)) + h) + dense_bias``, the
+    output in h's dtype, no pool. ``pool="max"`` takes ``torch.amax`` over
+    the S axis (-2) of the output,
     (..., S, C) -> (..., C), with its gradient's rule (split evenly among
     tied maxima). ``weight``, ``bias`` and the running statistics are f32
     (C,); ``corr`` in h's dtype; ``dense_bias`` f32 (the layer's own,
@@ -378,5 +433,15 @@ def batch_norm_relu(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, r
         raise ValueError(f"batch_norm_relu: corr is {corr.dtype}, h {h.dtype}")
     if dense_bias is not None and dense_bias.dtype not in (torch.float32, h.dtype):
         raise ValueError(f"batch_norm_relu: dense_bias is {dense_bias.dtype}: float32 or h's {h.dtype}")
-    return _BatchNormReLU.apply(h, corr, dense_bias, weight, bias, (running_mean, running_var), training, momentum,
-                                eps, group, update_stats, dtype or h.dtype, relu, pool == "max")
+    xyz = centre = w3 = None
+    if coords is not None:
+        xyz, centre, w3 = coords
+        if (corr is not None or pool or h.dim() < 2 or xyz.shape != h.shape[:-1] + (3,)
+                or centre.shape != h.shape[:-2] + (3,) or w3.shape != (3, h.shape[-1])
+                or (dtype is not None and dtype != h.dtype)
+                or any(t.dtype != torch.float32 for t in (xyz, centre, w3))):
+            raise ValueError(f"batch_norm_relu: coords xyz {tuple(xyz.shape)}, centre {tuple(centre.shape)}, W3 "
+                             f"{tuple(w3.shape)} against h {tuple(h.shape)}: f32 (..., S, 3), (..., 3), (3, C); "
+                             f"no corr, no pool, the output in h's dtype")
+    return _BatchNormReLU.apply(h, corr, dense_bias, xyz, centre, w3, weight, bias, (running_mean, running_var),
+                                training, momentum, eps, group, update_stats, dtype or h.dtype, relu, pool == "max")

@@ -127,7 +127,8 @@ def library() -> ctypes.CDLL:
             lib.votenet_decode_iou.restype = i32
             # R, C, vec, W, ctas, tiles, units a CTA (after the prologue's corr, dense bias and S)
             bn_plan = [i64, i32, i32, i32, i32, i32, i64]
-            bn_pro = [ptr, ptr, i32]
+            # corr, dense bias, S, the split prologue's xyz, centre, W3 and W3's strides
+            bn_pro = [ptr, ptr, i32, ptr, ptr, ptr, i64, i64]
             # the statistics' end: st, weight, running mean and var, update, 1 / count, eps, momentum, 1 - momentum
             bn_stats_end = [ptr, ptr, ptr, ptr, i32, f32, f32, f32, f32]
             lib.votenet_bn_stats.argtypes = [ptr, i32, *bn_pro, *bn_plan, i32, ptr, ptr, ptr, ptr, *bn_stats_end, ptr]
@@ -139,12 +140,17 @@ def library() -> ctypes.CDLL:
             # st, weight, 1 / count, training)
             lib.votenet_bn_bwd_reduce.argtypes = [ptr, i32, *bn_pro, *bn_dy, *bn_plan, i32, ptr, ptr, ptr, ptr, f32,
                                                   i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, f32, i32, ptr]
-            # ..., mean, mul, bias, eval_var, eps, a, b, relu, the epilogue (0, 1 or 2), its d_corr and
-            # d_dense_bias, its tree's workspace, tickets and fan-in
+            # ..., mean, mul, bias, eval_var, eps, a, b, relu, the epilogue (0, 1 or 2), its d_corr,
+            # d_dense_bias and d_w3, its tree's workspace, tickets and fan-in
             lib.votenet_bn_bwd_apply.argtypes = [ptr, i32, *bn_pro, *bn_dy, ptr, *bn_plan, ptr, ptr, ptr, ptr, f32,
-                                                 ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
+                                                 ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, ptr]
             for fn in (lib.votenet_bn_stats, lib.votenet_bn_apply, lib.votenet_bn_bwd_reduce, lib.votenet_bn_bwd_apply):
                 fn.restype = i32
+            # the table (host CastEntry records), their count, the direction, the grid's x, the stream
+            lib.votenet_cast_bf16_multi.argtypes = [ptr, i32, i32, i32, ptr]
+            lib.votenet_cast_bf16_multi.restype = i32
+            lib.votenet_cast_entry_bytes.argtypes = []
+            lib.votenet_cast_entry_bytes.restype = i32
             lib.votenet_error_string.argtypes = [i32]
             lib.votenet_error_string.restype = ctypes.c_char_p
             _lib = lib

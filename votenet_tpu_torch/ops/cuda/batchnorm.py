@@ -7,8 +7,9 @@ package runs flax ``nn.Dense``/``CenteredDense``, ``nn.BatchNorm``,
 166-174, 540-541``, and reaches no Pallas kernel). Each takes the
 channels-last (R, C) view of the dense layer's output h, f32 or bf16, the
 prologue that makes x of it (``corr``: R / S rows subtracted from each unit
-of S rows, the centred first layer's; ``dense_bias``: C added), and
-per-channel f32 vectors; see the note at the top of the source. Their plain
+of S rows, the centred first layer's; ``dense_bias``: C added; ``coords``:
+the split first layer's coordinate term, :class:`Coords`), and per-channel
+f32 vectors; see the note at the top of the source. Their plain
 versions are the stages of ``ops/batchnorm.py``, which chains them into one
 autograd op.
 
@@ -28,9 +29,11 @@ rows, ``bn_apply_cuda.pool.launches`` for K2's pool variant and
 ``bn_bwd_*_cuda.pooled.launches`` for K3 and K4 at a pooled site,
 ``bn_bwd_apply_cuda.sums.launches`` for a K4 launch that wrote the
 prologue's cotangents (either variant), ``bn_apply_cuda.group.launches``
-for a K2 launch that ran the statistics' end (either variant); a launch
+for a K2 launch that ran the statistics' end (either variant),
+``bn_*_cuda.split.launches`` for a launch with the split prologue; a launch
 with a prologue also adds one to ``PROLOGUE_LAUNCHES["centre"]``
-(corr given) or ``["bias"]`` (the dense bias alone). Given a tensor that is
+(corr given), ``["split"]`` (coords given) or ``["bias"]`` (the dense bias
+alone). Given a tensor that is
 not on a CUDA device it raises; it never computes the plain version.
 """
 
@@ -65,16 +68,22 @@ BN_MIN_ROWS = 8
 # against 797 in bf16); "reduce_pooled_wide" the pooled K3 in bf16 with 8
 # channels a lane (16 f64 accumulators a thread); "reduce_dx" K4 with the
 # epilogue (the prologue's cotangents: an f64 accumulator a channel, two at
-# a centred site, and the dense bias's tree); "apply" K2, its f32 pool
+# a centred site, and the dense bias's tree); "reduce_dx_split" K4 with the
+# split prologue (four f64 accumulators a channel: the dense bias's and
+# W3's three, and W3 in registers); "reduce_split" and "apply_split" K1
+# and K2 with it (W3 and a row's coordinates beside the rows in flight
+# spill at 4); "apply" K2, its f32 pool
 # variant and K4 without the epilogue (K4 at a pooled site: 702 us at 4
 # against 820 at 3 in bf16, equal in f32); "apply_wide" K2's pool variant in
 # bf16 with 8 channels a lane (spills at 4).
-BN_CTAS_PER_SM = {"reduce": 4, "reduce_dy": 2, "reduce_pooled": 3, "reduce_pooled_wide": 2, "reduce_dx": 3,
-                  "apply": 4, "apply_wide": 3}
+BN_CTAS_PER_SM = {"reduce": 4, "reduce_split": 3, "reduce_dy": 2, "reduce_pooled": 3, "reduce_pooled_wide": 2,
+                  "reduce_dx": 3, "reduce_dx_split": 2, "apply": 4, "apply_split": 3, "apply_wide": 3}
 BN_DTYPES = (torch.float32, torch.bfloat16)
 # launches that took a prologue, over the four stages: "centre" (corr and
-# the dense bias: the centred first layer), "bias" (the dense bias alone)
-PROLOGUE_LAUNCHES = {"centre": SimpleNamespace(launches=0), "bias": SimpleNamespace(launches=0)}
+# the dense bias: the centred first layer), "split" (the split first
+# layer's coordinate term and the dense bias), "bias" (the dense bias alone)
+PROLOGUE_LAUNCHES = {"centre": SimpleNamespace(launches=0), "split": SimpleNamespace(launches=0),
+                     "bias": SimpleNamespace(launches=0)}
 
 
 @functools.lru_cache(maxsize=4096)  # a pure function of its arguments, called at every launch
@@ -164,6 +173,18 @@ class BnCoefficients(NamedTuple):
     training: bool
 
 
+class Coords(NamedTuple):
+    """The split prologue's inputs (mixed precision's and bf16_hilo's first
+    layer): the grouped f32 coordinates (R, 3), each unit's f32 centre (R /
+    S, 3) and the f32 (3, C) rows W3 of the dense kernel that take them (any
+    strides: a view of the layer's weight). x = ``(T(dot3(xyz_r, W3) -
+    dot3(centre_u, W3)) + h) + T(dense_bias)``, dot3 ``(p0 * w0 + p1 * w1) +
+    p2 * w2``, each operation one f32 rounding."""
+    xyz: torch.Tensor
+    centre: torch.Tensor
+    w3: torch.Tensor
+
+
 @functools.lru_cache(maxsize=1024)
 def channel_scalars(count: int, eps: float, momentum: float) -> tuple[float, float, float, float]:
     """The f32 scalars of the per-channel end as torch's CUDA ops take them
@@ -176,11 +197,23 @@ def channel_scalars(count: int, eps: float, momentum: float) -> tuple[float, flo
     return float(inv_count), float(f32(eps)), float(f32(momentum)), float(f32(1 - momentum))
 
 
-def _prologue(name: str, x, corr, dense_bias) -> int:
+def _prologue(name: str, x, corr, dense_bias, coords: Optional[Coords] = None) -> int:
     """Check the prologue's tensors against x (R, C); returns S, the rows a
-    unit (R / corr's rows; 1 without corr)."""
+    unit (R / corr's or the centres' rows; 1 without either)."""
     R, C = x.shape
     S = 1
+    if coords is not None:
+        if corr is not None:
+            raise ValueError(f"{name}: corr or coords, not both")
+        xyz, centre, w3 = coords
+        for what, t in (("coords.xyz", xyz), ("coords.centre", centre), ("coords.w3", w3)):
+            if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.dim() != 2 or t.device != x.device:
+                raise ValueError(f"{name}: {what} must be a 2-d float32 tensor on {x.device}")
+        if (xyz.shape != (R, 3) or centre.shape[1:] != (3,) or centre.shape[0] == 0 or R % centre.shape[0]
+                or w3.shape != (3, C) or not xyz.is_contiguous() or not centre.is_contiguous()):
+            raise ValueError(f"{name}: coords xyz {tuple(xyz.shape)}, centre {tuple(centre.shape)}, w3 "
+                             f"{tuple(w3.shape)} against x {tuple(x.shape)}: contiguous (R, 3), (R / S, 3), (3, C)")
+        S = R // centre.shape[0]
     if corr is not None:
         _check_rows(f"{name} corr", corr, C, x.dtype)
         if corr.shape[0] == 0 or R % corr.shape[0]:
@@ -192,6 +225,21 @@ def _prologue(name: str, x, corr, dense_bias) -> int:
             raise ValueError(f"{name}: dense_bias must be a contiguous ({C},) float32 tensor")
     _check_same_device(name, x, corr=corr, dense_bias=dense_bias)
     return S
+
+
+def _split_args(coords: Optional[Coords]) -> list:
+    """The split prologue's kernel arguments: xyz, centre, W3 and W3's two
+    strides (nulls without it)."""
+    if coords is None:
+        return [None, None, None, 0, 0]
+    return [coords.xyz.data_ptr(), coords.centre.data_ptr(), coords.w3.data_ptr(), *coords.w3.stride()]
+
+
+def _split_output(name: str, x, dtype, pool) -> None:
+    """The split prologue's kernels take full rows and write x's type."""
+    if pool or dtype != x.dtype:
+        raise ValueError(f"{name}: the split prologue takes full rows in x's dtype ({x.dtype}), got "
+                         f"{dtype} {'pooled' if pool else ''}")
 
 
 def _pooled(name: str, x, dy, pooled, S_pro: int) -> int:
@@ -238,9 +286,13 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _count_prologue(corr, dense_bias) -> None:
+def _count_prologue(corr, dense_bias, coords=None, kernel=None) -> None:
+    if coords is not None:
+        kernel.split.launches += 1
     if corr is not None:
         PROLOGUE_LAUNCHES["centre"].launches += 1
+    elif coords is not None:
+        PROLOGUE_LAUNCHES["split"].launches += 1
     elif dense_bias is not None:
         PROLOGUE_LAUNCHES["bias"].launches += 1
 
@@ -282,7 +334,7 @@ def _stats_args(st, ch: Optional[BnChannels]) -> list:
 
 
 def bn_stats_cuda(x: torch.Tensor, corr: torch.Tensor | None = None, dense_bias: torch.Tensor | None = None,
-                  channels: BnChannels | None = None):
+                  channels: BnChannels | None = None, coords: Coords | None = None):
     """K1: per-channel ``sum(x)`` and ``sum(x * x)``, (2, C) f64, x = ``(h -
     corr[unit]) + dense_bias`` in h's dtype (either term optional; the dense
     bias f32, rounded to h's dtype) of a contiguous (R, C) f32 or bf16 CUDA
@@ -291,17 +343,18 @@ def bn_stats_cuda(x: torch.Tensor, corr: torch.Tensor | None = None, dense_bias:
     mean, mul, inv and var_raw (``ops.batchnorm.bn_channel_stats_plain``'s
     bits on the card), and moves the running statistics in place when
     ``channels.update``; without rows, one CTA that takes none runs it on
-    zero sums. Adds one to ``bn_stats_cuda.launches`` (none for the sums of
-    no rows, which are zeros)."""
+    zero sums. With ``coords`` (:class:`Coords`) the split prologue in
+    place of corr. Adds one to ``bn_stats_cuda.launches`` (none for the sums
+    of no rows, which are zeros)."""
     _check_rows("bn_stats_cuda", x)
     R, C = x.shape
-    S = _prologue("bn_stats_cuda", x, corr, dense_bias)
+    S = _prologue("bn_stats_cuda", x, corr, dense_bias, coords)
     if channels is not None:
         _channel_vectors("bn_stats_cuda", x.device, C, channels)
     if x.numel() == 0 and channels is None:
         return torch.zeros((2, C), dtype=torch.float64, device=x.device)
     vec = _vec(C, x, corr)
-    plan = bn_plan(R, C, vec, sm_count(x.device.index), "reduce", S)
+    plan = bn_plan(R, C, vec, sm_count(x.device.index), "reduce_split" if coords is not None else "reduce", S)
     W, ctas, tiles, per_cta, fan_in = plan
     ws, tickets, stream = _tree(x, R, C, plan, 2)
     sums = st = None
@@ -311,12 +364,13 @@ def bn_stats_cuda(x: torch.Tensor, corr: torch.Tensor | None = None, dense_bias:
         st = torch.empty((4, C), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = library().votenet_bn_stats(
-            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, R, C, 4 if vec else 1, W, ctas, tiles, per_cta,
+            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, *_split_args(coords), R, C, 4 if vec else 1, W,
+            ctas, tiles, per_cta,
             fan_in, ws.data_ptr(), tickets.data_ptr(), _ptr(None if sums is None else sums[0]),
             _ptr(None if sums is None else sums[1]), *_stats_args(st, channels), stream.cuda_stream)
     check_launch(err, "bn_stats")
     bn_stats_cuda.launches += 1
-    _count_prologue(corr, dense_bias)
+    _count_prologue(corr, dense_bias, coords, bn_stats_cuda)
     if channels is not None and channels.update:
         _moved(channels)
     return sums if channels is None else st
@@ -332,7 +386,8 @@ def _moved(channels: BnChannels) -> None:
 def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor | None, mul: torch.Tensor | None, bias: torch.Tensor,
                   dtype: torch.dtype, relu: bool, corr: torch.Tensor | None = None,
                   dense_bias: torch.Tensor | None = None, pool: int = 0, eval_var: torch.Tensor | None = None,
-                  eps: float = 1e-5, group_sums: torch.Tensor | None = None, channels: BnChannels | None = None):
+                  eps: float = 1e-5, group_sums: torch.Tensor | None = None, channels: BnChannels | None = None,
+                  coords: Coords | None = None):
     """K2: ``y = ((x - mean) * mul) + bias`` rounded to ``dtype``, then the
     ReLU where ``relu``, x as in :func:`bn_stats_cuda`, the rest f32 (C,).
     With ``eval_var`` (eval: ``mean`` the running mean, ``mul`` the BN
@@ -346,13 +401,16 @@ def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor | None, mul: torch.Tensor 
     takes none runs the end). With ``pool`` = S, the pool variant: each unit
     of S rows' max of y (torch.amax's) and the int32 count of its rows equal
     to it, each (R / S, C), in place of y; the full y is not written; in
-    bf16 with C % 8 == 0, 8 channels a lane. Equal to
+    bf16 with C % 8 == 0, 8 channels a lane. With ``coords`` the split
+    prologue (full rows, y in x's dtype). Equal to
     ``ops.batchnorm.bn_apply_plain`` on the card. Adds one to
     ``bn_apply_cuda.launches`` (or ``.pool.launches``), and with the group's
     sums to ``bn_apply_cuda.group.launches``."""
     _check_rows("bn_apply_cuda", x)
     R, C = x.shape
-    S = _prologue("bn_apply_cuda", x, corr, dense_bias)
+    S = _prologue("bn_apply_cuda", x, corr, dense_bias, coords)
+    if coords is not None:
+        _split_output("bn_apply_cuda", x, dtype, pool)
     if (group_sums is None) != (channels is None) or (group_sums is None) == (mean is None or mul is None):
         raise ValueError("bn_apply_cuda: mean and mul, or group_sums and channels")
     if group_sums is None:
@@ -380,17 +438,17 @@ def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor | None, mul: torch.Tensor 
         return out
     wide = bool(pool) and _wide(x, y, corr, count)
     vec = wide or _vec(C, x, y, corr, count)
-    W, ctas, tiles, per_cta, _ = bn_plan(R, C, vec, sm_count(x.device.index), "apply_wide" if wide else "apply", S,
-                                         8 if wide else 4)
+    kind = "apply_wide" if wide else "apply_split" if coords is not None else "apply"
+    W, ctas, tiles, per_cta, _ = bn_plan(R, C, vec, sm_count(x.device.index), kind, S, 8 if wide else 4)
     with torch.cuda.device(x.device):
         err = library().votenet_bn_apply(
-            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, y.data_ptr(), _bf16(y), _ptr(count), R, C,
+            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, *_split_args(coords), y.data_ptr(), _bf16(y), _ptr(count), R, C,
             8 if wide else 4 if vec else 1, W, ctas, tiles, per_cta, _ptr(mean), _ptr(mul), bias.data_ptr(),
             _ptr(eval_var), float(eps), int(relu), _ptr(group_sums), *_stats_args(st, channels),
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "bn_apply_pool" if pool else "bn_apply")
     (bn_apply_cuda.pool if pool else bn_apply_cuda).launches += 1
-    _count_prologue(corr, dense_bias)
+    _count_prologue(corr, dense_bias, coords, bn_apply_cuda)
     if st is None:
         return out
     bn_apply_cuda.group.launches += 1
@@ -403,7 +461,7 @@ def bn_bwd_reduce_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mu
                        relu: bool, corr: torch.Tensor | None = None, dense_bias: torch.Tensor | None = None,
                        pooled: tuple[torch.Tensor, torch.Tensor] | None = None,
                        coefficients: BnCoefficients | None = None, eval_var: torch.Tensor | None = None,
-                       eps: float = 1e-5):
+                       eps: float = 1e-5, coords: Coords | None = None):
     """K3: per-channel ``sum(g)`` and ``sum(g * (x - mean))`` (f32, (C,) each),
     x as in :func:`bn_stats_cuda`, g = dy with the ReLU's mask recomputed
     from x (zero where the pre-ReLU output, in dy's dtype, is <= 0); mean,
@@ -416,10 +474,13 @@ def bn_bwd_reduce_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mu
     BN weight's cotangent ``sum_gx * inv`` and the BN bias's ``sum_g``
     (``ops.batchnorm.bn_channel_coefficients_plain``'s bits on the card; in
     eval with ``coefficients.st`` None, inv is ``rsqrt(eval_var + eps)``).
-    Adds one to ``bn_bwd_reduce_cuda.launches`` (or ``.pooled.launches``)."""
+    With ``coords`` the split prologue (a full dy in x's dtype). Adds one to
+    ``bn_bwd_reduce_cuda.launches`` (or ``.pooled.launches``)."""
     _check_rows("bn_bwd_reduce_cuda", x)
     R, C = x.shape
-    S = _pooled("bn_bwd_reduce_cuda", x, dy, pooled, _prologue("bn_bwd_reduce_cuda", x, corr, dense_bias))
+    S = _pooled("bn_bwd_reduce_cuda", x, dy, pooled, _prologue("bn_bwd_reduce_cuda", x, corr, dense_bias, coords))
+    if coords is not None:
+        _split_output("bn_bwd_reduce_cuda", x, dy.dtype, pooled is not None)
     _check_channels("bn_bwd_reduce_cuda", x.device, C, mean=mean, mul=mul, bias=bias,
                     **({} if eval_var is None else dict(eval_var=eval_var)))
     co = None
@@ -453,14 +514,14 @@ def bn_bwd_reduce_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mu
                channel_scalars(coefficients.count, 0.0, 0.0)[0], int(coefficients.training)]
     with torch.cuda.device(x.device):
         err = library().votenet_bn_bwd_reduce(
-            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, dy.data_ptr(), _bf16(dy), _ptr(ymax),
+            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, *_split_args(coords), dy.data_ptr(), _bf16(dy), _ptr(ymax),
             _ptr(count), R, C, 8 if wide else 4 if vec else 1, W, ctas, tiles, per_cta, fan_in, mean.data_ptr(),
             mul.data_ptr(), bias.data_ptr(), _ptr(eval_var), float(eps), int(relu), ws.data_ptr(), tickets.data_ptr(),
             _ptr(None if sums is None else sums[0]), _ptr(None if sums is None else sums[1]), _ptr(co), *end,
             stream.cuda_stream)
     check_launch(err, "bn_bwd_reduce")
     (bn_bwd_reduce_cuda.pooled if pooled is not None else bn_bwd_reduce_cuda).launches += 1
-    _count_prologue(corr, dense_bias)
+    _count_prologue(corr, dense_bias, coords, bn_bwd_reduce_cuda)
     return co if co is not None else (sums[0], sums[1])
 
 
@@ -468,7 +529,7 @@ def bn_bwd_apply_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mul
                       a: torch.Tensor | None, b: torch.Tensor | None, relu: bool, corr: torch.Tensor | None = None,
                       dense_bias: torch.Tensor | None = None,
                       pooled: tuple[torch.Tensor, torch.Tensor] | None = None, sums: bool = False,
-                      eval_var: torch.Tensor | None = None, eps: float = 1e-5):
+                      eval_var: torch.Tensor | None = None, eps: float = 1e-5, coords: Coords | None = None):
     """K4: ``dx = ((g * mul) + a) + (b * x)`` (``g * mul`` where a and b are
     None: eval) in h's dtype, x and g as in :func:`bn_bwd_reduce_cuda`
     (dx is the cotangent of x, and so of h); mean, mul and ``eval_var`` as in
@@ -478,12 +539,18 @@ def bn_bwd_apply_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mul
     shape and dtype; None without corr) and the dense bias's ``sum(dx)``
     over the rows (f32 (C,) holding a value of h's dtype; None without a
     dense bias), each the f64 sum of the rounded dx values in the kernel's
-    order rounded once. Adds one to ``bn_bwd_apply_cuda.launches`` (or
+    order rounded once. With ``coords`` the split prologue (a full dy in x's
+    dtype), always with the epilogue: returns (dx, None, d_dense_bias,
+    d_w3), d_w3 W3's cotangent ``sum_r (xyz_r - centre_u)[k] * dx_r[c]``,
+    each term formed in f64 and added as the dense bias's sum, rounded once
+    to f32 (3, C). Adds one to ``bn_bwd_apply_cuda.launches`` (or
     ``.pooled.launches``), and with the epilogue to
     ``bn_bwd_apply_cuda.sums.launches``."""
     _check_rows("bn_bwd_apply_cuda", x)
     R, C = x.shape
-    S = _pooled("bn_bwd_apply_cuda", x, dy, pooled, _prologue("bn_bwd_apply_cuda", x, corr, dense_bias))
+    S = _pooled("bn_bwd_apply_cuda", x, dy, pooled, _prologue("bn_bwd_apply_cuda", x, corr, dense_bias, coords))
+    if coords is not None:
+        _split_output("bn_bwd_apply_cuda", x, dy.dtype, pooled is not None)
     if (a is None) != (b is None):
         raise ValueError("bn_bwd_apply_cuda: a and b both or none")
     vectors = (dict(mean=mean, mul=mul, bias=bias) | ({} if a is None else dict(a=a, b=b))
@@ -492,29 +559,39 @@ def bn_bwd_apply_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mul
     ymax, count = pooled if pooled is not None else (None, None)
     dx = torch.empty_like(x)
     d_corr = torch.empty_like(corr) if sums and corr is not None else None
+    split = coords is not None
+    sums = sums or split
     d_bias = torch.empty(C, dtype=torch.float32, device=x.device) if sums and dense_bias is not None else None
-    tree = d_bias is not None
+    d_w3 = torch.empty((3, C), dtype=torch.float32, device=x.device) if split else None
+    tree = d_bias is not None or split
     epi = 2 if d_corr is not None else int(tree)
+
+    def result():
+        return ((dx, d_corr, d_bias, d_w3) if split else (dx, d_corr, d_bias)) if sums else dx
+
     if x.numel() == 0:
-        if d_bias is not None:
-            d_bias.zero_()
-        return (dx, d_corr, d_bias) if sums else dx
+        for t in (d_bias, d_w3):
+            if t is not None:
+                t.zero_()
+        return result()
     vec = _vec(C, x, dy, dx, corr, ymax, count, d_corr)
-    plan = bn_plan(R, C, vec, sm_count(x.device.index), "reduce_dx" if epi else "apply", S)
+    kind = "reduce_dx_split" if split else "reduce_dx" if epi else "apply"
+    plan = bn_plan(R, C, vec, sm_count(x.device.index), kind, S)
     W, ctas, tiles, per_cta, fan_in = plan
-    ws, tickets, stream = _tree(x, R, C, plan, 1) if tree else (None, None, torch.cuda.current_stream(x.device))
+    ws, tickets, stream = (_tree(x, R, C, plan, 4 if split else 1) if tree
+                           else (None, None, torch.cuda.current_stream(x.device)))
     with torch.cuda.device(x.device):
         err = library().votenet_bn_bwd_apply(
-            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, dy.data_ptr(), _bf16(dy), _ptr(ymax),
-            _ptr(count), dx.data_ptr(), R, C, 4 if vec else 1, W, ctas, tiles, per_cta, mean.data_ptr(),
+            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, *_split_args(coords), dy.data_ptr(), _bf16(dy),
+            _ptr(ymax), _ptr(count), dx.data_ptr(), R, C, 4 if vec else 1, W, ctas, tiles, per_cta, mean.data_ptr(),
             mul.data_ptr(), bias.data_ptr(), _ptr(eval_var), float(eps), _ptr(a), _ptr(b), int(relu), epi,
-            _ptr(d_corr), _ptr(d_bias), _ptr(ws), _ptr(tickets), fan_in, stream.cuda_stream)
+            _ptr(d_corr), _ptr(d_bias), _ptr(d_w3), _ptr(ws), _ptr(tickets), fan_in, stream.cuda_stream)
     check_launch(err, "bn_bwd_apply")
     (bn_bwd_apply_cuda.pooled if pooled is not None else bn_bwd_apply_cuda).launches += 1
     if tree:
         bn_bwd_apply_cuda.sums.launches += 1
-    _count_prologue(corr, dense_bias)
-    return (dx, d_corr, d_bias) if sums else dx
+    _count_prologue(corr, dense_bias, coords, bn_bwd_apply_cuda)
+    return result()
 
 
 bn_stats_cuda.launches = 0
@@ -526,3 +603,5 @@ bn_apply_cuda.group = SimpleNamespace(launches=0)  # K2 launches that ran the st
 bn_bwd_reduce_cuda.pooled = SimpleNamespace(launches=0)  # at a pooled site
 bn_bwd_apply_cuda.pooled = SimpleNamespace(launches=0)
 bn_bwd_apply_cuda.sums = SimpleNamespace(launches=0)  # K4 launches that wrote the prologue's cotangents
+for _k in (bn_stats_cuda, bn_apply_cuda, bn_bwd_reduce_cuda, bn_bwd_apply_cuda):
+    _k.split = SimpleNamespace(launches=0)  # launches with the split prologue
