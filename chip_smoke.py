@@ -10,8 +10,9 @@ paths on one NVIDIA GPU.
     python3 chip_smoke.py --e2e-times  # serving, training and eval times alone, public names only (no final line)
     python3 chip_smoke.py --bn-library  # batch norm's K1 and K3 beside their library calls alone (no final line)
     python3 chip_smoke.py --bn  # phase 32 alone (no final line)
-    python3 chip_smoke.py --sass  # SASS instructions an element of the batch-norm pool kernels' hot loops
-    python3 chip_smoke.py --split  # phase 33 alone (no final line)
+    python3 chip_smoke.py --sass  # SASS instructions an element of the batch-norm pool and split kernels' hot loops
+    python3 chip_smoke.py --split  # phase 33 alone (no final line), the split K1 and K2 beside their controls
+    python3 chip_smoke.py --split-ablation  # the split K1 and K2 with one step of their design taken out each
     python3 chip_smoke.py --cast-sites  # a bf16 forward's and step's and a mixed step's launches, copies by call site
     python3 chip_smoke.py --outputs PATH  # serving, training-step and eval outputs saved for --compare-outputs
     python3 chip_smoke.py --compare-outputs A B  # two checkouts' --outputs files: bit-equal but MOVED_GROUPS
@@ -302,12 +303,16 @@ Phases, each checked; any failure exits non-zero without the final line:
    launches with the statistics' end).
 33. The split prologue and the bf16 weight copies: K1-K4 with mixed
    precision's (and bf16_hilo's) coordinate term formed inside them
-   (``csrc/batchnorm.cu``'s SPLIT kernels: ``x = (T(dot3(xyz, W3) -
+   (``csrc/batchnorm.cu``'s split kernels: ``x = (T(dot3(xyz, W3) -
    dot3(centre, W3)) + h) + T(b)``) against their plain versions on the
-   card at sa2-sa4's split sites, B=8 and B=1 in bf16 and B=8 in f32, on
-   inputs with the ball query's padding and, for K2 and K4, with NaNs in h
-   and the coordinates (``split_check``: K2, K4, the ends bit for bit, the
-   sums and W3's and the bias's cotangents within the f64 gate); and
+   card at sa2-sa4's split sites, B=8 and B=1 in bf16, and B=8 in f32 with
+   bf16_hilo's sa1, on inputs with the ball query's padding and, for K1, K2
+   and K4, with NaNs in h and the coordinates (``split_check``: K2, K4, the
+   ends bit for bit, the sums and W3's and the bias's cotangents within the
+   f64 gate), and at the split K1 and K2's edges (``SPLIT_EDGES``); the
+   split K1 and K2 at sa2's shape timed beside K1 and K2 with the centred
+   and the bias prologue on the same h (``split_times_beside_controls``);
+   and
    ``csrc/cast.cu``'s ``cast_bf16_multi`` on a full-width bf16 model's 27
    weight views and special values, bit-equal to the card's own casts both
    ways (``cast_check``), beside the per-leaf ``.to()`` it replaces and
@@ -1089,7 +1094,7 @@ def profile_device(run, label):
                else "ballquery" if "ballquery_kernel" in low or "bq_merge_kernel" in low
                else "scatter" if "namespace)::scatter_" in low
                else "samlp" if "samlp_kernel" in low or "samlp_split_weights" in low
-               else "batchnorm" if any(w in low for w in ("bn_stats_kernel", "bn_apply_", "bn_bwd_"))
+               else "batchnorm" if any(w in low for w in ("bn_stats_", "bn_apply_", "bn_bwd_"))
                else "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "sm90_"))
                else "elementwise" if "elementwise" in low or "reduce_kernel" in low else "other")
         groups[key] = groups.get(key, 0.0) + ms
@@ -3892,10 +3897,14 @@ def bn_library_sums(cfg):
     print(json.dumps({"bn_library": res}))
 
 
-# The kernels whose SASS ``--sass`` reads (csrc/batchnorm.cu's pool kernels,
-# f32 and bf16 in and out): the rows a thread takes an iteration of its
-# innermost row loop, by the channels a lane (V)
-SASS_ROWS = {"bn_apply_pool": {4: 4, 8: 4}, "bn_bwd_reduce_pooled": {4: 2, 8: 4}}
+# The kernels whose SASS ``--sass`` reads (csrc/batchnorm.cu's pool kernels
+# and the split prologue's K1-K4, f32 and bf16 in and out): the rows a
+# thread takes an iteration of its innermost row loop, by the channels a
+# lane (V); the split K1 and K2 the same in this checkout's design (the
+# split kernels, kSplitRows) and in the one before it (bn_stats_kernel and
+# bn_apply_kernel with SPLIT, kRows)
+SASS_ROWS = {"bn_apply_pool": {4: 4, 8: 4}, "bn_bwd_reduce_pooled": {4: 2, 8: 4}, "bn_split_stats": {4: 4, 8: 4},
+             "bn_split_apply": {4: 4, 8: 4}, "bn_split_bwd_reduce": {4: 4}, "bn_split_bwd_apply": {4: 2}}
 
 
 def sass_functions(text: str) -> dict:
@@ -3931,15 +3940,41 @@ def sass_hot_loop(ins) -> tuple[int, dict]:
     return len(body), dict(ops)
 
 
-def bn_sass(lib_path=None) -> dict:
-    """``--sass``: SASS instructions an element of the pool kernels' hot row
-    loops (K2's pool variant, the pooled K3; f32 and bf16, as built for this
-    checkout): the innermost loop's static instructions over the elements an
-    iteration takes (``SASS_ROWS`` rows x V channels), and its conversions
-    (F2F: the conversion unit, 16 a clock an SM on Hopper; F2FP: the packed
-    bf16 rounding). A copy of this file at the root of an earlier checkout
-    reads that checkout's library."""
+def sass_kernel(name: str):
+    """(SASS_ROWS key, dtype, V) of a mangled batch-norm kernel name that
+    ``--sass`` reads, else None: K2's pool variant, the pooled K3, and the
+    split prologue's K1-K4 (``bn_{stats,apply}_split_kernel``, or K1/K2 with
+    SPLIT true; K3 with POOLED false and SPLIT true; K4 with POOLED false,
+    EPI 1 and SPLIT true)."""
     import re
+
+    m = re.search(r"(bn_stats_split|bn_apply_split|bn_apply_pool|bn_stats|bn_apply|bn_bwd_reduce|bn_bwd_apply)"
+                  r"_kernelI(ff|13__nv_bfloat16S1_|f|13__nv_bfloat16)Li(\d)E(\w*)", name)
+    if not m:
+        return None
+    kind, flags = m.group(1), m.group(4)
+    key = {"bn_stats_split": "bn_split_stats", "bn_apply_split": "bn_split_apply", "bn_apply_pool": "bn_apply_pool",
+           "bn_stats": "bn_split_stats" if flags.startswith("Lb1E") else None,
+           "bn_apply": "bn_split_apply" if flags.startswith("Lb1E") else None,
+           "bn_bwd_reduce": ("bn_bwd_reduce_pooled" if flags.startswith("Lb1E")
+                             else "bn_split_bwd_reduce" if flags.startswith("Lb0ELb1E") else None),
+           "bn_bwd_apply": "bn_split_bwd_apply" if flags.startswith("Lb0ELi1ELb1E") else None}[kind]
+    V = int(m.group(3))
+    if key is None or V not in SASS_ROWS[key]:
+        return None
+    return key, "f32" if m.group(2).startswith("f") else "bf16", V
+
+
+def bn_sass(lib_path=None) -> dict:
+    """``--sass``: SASS instructions an element of the batch-norm kernels'
+    hot row loops (K2's pool variant, the pooled K3 and the split
+    prologue's K1-K4; f32 and bf16, as built for this checkout): the
+    innermost loop's static instructions over the elements an iteration
+    takes (``SASS_ROWS`` rows x V channels), and by kind an element: the
+    conversions (F2F: the conversion unit, 16 a clock an SM on Hopper;
+    F2FP: the packed bf16 rounding), FADD and FMUL, HADD2 (the bf16x2 adds),
+    the global loads (LDG) and the shared ones (LDS). A copy of this file at
+    the root of an earlier checkout reads that checkout's library."""
     import subprocess
 
     from votenet_tpu_torch.ops.cuda import build
@@ -3949,23 +3984,26 @@ def bn_sass(lib_path=None) -> dict:
     text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
     res = {}
     for name, ins in sass_functions(text).items():
-        m = re.search(r"(bn_apply_pool|bn_bwd_reduce)_kernelI(ff|13__nv_bfloat16S1_)Li(\d)E(Lb1E)?", name)
-        if not m or (m.group(1) == "bn_bwd_reduce" and not m.group(4)):
+        found = sass_kernel(name)
+        if found is None:
             continue
-        kernel = "bn_apply_pool" if m.group(1) == "bn_apply_pool" else "bn_bwd_reduce_pooled"
-        V = int(m.group(3))
-        if V == 1:
-            continue
+        kernel, dtype, V = found
         n, ops = sass_hot_loop(ins)
         elements = SASS_ROWS[kernel][V] * V
-        key = f"{kernel} {'f32' if m.group(2) == 'ff' else 'bf16'} V={V}"
+
+        def per(*prefixes):
+            return sum(v for k, v in ops.items() if k.startswith(prefixes)) / elements
+
+        key = f"{kernel} {dtype} V={V}"
         res[key] = {"loop_instructions": n, "elements": elements, "per_element": n / elements,
-                    "f2f_per_element": sum(v for k, v in ops.items() if k.startswith("F2F.")) / elements,
-                    "f2fp_per_element": sum(v for k, v in ops.items() if k.startswith("F2FP")) / elements,
-                    "top": sorted(ops.items(), key=lambda kv: -kv[1])[:8]}
+                    "f2f_per_element": per("F2F."), "f2fp_per_element": per("F2FP"), "fadd_per_element": per("FADD"),
+                    "fmul_per_element": per("FMUL"), "hadd2_per_element": per("HADD2"), "ldg_per_element": per("LDG"),
+                    "lds_per_element": per("LDS"), "top": sorted(ops.items(), key=lambda kv: -kv[1])[:8]}
+        r = res[key]
         print(f"  {key}: {n} instructions in the hot loop / {elements} elements = {n / elements:.2f} an element "
-              f"(F2F {res[key]['f2f_per_element']:.2f}, F2FP {res[key]['f2fp_per_element']:.2f}); "
-              f"top {res[key]['top']}")
+              f"(F2F {r['f2f_per_element']:.2f}, F2FP {r['f2fp_per_element']:.2f}, FADD {r['fadd_per_element']:.2f}, "
+              f"FMUL {r['fmul_per_element']:.2f}, HADD2 {r['hadd2_per_element']:.2f}, LDG {r['ldg_per_element']:.3f}, "
+              f"LDS {r['lds_per_element']:.3f}); top {r['top']}")
     print(json.dumps({"bn_sass": res}))
     return res
 
@@ -4117,12 +4155,46 @@ SPLIT_OF = dict(zip(SPLIT_ROWS, ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bw
 CAST_ROW = "cast_bf16_multi"
 
 
-def split_sites(cfg):
+def split_sites(cfg, hilo=False):
     """(layer, rows a scene, S, C, input width) of the split first layers,
-    sa2-sa4 (mixed precision; in training under bf16_hilo sa1 too, whose
-    features are its coordinates)."""
-    return [(f"sa{i + 1}", cfg.sa_npoints[i] * cfg.sa_nsamples[i], cfg.sa_nsamples[i], cfg.sa_mlps[i][0],
-             3 + cfg.sa_mlps[i - 1][-1]) for i in (1, 2, 3)]
+    sa2-sa4 (mixed precision); with ``hilo`` bf16_hilo's sa1 first, a
+    training site in an f32 config whose features are its coordinates."""
+    ins = (3 + 3,) + tuple(3 + c[-1] for c in cfg.sa_mlps[:-1])
+    return [(f"sa{i + 1}", cfg.sa_npoints[i] * cfg.sa_nsamples[i], cfg.sa_nsamples[i], cfg.sa_mlps[i][0], ins[i])
+            for i in ((0, 1, 2, 3) if hilo else (1, 2, 3))]
+
+
+# (R, S, C, input width, what) where the split K1 and K2's layout has edges:
+# S not a multiple of the rows a thread keeps in flight with 3 chunks of
+# units a CTA (the plan's cap reached), units longer than a staging window
+# (bf16: 3 windows a unit, f32: 2), 4 channels a lane (C % 8 != 0) and 1
+# (C % 4 != 0), and a plan whose CTAs run out of units mid-chunk
+SPLIT_EDGES = [(9000 * 30, 30, 128, 131, "S=30, 3 chunks a CTA"), (400 * 150, 150, 128, 131, "S=150, windows"),
+               (500 * 64, 64, 36, 131, "C=36, 4 a lane"), (3000 * 16, 16, 13, 20, "C=13, 1 a lane"),
+               (37 * 7, 7, 128, 9, "S=7, 37 units")]
+
+
+def split_controls(R, S, C, cin, dtype, seed, reps=20):
+    """The split K1 and K2 at R x C beside K1 and K2 with the centred prologue
+    (``corr``, the centre's product with W3 in ``dtype``, and the dense
+    bias) and the bias prologue alone on the same h, in this process:
+    {label: device ms}, through names every checkout with the split
+    prologue has."""
+    import torch
+
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    h, coords, db, weight, bias, _ = split_site_inputs(R, S, C, cin, dtype, seed)
+    corr = (coords.centre @ coords.w3).to(dtype).contiguous()
+    st = bnc.bn_stats_cuda(h, dense_bias=db, coords=coords)
+    mean, mul = st[0].float() / R, torch.rand(C, device="cuda") + 0.5
+    pros = {"split": dict(dense_bias=db, coords=coords), "centred": dict(corr=corr, dense_bias=db),
+            "bias": dict(dense_bias=db)}
+    out = {}
+    for what, pro in pros.items():
+        out[f"K1 {what}"] = cuda_ms(lambda: bnc.bn_stats_cuda(h, **pro), reps)
+        out[f"K2 {what}"] = cuda_ms(lambda: bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True, **pro), reps)
+    return out
 
 
 def split_site_inputs(R, S, C, cin, dtype, seed, device="cuda"):
@@ -4177,8 +4249,8 @@ def split_check(R, S, C, cin, dtype, seed, times=True, device="cuda"):
     """K1-K4 with the split prologue at R x C in ``dtype`` against their plain
     versions (``ops/batchnorm.py``, the stated dot3 order) on the card: K2
     (training's, eval's, and a data-parallel group's statistics' end) and K4
-    bit for bit, also on inputs with a NaN in h and in the coordinates; K1's
-    and K3's sums within an f32 ulp of torch's f64 sums of the plain x's
+    bit for bit, also on inputs with a NaN in h and in the coordinates (K1's
+    sums NaN in the plain sums' channels); K1's and K3's sums within an f32 ulp of torch's f64 sums of the plain x's
     terms (BN_F64_ULPS, BN_F64_FLOOR) and their per-channel ends bit for bit;
     K4's epilogue, the dense bias's and W3's cotangents, within the f64
     gate of torch's f64 sums of the same terms; every kernel rerun
@@ -4264,11 +4336,14 @@ def split_check(R, S, C, cin, dtype, seed, times=True, device="cuda"):
     pro_n = dict(dense_bias=db, coords=bnc.Coords(xyz_n, coords.centre, coords.w3))
     y_n = bnc.bn_apply_cuda(h_n, mean, mul, bias, dtype, True, **pro_n)
     eq_n = bits_equal(y_n, bn.bn_apply_plain(h_n, mean, mul, bias, dtype, True, **pro_n)) and bool(torch.isnan(y_n).any())
+    s_n, p_n = bnc.bn_stats_cuda(h_n, **pro_n), bn.bn_stats_plain(h_n, **pro_n)  # K1: NaN in the same channels
+    eq1n = torch.equal(torch.isnan(s_n), torch.isnan(p_n)) and bool(torch.isnan(s_n).any())
     eq_n &= bits_equal(bnc.bn_bwd_apply_cuda(h_n, dy, mean, mul, bias, a, b, True, **pro_n)[0],
                        bn.bn_bwd_apply_plain(h_n, dy, mean, mul, bias, a, b, True, **pro_n)[0])
     gates = {
-        "bn_split_stats": (u1 <= 1 and same1 and eq_st, 0.0,
-                           f"K1 sums at {u1:.3g} of the f64 allowance (<= 1), rerun equal {same1}, the end {eq_st}"),
+        "bn_split_stats": (u1 <= 1 and same1 and eq_st and eq1n, 0.0,
+                           f"K1 sums at {u1:.3g} of the f64 allowance (<= 1), rerun equal {same1}, the end {eq_st}, "
+                           f"NaNs {eq1n}"),
         "bn_split_apply": (eq2 and eq2e and eq2g and same2 and eq_n, 0.0,
                            f"K2 bit-equal: train {eq2}, eval {eq2e}, a group's end {eq2g}, with NaNs {eq_n}; "
                            f"rerun equal {same2}"),
@@ -4324,6 +4399,135 @@ def split_check(R, S, C, cin, dtype, seed, times=True, device="cuda"):
         bwd = cuda_ms(backward_passes, reps)
         eager = {"bn_split_stats": fwd, "bn_split_apply": fwd, "bn_split_bwd_reduce": 0.0, "bn_split_bwd_apply": bwd}
     return out, bad, summary, eager
+
+
+# --split-ablation: the split K1 and K2 with one step of their design taken
+# out each (csrc/batchnorm.cu or the launch plan edited by exact
+# replacement in a copy of the package under build/split_ablation/<name>),
+# built in parallel and timed in child processes beside this checkout's
+SPLIT_X_CALL = "          split_x<T, V>(L, my[r + k], has_db, hw[k], v);"
+SPLIT_PAIRS = """      uint32_t t = pack_rn(__fsub_rn(L.dot(p, 2 * i), L.b[2 * i]), __fsub_rn(L.dot(p, 2 * i + 1), L.b[2 * i + 1]));
+      t = as_u32(__hadd2(as_bf2(t), as_bf2(h[i])));
+      if (has_db) t = as_u32(__hadd2(as_bf2(t), as_bf2(L.dbw[i])));
+      v[2 * i] = lo_of(t);
+      v[2 * i + 1] = hi_of(t);"""
+SPLIT_SINGLES = """      float t0 = round_to<T>(__fadd_rn(round_to<T>(__fsub_rn(L.dot(p, 2 * i), L.b[2 * i])), lo_of(h[i])));
+      float t1 = round_to<T>(__fadd_rn(round_to<T>(__fsub_rn(L.dot(p, 2 * i + 1), L.b[2 * i + 1])), hi_of(h[i])));
+      if (has_db) {
+        t0 = round_to<T>(__fadd_rn(t0, L.db[2 * i]));
+        t1 = round_to<T>(__fadd_rn(t1, L.db[2 * i + 1]));
+      }
+      v[2 * i] = t0;
+      v[2 * i + 1] = t1;"""
+
+
+def split_ablation_edits():
+    """{name: (what it takes out, [(file under the package, old text, new
+    text)])}."""
+    cu, py = "csrc/batchnorm.cu", "ops/cuda/batchnorm.py"
+    copies = "  for (int i = threadIdx.x; i < n; i += kThreads) {\n    const int g = i / nr"
+    global_rows = ("          const float* q = pro.xyz + (row0 + r + k) * 3;\n"
+                   "          split_x<T, V>(L, make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2), 0.0f), has_db, hw[k], v);")
+    every_row = ("          float4 cq = centres[buf * st.groups + s.rg];\n"
+                 "          asm volatile(\"\" : \"+f\"(cq.x), \"+f\"(cq.y), \"+f\"(cq.z));\n"
+                 "          L.enter(cq);\n" + SPLIT_X_CALL)
+    wide1 = "    wide = coords is not None and _wide(x, x)\n"
+    wide2 = "    wide = (bool(pool) or coords is not None) and _wide(x, y, corr, count)\n"
+    return {
+        "rows_from_global": ("each row's coordinates three scalar global loads, the rows not staged",
+                             [(cu, SPLIT_X_CALL, global_rows), (cu, copies, copies.replace("i < n;", "i < 0;"))]),
+        "centre_every_row": ("the centre's term formed again for every row", [(cu, SPLIT_X_CALL, every_row)]),
+        "single_roundings": ("bf16's prologue a value at a time (three single roundings an element)",
+                             [(cu, SPLIT_PAIRS, SPLIT_SINGLES)]),
+        "four_a_lane": ("bf16 at 4 channels a lane (the narrow kinds)",
+                        [(py, wide1, "    wide = False\n"), (py, wide2, "    wide = bool(pool) and _wide(x, y, corr, count)\n")]),
+        "narrow_three_ctas": ("the narrow kinds (f32, 4 channels a lane or 1) at 3 CTAs an SM",
+                              [(cu, "constexpr int kCtasReduceSplit = 2;", "constexpr int kCtasReduceSplit = 3;"),
+                               (cu, "constexpr int kCtasApplySplit = 2;", "constexpr int kCtasApplySplit = 3;"),
+                               (py, '"reduce_split": 2,', '"reduce_split": 3,'),
+                               (py, '"apply_split": 2,', '"apply_split": 3,')]),
+    }
+
+
+def split_ablation_times():
+    """``--split-ablation-times``, a child of ``--split-ablation`` run in a
+    copy's directory: the split K1 and K2 of the package there at sa2-sa4's
+    B=8 sites in bf16 and f32 (device us), each checked (K2 bit-equal to its
+    plain version, K1's sums within the f64 gate of torch's f64 sums); one
+    JSON line."""
+    import torch
+
+    from votenet_tpu_torch.config import default_config
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    if not bnc.__file__.startswith(os.getcwd()):
+        raise RuntimeError(f"--split-ablation-times: the package came from {bnc.__file__}, not {os.getcwd()}")
+    res, ok = {}, True
+    for dtype in (torch.bfloat16, torch.float32):
+        for layer, rows, S, C, cin in split_sites(default_config()):
+            R = 8 * rows
+            h, coords, db, _, bias, _ = split_site_inputs(R, S, C, cin, dtype, SEED)
+            pro = dict(dense_bias=db, coords=coords)
+            s = bnc.bn_stats_cuda(h, **pro)
+            x = bn.layer_rows_plain(h, None, db, coords).double()
+            gap = float(((s - torch.stack([x.sum(0), (x * x).sum(0)])).abs()
+                         / (BN_F64_ULPS * torch.stack([x.sum(0).abs(), (x * x).sum(0)])
+                            + BN_F64_FLOOR * torch.stack([x.abs().sum(0), (x * x).sum(0)]))).max())
+            mean, mul = (s[0] / R).float(), torch.rand(C, device="cuda") + 0.5
+            eq = bit_equal(bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True, **pro),
+                           bn.bn_apply_plain(h, mean, mul, bias, dtype, True, **pro))
+            ok &= eq and gap <= 1
+            res[f"{layer} {str(dtype)[6:]}"] = [cuda_ms(lambda: bnc.bn_stats_cuda(h, **pro), 40) * 1e3,
+                                                cuda_ms(lambda: bnc.bn_apply_cuda(h, mean, mul, bias, dtype, True,
+                                                                                  **pro), 40) * 1e3]
+    print(json.dumps({"ok": ok, "us": res}))
+    return 0 if ok else 1
+
+
+def split_ablation():
+    """``--split-ablation``: each of :func:`split_ablation_edits`' variants
+    built in a copy of the package (all builds at once), then the split K1
+    and K2 of this checkout, of each variant and of this checkout again
+    timed in turn (:func:`split_ablation_times` in child processes), with
+    their sums over sa2-sa4 at B=8 in bf16 and f32."""
+    import subprocess
+
+    root = Path(__file__).resolve().parent
+    dirs = {"checkout": root}
+    for name, (_, edits) in split_ablation_edits().items():
+        d = dirs[name] = root / "build" / "split_ablation" / name
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(root / "votenet_tpu_torch", d / "votenet_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        for f, old, new in edits:
+            path = d / "votenet_tpu_torch" / f
+            text = path.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"--split-ablation {name}: the text to replace is not in {f} once")
+            path.write_text(text.replace(old, new))
+    builds = [subprocess.Popen([sys.executable, "-c", "from votenet_tpu_torch.ops.cuda import build; build()"],
+                               cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for d in dirs.values()]
+    for name, b in zip(dirs, builds):
+        if b.wait() != 0:
+            raise RuntimeError(f"--split-ablation: {name} did not build:\n{b.stdout.read().decode()[-3000:]}")
+    res = {}
+    for i, name in enumerate([*dirs, "checkout"]):
+        run = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--split-ablation-times"], cwd=dirs[name],
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"--split-ablation {name}: rc {run.returncode}\n{run.stdout[-2000:]}{run.stderr[-3000:]}")
+        us = json.loads(run.stdout.strip().splitlines()[-1])["us"]
+        for dt in ("bfloat16", "float32"):
+            us[f"sum {dt}"] = [sum(v[j] for k, v in us.items() if k.endswith(" " + dt) and k.startswith("sa"))
+                               for j in (0, 1)]
+        key = f"{name} ({'first' if i == 0 else 'last'})" if name == "checkout" else name
+        res[key] = us
+        what = "" if name == "checkout" else f": {split_ablation_edits()[name][0]}"
+        print(f"  {key}{what}: K1 / K2 us over sa2-sa4, B=8, bf16 {us['sum bfloat16'][0]:.1f} / "
+              f"{us['sum bfloat16'][1]:.1f}, f32 {us['sum float32'][0]:.1f} / {us['sum float32'][1]:.1f}; by site "
+              + ", ".join(f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in us.items() if k.startswith("sa")))
+    print(json.dumps({"split_ablation": res}))
 
 
 def cast_specials(device):
@@ -4407,7 +4611,7 @@ def phase_split_copies(cfg, report, device="cuda"):
     seed = SEED
     for dtype in (torch.bfloat16, torch.float32):
         for B in ((8, 1) if dtype == torch.bfloat16 else (8,)):
-            for layer, rows, S, C, cin in split_sites(cfg):
+            for layer, rows, S, C, cin in split_sites(cfg, hilo=dtype == torch.float32):
                 R = B * rows
                 seed += 1
                 out, bad, summary, eager = split_check(R, S, C, cin, dtype, seed, device=device)
@@ -4420,6 +4624,13 @@ def phase_split_copies(cfg, report, device="cuda"):
                     if B == 8 and dtype == torch.bfloat16:
                         extra[k]["eager_ms"] += eager[k]
                 checks[f"{layer} B={B} {name}: {summary}"] = not bad
+    for dtype in (torch.bfloat16, torch.float32):
+        for R, S, C, cin, what in SPLIT_EDGES:
+            seed += 1
+            _, bad, summary, _ = split_check(R, S, C, cin, dtype, seed, times=False, device=device)
+            checks[f"{what} ({R}x{C}, {str(dtype)[6:]}): {summary}"] = not bad
+    if device == "cuda":
+        split_times_beside_controls(cfg)
     c_checks, (err, ms, p_ms, l_ms), bound, (n, elems) = cast_check(device)
     report(CAST_ROW, "weights", 8, f"{n} tensors, {elems} elements", all(c_checks.values()), err, ms, p_ms, bound,
            l_ms)
@@ -4430,6 +4641,27 @@ def phase_split_copies(cfg, report, device="cuda"):
     checks.update(c_checks)
     extra[CAST_ROW] = {"library_faster": faster, "tensors": n, "elements": elems}
     return finish(checks, "split prologue and weight-cast checks", extra)
+
+
+def split_times_beside_controls(cfg):
+    """The split K1 and K2 at sa2's shape (B=8) in bf16 and f32 beside K1 and
+    K2 with the centred and the bias prologue on the same h
+    (:func:`split_controls`), printed with their ratios and as one JSON
+    line, ``{"split_controls_us": {dtype: {label: us}}}``."""
+    import torch
+
+    layer, rows, S, C, cin = split_sites(cfg)[0]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        t = {k: v * 1e3 for k, v in split_controls(8 * rows, S, C, cin, dtype, SEED).items()}
+        name = str(dtype)[6:]
+        out[name] = t
+        for k in ("K1", "K2"):
+            sp = t[f"{k} split"]
+            print(f"  {layer} B=8 {name} {k}: split {sp:.1f} us, centred prologue {t[f'{k} centred']:.1f} "
+                  f"(split {sp / t[f'{k} centred']:.2f}x), bias prologue {t[f'{k} bias']:.1f} "
+                  f"(split {sp / t[f'{k} bias']:.2f}x)")
+    print(json.dumps({"split_controls_us": out}))
 
 
 def call_site(e) -> str:
@@ -4556,7 +4788,8 @@ def dump_outputs(cfg, scenes, state_dict, path):
     the losses, twice from a fresh state (the rerun's bits); the same f32
     step through the data-parallel path on a one-rank NCCL group (the
     batch-norm sums all-reduced, the gradient all-reduce; phase 19's) in f32
-    and bf16; the bf16 step under remat; four bf16 steps of
+    and bf16; the f32 step with ``gather_packing="bf16_hilo"`` (the split
+    prologue in f32), twice; the bf16 step under remat; four bf16 steps of
     ``Trainer(steps_per_dispatch=4)`` (the parameters, Adam's moments and
     the running statistics after them); and
     the committed checkpoint's eval predictions of scenes[:8] (samlp off
@@ -4598,6 +4831,9 @@ def dump_outputs(cfg, scenes, state_dict, path):
             batch = next(batch_scenes(iter(scenes[:8]), 8, c.max_gt_boxes))
             for run in ("", "_rerun"):
                 step(c, f"train_{name}{run}")
+        batch = next(batch_scenes(iter(scenes[:8]), 8, cfg.max_gt_boxes))
+        for run in ("", "_rerun"):  # bf16_hilo: the split prologue in f32 at sa1-sa4
+            step(cfg.replace(gather_packing="bf16_hilo"), f"train_hilo{run}")
         batch = next(batch_scenes(iter(scenes[:8]), 8, bf16.max_gt_boxes))
         step(bf16.replace(remat=True), "train_bf16_remat")
         state = create_train_state(bf16, 512, torch.Generator().manual_seed(SEED), device="cuda")
@@ -4697,6 +4933,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU to run on", file=sys.stderr)
         return 1
+    if "--split-ablation-times" in sys.argv[1:]:  # a child of --split-ablation, run in a copy's directory
+        sys.path.insert(0, os.getcwd())
+        return split_ablation_times()
     try:
         from votenet_tpu_torch.config import default_config
         from votenet_tpu_torch.data.synthetic import synthetic_scenes
@@ -4777,6 +5016,10 @@ def main() -> int:
         print(json.dumps({"split_times": {k: {"ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
                                               "bound_ms": stats[k]["bound_ms"], "library_ms": stats[k]["library_ms"]}
                                           for k in SPLIT_ROWS + (CAST_ROW,)}, "failed": failed}))
+        print(card)
+        return 1 if failed else 0
+    if "--split-ablation" in sys.argv[1:]:  # the split K1 and K2 with one step of their design taken out each
+        run("split ablation", split_ablation)
         print(card)
         return 1 if failed else 0
     if "--cast-sites" in sys.argv[1:]:  # the copy kernels of a bf16 forward and step and a mixed step, by call site

@@ -618,7 +618,7 @@ def test_launch_plan_kinds_match_the_compiled_launch_bounds():
     assert {kind: int(n) for _, n, kind in found} == bn_cuda.BN_CTAS_PER_SM
     names = {name for name, _, _ in found}
     bounds = re.findall(r"__launch_bounds__\(kThreads, ([^)]*)\)", src)
-    assert len(bounds) == 5  # K1, K2, K2's pool variant, K3, K4
+    assert len(bounds) == 7  # K1, K2, the split K1 and K2, K2's pool variant, K3, K4
     used = [re.findall(r"kCtas\w+", b) for b in bounds]
     assert all(u and re.fullmatch(r"[\w ?:]+", b) for u, b in zip(used, bounds))  # constants and choices only
     assert set().union(*used) == names
@@ -645,6 +645,89 @@ def test_launch_plan_takes_whole_units(R, S, C, vec, kind):
     if S > 1:
         with pytest.raises(ValueError):
             bn_cuda.bn_plan(R + 1, C, vec, 132, kind, S)
+
+
+def stage_rows() -> int:
+    """csrc/batchnorm.cu's kStageRows: the rows a staging buffer of the split
+    K1 and K2 holds."""
+    import re
+    from pathlib import Path
+
+    src = (Path(bn_cuda.__file__).resolve().parents[2] / "csrc" / "batchnorm.cu").read_text()
+    return int(re.search(r"constexpr int kStageRows = (\d+);", src).group(1))
+
+
+def staged_row_order(plan, R: int, S: int):
+    """The split K1 and K2's row loop (``csrc/batchnorm.cu::split_rows``)
+    transcribed: each CTA takes its units in chunks of one unit a row group
+    (the chunk's g-th unit to row group g), each chunk in windows of ``win =
+    min(S, kStageRows // groups)`` rows a unit, all row groups' windows
+    staged together. Returns {(CTA, row group): rows in the order it takes
+    them} and the most rows one step stages."""
+    W, ctas, _, per_cta, _ = plan
+    groups = bn_cuda.BN_THREADS // W
+    win = min(S, stage_rows() // groups)
+    wins = -(-S // win)
+    units = R // S
+    order, most = {}, 0
+    for k in range(ctas):
+        u0, u1 = k * per_cta, min((k + 1) * per_cta, units)
+        for step in range(-(-(u1 - u0) // groups) * wins):
+            chunk, w = divmod(step, wins)
+            r0, nr = w * win, min(win, S - w * win)
+            staged = 0
+            for rg in range(groups):
+                u = u0 + chunk * groups + rg
+                if u < u1:
+                    order.setdefault((k, rg), []).append(np.arange(u * S + r0, u * S + r0 + nr))
+                    staged += nr
+            most = max(most, staged)
+    return {key: np.concatenate(v) for key, v in order.items()}, most
+
+
+@pytest.mark.parametrize("R,S", [(1024 * 64, 64), (9000 * 30, 30), (400 * 150, 150), (37 * 7, 7), (64 * 5, 1)])
+@pytest.mark.parametrize("C,vec,width", [(128, True, 8), (128, True, 4), (64, True, 4), (36, True, 4),
+                                         (13, False, 4)])
+@pytest.mark.parametrize("kind", bn_cuda.CHUNKED_KINDS)
+def test_split_plans_keep_units_whole_within_row_groups(R, S, C, vec, width, kind):
+    """The split K1 and K2's plans (``CHUNKED_KINDS``) give a CTA a multiple
+    of its row groups' count of units, and their staged row loop takes each
+    row once, each row group's units whole and in the order K1's sums
+    assume (:func:`kernel_sum_order`: units u0 + rg, + groups, ..., each
+    unit's S rows in turn), no step staging more rows than a buffer holds."""
+    plan = bn_cuda.bn_plan(R, C, vec, 132, kind, S, width)
+    W, ctas, tiles, per_cta, _ = plan
+    groups = bn_cuda.BN_THREADS // W
+    assert per_cta % groups == 0 and (ctas - 1) * per_cta < R // S <= ctas * per_cta
+    order, most = staged_row_order(plan, R, S)
+    assert most <= stage_rows()
+    for (k, rg), rows in order.items():
+        units = np.arange(k * per_cta + rg, min((k + 1) * per_cta, R // S), groups)
+        assert np.array_equal(rows, (units[:, None] * S + np.arange(S)[None]).ravel())
+    assert np.array_equal(np.sort(np.concatenate(list(order.values()))), np.arange(R))
+
+
+@pytest.mark.parametrize("R,C,S,width", [(2048 * 64, 128, 64, 8), (2048 * 64, 64, 64, 4), (9000 * 30, 128, 30, 8),
+                                         (500 * 64, 36, 64, 4)])
+def test_split_kernel_sum_order_against_f64(R, C, S, width):
+    """K1's order from the split K1's plans (8 channels a lane in bf16, else
+    4): the transcription's f32 sums are within one f32 ulp of the f64 sums
+    of K1's terms; and at 8 channels a lane the order is another than the
+    4-channel plan's (its row groups and CTAs differ), which a test of the
+    card against it can tell apart."""
+    rng = np.random.RandomState(R + C)
+    kind = "reduce_split_wide" if width == 8 else "reduce_split"
+    plan = bn_cuda.bn_plan(R, C, C % width == 0, 132, kind, S, width)
+    x = (rng.randn(R, C) * 3 + 1).astype(np.float32)
+    for terms in k1_terms(x):
+        got = kernel_sums(terms, plan, S)
+        want = terms.sum(0)
+        assert np.all(np.abs(got - want.astype(np.float32)) <= np.spacing(np.abs(want).astype(np.float32)))
+    if width == 8:
+        narrow = bn_cuda.bn_plan(R, C, True, 132, "reduce_split", S, 4)
+        assert narrow[0] != plan[0]
+        sq = k1_terms(x)[1]
+        assert not np.array_equal(kernel_sum_order(sq, plan, S), kernel_sum_order(sq, narrow, S))
 
 
 # ------------------------------------------------------ the model's stacks

@@ -1950,7 +1950,10 @@ def test_cast_bf16_multi_splits_a_long_table(cuda):
 
 SPLIT_CASES = [(8 * 1024 * 64, 64, 128, 131, "sa2 B=8"), (1024 * 64, 64, 128, 131, "sa2 B=1"),
                (8 * 512 * 32, 32, 128, 259, "sa3 B=8"), (256 * 32, 32, 128, 259, "sa4 B=1"),
-               (40 * 16, 16, 13, 20, "unaligned"), (3 * 5, 5, 36, 9, "small")]
+               (40 * 16, 16, 13, 20, "unaligned"), (3 * 5, 5, 36, 9, "small"),
+               (8 * 2048 * 64, 64, 64, 6, "sa1 B=8"), (9000 * 30, 30, 128, 131, "S=30, 3 chunks a CTA"),
+               (400 * 150, 150, 128, 131, "S=150, windows"), (500 * 64, 64, 36, 131, "C=36, 4 a lane"),
+               (3000 * 16, 16, 13, 20, "C=13, 1 a lane"), (37 * 7, 7, 128, 9, "S=7, 37 units")]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -1959,12 +1962,39 @@ def test_split_prologue_kernels_match_plain(cuda, dtype, R, S, C, cin, what):
     """chip_smoke.py's phase-33 gates: K2 (training, eval, a group's end, NaN
     inputs) and K4 with the split prologue bit-equal to their plain
     versions, K1's and K3's sums within the f64 gate and their ends bit for
-    bit, K4's bias and W3 cotangents within the f64 gate; at the sites'
-    shapes and at C % 4 != 0 (one channel a lane)."""
+    bit (K1's sums NaN where the plain sums are), K4's bias and W3
+    cotangents within the f64 gate; at the sites' shapes (bf16_hilo's sa1
+    too) and at the split K1 and K2's edges (chip_smoke.SPLIT_EDGES: S not a
+    multiple of the rows in flight, several chunks of units a CTA, units
+    longer than a staging window, 4 channels a lane and one)."""
     import chip_smoke
 
     _, bad, summary, _ = chip_smoke.split_check(R, S, C, cin, dtype, seed=R + C, times=False)
     assert not bad, summary
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("R,S,C", [(8 * 1024 * 64, 64, 128), (8 * 2048 * 64, 64, 64), (9000 * 30, 30, 128),
+                                   (400 * 150, 150, 128), (500 * 64, 64, 36), (3000 * 16, 16, 13)])
+def test_split_sums_follow_the_stated_order(cuda, dtype, R, S, C):
+    """The split K1's sums equal, bit for bit, the numpy transcription of
+    K1's order (tests/test_torch_bn_layer.py ``kernel_sums``) from the split
+    K1's launch plan on this card's SM count (``"reduce_split_wide"``, 8
+    channels a lane, in bf16 with C % 8 == 0; else ``"reduce_split"``), over
+    x as the plain split prologue forms it."""
+    from tests.test_torch_bn_layer import k1_terms, kernel_sums
+    import chip_smoke
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    h, coords, db, _, _, _ = chip_smoke.split_site_inputs(R, S, C, 9, dtype, R + C)
+    x = bn.layer_rows_plain(h, None, db, coords)
+    wide = bnc._wide(h, h)
+    kind = "reduce_split_wide" if wide else "reduce_split"
+    plan = bnc.bn_plan(R, C, wide or bnc._vec(C, h), bnc.sm_count(0), kind, S, 8 if wide else 4)
+    s, sq = (v.float() for v in bnc.bn_stats_cuda(h, dense_bias=db, coords=coords))
+    for got, terms in zip((s, sq), k1_terms(x.float().cpu().numpy())):
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), kernel_sums(terms, plan, S).view(np.uint32))
 
 
 @pytest.mark.parametrize("mode", ["bf16", "bf16-remat", "mixed"])

@@ -162,6 +162,73 @@ def test_plain_stages_follow_the_stated_order(dtype):
     assert bool(((d_bias[keep].double() - want_b).abs() <= ulp_b * want_b.abs() + 2.0 ** -40 * dd.abs().sum(0)).all())
 
 
+def unit_term_np(xyz, centre, w3):
+    """The split K1 and K2's coordinate term (``csrc/batchnorm.cu``
+    ``SplitLane``): a unit's centre term b = dot3(centre_u, W3) formed once
+    when a row group enters the unit, then each row's a = dot3(xyz_r, W3)
+    and a - b, unit by unit, each operation one f32 rounding."""
+    U, S = centre.shape[0], xyz.shape[0] // centre.shape[0]
+    out = np.empty((xyz.shape[0], w3.shape[1]), np.float32)
+    for u in range(U):
+        b = dot3_np(centre[u:u + 1], w3)[0].astype(np.float32)  # once a unit, kept for its S rows
+        for r in range(u * S, (u + 1) * S):
+            out[r] = (dot3_np(xyz[r:r + 1], w3)[0] - b).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("R,S", [(96, 8), (7 * 30, 30), (5 * 1, 1)])
+def test_centre_term_once_a_unit_is_the_plain_term(R, S):
+    """The per-unit form of the coordinate term, the centre's dot3 formed
+    once a unit and subtracted from every row's, equals
+    ``ops.batchnorm.coord_term_plain`` (the centre's term broadcast over its
+    unit) bit for bit, on units the ball query pads (rows repeating the
+    unit's first) and with a NaN among the coordinates."""
+    d = split_inputs(R + S, R=R, S=S, nan=False)
+    xyz = d["xyz"].copy()
+    xyz[R // 2, 1] = np.nan
+    w3 = d["weight"].T[:3].astype(np.float32)
+    got = unit_term_np(xyz, d["centre"], w3)
+    want = bn.coord_term_plain(Coords(t(xyz), t(d["centre"]), t(d["weight"]).t()[:3]), w3.shape[1])
+    assert np.array_equal(np.isnan(got), torch.isnan(want).numpy()) and np.isnan(got).any()
+    assert np.array_equal(got.view(np.uint32)[~np.isnan(got)], want.numpy().view(np.uint32)[~np.isnan(got)])
+    padded = (d["xyz"].reshape(-1, S, 3) == d["xyz"].reshape(-1, S, 3)[:, :1]).all(-1).sum(1) > 1
+    assert S == 1 or padded.any()  # units with repeated rows are among them
+
+
+def round_bf16_exact(v: np.ndarray) -> np.ndarray:
+    """f64 values rounded once to bf16 (8 significant bits, nearest, ties to
+    even), for normal values."""
+    m, e = np.frexp(np.asarray(v, np.float64))
+    return np.ldexp(np.rint(m * 256), e - 8)
+
+
+def test_packed_adds_round_as_the_f32_op_and_the_cast():
+    """The split K1 and K2 add bf16 pairs with bf16x2 adds, which round the
+    exact sum once to bf16; the plain stages add in f32 and cast. The two
+    agree on every pair of bf16 values: the sums of split_inputs' terms and
+    h, pairs whose exact sum is a bf16 tie, pairs a tie's f32 rounding would
+    move (a bf16 far below the other), and random pairs of wide exponent
+    range."""
+    rng = np.random.RandomState(7)
+    d = split_inputs(3, R=512, S=16, C=32, nan=False)
+    w3 = d["weight"].T[:3].astype(np.float32)
+    term = round_np(unit_term_np(d["xyz"], d["centre"], w3), "bfloat16").ravel()
+    h = d["h"].ravel()
+    one = np.float32(1.0)  # a binade of bf16 steps 2^-7 from it
+    ties = (np.float32(1 + 2.0 ** -7 * rng.randint(0, 128, 4096)), np.float32(2.0 ** -8 * rng.choice([-1, 1], 4096)))
+    tiny = (np.full(2048, one) + np.float32(2.0 ** -7) * rng.randint(0, 128, 2048).astype(np.float32),
+            round_np((rng.choice([-1, 1], 2048) * (1 + rng.rand(2048)) * 2.0 ** -rng.randint(9, 40, 2048))
+                     .astype(np.float32), "bfloat16"))
+    wide = tuple(round_np((rng.randn(8192) * 2.0 ** rng.randint(-40, 40, 8192)).astype(np.float32), "bfloat16")
+                 for _ in range(2))
+    for a, b in ((term, h), ties, tiny, wide):
+        a, b = a.astype(np.float32), b.astype(np.float32)
+        assert np.array_equal(round_np(a, "bfloat16"), a) and np.array_equal(round_np(b, "bfloat16"), b)
+        via_f32 = round_np((a + b).astype(np.float32), "bfloat16")
+        once = round_bf16_exact(a.astype(np.float64) + b.astype(np.float64)).astype(np.float32)
+        assert np.array_equal(via_f32, once)
+
+
 def f64_layer(h, xyz, centre, w3, db, bn_w, bn_b, S):
     """The layer in f64 autograd: x = (xyz @ W3 - centre @ W3) + h + b, batch
     statistics (biased variance), the ReLU."""

@@ -36,12 +36,14 @@
 // type as it is read: the bits of the bias cast to h's type) are optional.
 // So x is never written, and the backward needs h alone.
 //
-// The split prologue (the SPLIT kernels: K1, K2, K3 and K4 over full rows,
-// mixed precision's and bf16_hilo's first layer, CenteredDense._split_call,
-// votenet_tpu/models/pointnet2.py:105-130): h is the features' product
-// alone, and the coordinates' term is formed here from the f32 grouped
-// coordinates xyz (R x 3), each unit's f32 centre (R / S x 3) and the f32
-// rows W3 (3 x C) of the kernel that take them:
+// The split prologue (K1 and K2 over full rows in kernels of their own,
+// bn_stats_split_kernel and bn_apply_split_kernel, whose layout the section
+// "K1 and K2 with the split prologue" below sets out; K3 and K4 as their
+// SPLIT instances; mixed precision's and bf16_hilo's first layer,
+// CenteredDense._split_call, votenet_tpu/models/pointnet2.py:105-130): h is
+// the features' product alone, and the coordinates' term is formed here
+// from the f32 grouped coordinates xyz (R x 3), each unit's f32 centre (R /
+// S x 3) and the f32 rows W3 (3 x C) of the kernel that take them:
 //   x = (T(dot3(xyz_r, W3) - dot3(centre_u, W3)) + h) + T(dbias),
 // dot3(p, W3)[c] = (p0 * W3[0][c] + p1 * W3[1][c]) + p2 * W3[2][c], each
 // operation one f32 rounding (no FMA), then each step rounded to T. The f32
@@ -131,8 +133,8 @@
 // Design: a CTA of kThreads threads takes a range of consecutive units and
 // a tile of channels. A lane holds V consecutive channels: V = 4 (one
 // 16-byte f32 or 8-byte bf16 access) where C % 4 == 0 and the pointers are
-// aligned, V = 8 (one 16-byte bf16 access) in the bf16 pool kernels where C
-// % 8 == 0, else V = 1. The tile is W lanes (W = min(C / V, kThreads)); the
+// aligned, V = 8 (one 16-byte bf16 access) in the bf16 pool kernels and
+// the bf16 split K1 and K2 where C % 8 == 0, else V = 1. The tile is W lanes (W = min(C / V, kThreads)); the
 // CTA's kThreads / W row groups take its units in turn (unit u0 + rg, then
 // + groups, ...), each unit's S rows in order, so the per-channel vectors
 // stay in registers. Offsets are 64-bit: a B = 64 eval holds ~1.07e9
@@ -153,14 +155,16 @@ constexpr int kThreads = 256;
 // register cap each kernel is compiled to, so that the plan's CTAs are
 // resident at once
 constexpr int kCtasReduce = 4;            // "reduce": K1
-constexpr int kCtasReduceSplit = 3;       // "reduce_split": K1 with the split prologue (W3 and the coordinates)
+constexpr int kCtasReduceSplit = 2;       // "reduce_split": the split K1, 4 channels a lane or 1
+constexpr int kCtasReduceSplitWide = 2;   // "reduce_split_wide": the split K1 in bf16, 8 channels a lane
 constexpr int kCtasReduceDy = 2;          // "reduce_dy": K3 over a full dy
 constexpr int kCtasReducePooled = 3;      // "reduce_pooled": K3 at a pooled site
 constexpr int kCtasReducePooledWide = 2;  // "reduce_pooled_wide": the pooled K3 in bf16, 8 channels a lane
 constexpr int kCtasReduceDx = 3;          // "reduce_dx": K4 with the epilogue (the dense bias's tree)
 constexpr int kCtasReduceDxSplit = 2;     // "reduce_dx_split": K4 with the split prologue (4 f64 sums a channel)
 constexpr int kCtasApply = 4;             // "apply": K2 and its f32 pool variant, K4 without the epilogue
-constexpr int kCtasApplySplit = 3;        // "apply_split": K2 with the split prologue
+constexpr int kCtasApplySplit = 2;        // "apply_split": the split K2, 4 channels a lane or 1
+constexpr int kCtasApplySplitWide = 2;    // "apply_split_wide": the split K2 in bf16, 8 channels a lane
 constexpr int kCtasApplyWide = 3;         // "apply_wide": K2's pool variant in bf16, 8 channels a lane
 // Rows a thread loads before it uses them: K1 and K2 read one
 // (R, C) tensor, K3 and K4 two (x and dy; at a pooled site x and the
@@ -673,8 +677,8 @@ struct Plan {
 };
 
 // K1
-template <typename Tin, int V, bool SPLIT = false>
-__global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceSplit : kCtasReduce)
+template <typename Tin, int V>
+__global__ void __launch_bounds__(kThreads, kCtasReduce)
     bn_stats_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Plan pl, int fan_in, double* __restrict__ ws,
                     int* __restrict__ tickets, double* __restrict__ sum, double* __restrict__ sumsq, StatsEnd e) {
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
@@ -682,8 +686,6 @@ __global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceSplit : kCtasRedu
   if (s.c >= 0) {
     float db[V];
     load_dbias<Tin, V>(pro, s.c, db);
-    W3Lane<V, SPLIT> wl;
-    wl.load(pro, s.c);
     Rows it(s, pl.S);
     while (true) {
       int row[kRows], unit[kRows];
@@ -698,7 +700,7 @@ __global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceSplit : kCtasRedu
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
         if (!ok[k]) continue;
-        layer_x<Tin, V, SPLIT>(pro, wl, row[k], unit[k], pl.C, s.c, db, v[k]);
+        prologue<Tin, V>(pro, unit[k], pl.C, s.c, db, v[k]);
 #pragma unroll
         for (int j = 0; j < V; ++j) {  // x and x * x exact in f64
           const double xv = v[k][j];
@@ -761,8 +763,8 @@ __device__ __forceinline__ void load_apply(const ApplyChannels& ch, const Slot& 
 }
 
 // K2
-template <typename Tin, typename Tout, int V, bool SPLIT = false>
-__global__ void __launch_bounds__(kThreads, SPLIT ? kCtasApplySplit : kCtasApply)
+template <typename Tin, typename Tout, int V>
+__global__ void __launch_bounds__(kThreads, kCtasApply)
     bn_apply_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Plan pl, Tout* __restrict__ y, ApplyChannels ch,
                     bool relu_on) {
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
@@ -770,8 +772,6 @@ __global__ void __launch_bounds__(kThreads, SPLIT ? kCtasApplySplit : kCtasApply
   float m[V], k[V], b[V], db[V];
   load_apply<V>(ch, s, pl.C, m, k, b);
   load_dbias<Tin, V>(pro, s.c, db);
-  W3Lane<V, SPLIT> wl;
-  wl.load(pro, s.c);
   Rows it(s, pl.S);
   while (true) {
     int row[kRows], unit[kRows];
@@ -786,7 +786,7 @@ __global__ void __launch_bounds__(kThreads, SPLIT ? kCtasApplySplit : kCtasApply
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (!ok[r]) continue;
-      layer_x<Tin, V, SPLIT>(pro, wl, row[r], unit[r], pl.C, s.c, db, v[r]);
+      prologue<Tin, V>(pro, unit[r], pl.C, s.c, db, v[r]);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float t = normalized<Tout>(v[r][j], m[j], k[j], b[j]);
@@ -795,6 +795,310 @@ __global__ void __launch_bounds__(kThreads, SPLIT ? kCtasApplySplit : kCtasApply
       store<Tout, V>(y + static_cast<int64_t>(row[r]) * pl.C + s.c, v[r]);
     }
   }
+}
+
+// ------------------------------------- K1 and K2 with the split prologue
+//
+// The forward pair of the split first layer (bn_stats_split_kernel,
+// bn_apply_split_kernel), redesigned for Hopper: the same arithmetic as
+// split_prologue, laid out so that what a unit shares is done once.
+// - The centre's term b = dot3(centre_u, W3) is formed when a row group
+//   enters a unit and kept in registers for its S rows (the same operations
+//   on the same inputs as a row's: the same bits).
+// - The coordinates are staged on chip: a CTA's row groups take their
+//   units in chunks, the row groups' g-th units in turn (unit u0 + g, then
+//   + groups, ...: each row group's order as in K1-K4), each chunk in
+//   windows of `win` rows a unit (win = min(S, kStageRows / groups), so a
+//   window of every row group fits the buffer). cp.async copies a window's
+//   xyz rows (and at a chunk's first window the units' centres) into one of
+//   two shared buffers while the row groups work on the other; a thread
+//   reads a row's coordinates with one 16-byte shared load (float4 rows).
+// - bf16 in packed pairs: T(a - b) of two channels is one cvt.rn.bf16x2.f32,
+//   + h and + T(dbias) are bf16x2 adds (each rounds the exact result once,
+//   as the f32 op and the cast do), K2's output is rounded with pack_rn and
+//   its ReLU is max.NaN.bf16x2; 8 channels a lane (one 16-byte load) where
+//   C % 8 == 0, else 4 (8 bytes) or 1. f32 (bf16_hilo's) keeps the f32 path.
+// - kSplitRows rows of h in flight a thread.
+
+constexpr int kStageRows = 1024;  // a staging buffer's rows (float4 each)
+constexpr int kSplitRows = 4;
+
+// 4 bytes global -> shared, asynchronously (cp.async.ca)
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// every copy group of this thread but the last committed has landed
+__device__ __forceinline__ void copies_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// The staging of a CTA's units: chunks of `groups` units (row group g takes
+// the chunk's g-th), each in `wins` windows of `win` rows; `steps` windows
+// in all, the same for every thread of the CTA.
+struct Staging {
+  int S, groups, win, wins, steps;
+  int64_t u0, u1;
+};
+
+__host__ __device__ __forceinline__ int stage_window(int S, int groups) {
+  return S < kStageRows / groups ? S : kStageRows / groups;
+}
+
+__device__ __forceinline__ Staging staging_of(const Slot& s, int S) {
+  Staging st;
+  st.S = S;
+  st.groups = s.groups;
+  st.win = stage_window(S, s.groups);
+  st.wins = (S + st.win - 1) / st.win;
+  st.u0 = s.u0;
+  st.u1 = s.u1;
+  const int64_t n = s.u1 > s.u0 ? s.u1 - s.u0 : 0;
+  st.steps = static_cast<int>((n + s.groups - 1) / s.groups) * st.wins;
+  return st;
+}
+
+// The CTA copies step `step`'s windows into `rows` (row group g's at g *
+// win, float4 rows) and, at a chunk's first window, its units' centres into
+// `centres` (float4, g); one commit group
+__device__ __forceinline__ void stage_step(const float* __restrict__ xyz, const float* __restrict__ centre,
+                                           const Staging& st, int step, float4* rows, float4* centres) {
+  const int chunk = step / st.wins, w = step - chunk * st.wins;
+  const int r0 = w * st.win, nr = min(st.win, st.S - r0);
+  const int64_t ub = st.u0 + static_cast<int64_t>(chunk) * st.groups;
+  const int n = static_cast<int>(st.u1 - ub < st.groups ? st.u1 - ub : st.groups) * nr;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int g = i / nr, r = i - g * nr;
+    const float* src = xyz + ((ub + g) * st.S + r0 + r) * 3;
+    float* dst = reinterpret_cast<float*>(rows + g * st.win + r);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) copy4_async(dst + k, src + k);
+  }
+  if (w == 0) {
+    const int nu = n / nr;
+    for (int g = threadIdx.x; g < nu; g += kThreads) {
+      float* dst = reinterpret_cast<float*>(centres + g);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) copy4_async(dst + k, centre + (ub + g) * 3 + k);
+    }
+  }
+  copies_commit();
+}
+
+// The bytes of dynamic shared memory the staging takes: two buffers of the
+// row groups' windows and of their centres
+__host__ __device__ __forceinline__ int stage_bytes(int groups, int win) {
+  return static_cast<int>(sizeof(float4)) * 2 * (groups * win + groups);
+}
+
+// A row's V channels of T as 32-bit words: bf16 pairs (the lower channel in
+// the low half) where V is even, else one word a channel (a bf16 in the low
+// half)
+template <typename T, int V>
+__host__ __device__ constexpr int words_of() {
+  return std::is_same<T, bf16>::value && V % 2 == 0 ? V / 2 : V;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_words(const T* __restrict__ p, uint32_t (&w)[words_of<T, V>()]) {
+  constexpr int N = words_of<T, V>();
+  if constexpr (N == 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    w[0] = q.x;
+    w[1] = q.y;
+    w[2] = q.z;
+    w[3] = q.w;
+  } else if constexpr (N == 2) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    w[0] = q.x;
+    w[1] = q.y;
+  } else if constexpr (std::is_same<T, float>::value) {
+    w[0] = __float_as_uint(*p);
+  } else {
+    w[0] = __bfloat16_as_ushort(*p);
+  }
+}
+
+// A lane's split prologue in registers: W3's columns, T(dense bias) (as
+// floats and as bf16x2 words), and b, the centre's term of the row group's
+// current unit
+template <int V>
+struct SplitLane {
+  float w[3][V];
+  float db[V];
+  uint32_t dbw[V > 1 ? V / 2 : 1];
+  float b[V];
+
+  template <typename T>
+  __device__ __forceinline__ void load(const Prologue<T>& p, int c) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) w[k][j] = p.w3[k * p.w3_k + static_cast<int64_t>(c + j) * p.w3_c];
+    }
+    load_dbias<T, V>(p, c, db);
+    if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) dbw[i] = pack_rn(db[2 * i], db[2 * i + 1]);  // already bf16 values: exact
+    }
+  }
+
+  // dot3(p, W3[:, j]): (p0 * w0 + p1 * w1) + p2 * w2, each operation one f32 rounding
+  __device__ __forceinline__ float dot(const float4& p, int j) const {
+    return __fadd_rn(__fadd_rn(__fmul_rn(p.x, w[0][j]), __fmul_rn(p.y, w[1][j])), __fmul_rn(p.z, w[2][j]));
+  }
+
+  __device__ __forceinline__ void enter(const float4& centre) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) b[j] = dot(centre, j);
+  }
+};
+
+// x of one row in v: (T(dot3(p, W3) - b) + h) + T(dbias), each step rounded
+// to T; h the row's words
+template <typename T, int V>
+__device__ __forceinline__ void split_x(const SplitLane<V>& L, const float4& p, bool has_db,
+                                        const uint32_t (&h)[words_of<T, V>()], float (&v)[V]) {
+  if constexpr (words_of<T, V>() * 2 == V) {  // bf16 pairs
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      uint32_t t = pack_rn(__fsub_rn(L.dot(p, 2 * i), L.b[2 * i]), __fsub_rn(L.dot(p, 2 * i + 1), L.b[2 * i + 1]));
+      t = as_u32(__hadd2(as_bf2(t), as_bf2(h[i])));
+      if (has_db) t = as_u32(__hadd2(as_bf2(t), as_bf2(L.dbw[i])));
+      v[2 * i] = lo_of(t);
+      v[2 * i + 1] = hi_of(t);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float hv = std::is_same<T, float>::value ? __uint_as_float(h[j]) : __uint_as_float(h[j] << 16);
+      float t = round_to<T>(__fadd_rn(round_to<T>(__fsub_rn(L.dot(p, j), L.b[j])), hv));
+      if (has_db) t = round_to<T>(__fadd_rn(t, L.db[j]));
+      v[j] = t;
+    }
+  }
+}
+
+// The split kernels' row loop: every row of the thread's row group in
+// order (its units u0 + rg, + groups, ..., each unit's S rows in turn),
+// f(row, x) with x through the split prologue (the lane's channels). Every
+// thread of the CTA calls it (the staging's barriers); threads without a
+// lane (s.c < 0) stage and wait only.
+template <typename T, int V, typename F>
+__device__ __forceinline__ void split_rows(const T* __restrict__ x, const Prologue<T>& pro, const Plan& pl,
+                                           const Slot& s, SplitLane<V>& L, float4* sh, F&& f) {
+  constexpr int N = words_of<T, V>();
+  const Staging st = staging_of(s, pl.S);
+  float4* const rows = sh;                              // two buffers of groups * win rows
+  float4* const centres = sh + 2 * st.groups * st.win;  // two buffers of groups centres
+  const bool has_db = pro.dbias != nullptr;
+  if (st.steps > 0) stage_step(pro.xyz, pro.centre, st, 0, rows, centres);
+  for (int step = 0; step < st.steps; ++step) {
+    const int buf = step & 1;
+    if (step + 1 < st.steps) {
+      stage_step(pro.xyz, pro.centre, st, step + 1, rows + (buf ^ 1) * st.groups * st.win,
+                 centres + (buf ^ 1) * st.groups);
+    } else {
+      copies_commit();  // an empty group: wait_group 1 then covers this step's
+    }
+    copies_wait_prior();
+    __syncthreads();
+    const int chunk = step / st.wins, w = step - chunk * st.wins;
+    const int r0 = w * st.win, nr = min(st.win, st.S - r0);
+    const int64_t u = st.u0 + static_cast<int64_t>(chunk) * st.groups + s.rg;
+    if (s.c >= 0 && u < st.u1) {
+      if (w == 0) L.enter(centres[buf * st.groups + s.rg]);
+      const float4* my = rows + buf * st.groups * st.win + s.rg * st.win;
+      const int64_t row0 = u * st.S + r0;
+#pragma unroll 1
+      for (int r = 0; r < nr; r += kSplitRows) {
+        uint32_t hw[kSplitRows][N];
+        for_rows<kSplitRows>([&](auto k_) {
+          constexpr int k = decltype(k_)::value;
+          if (r + k < nr) load_words<T, V>(x + (row0 + r + k) * pl.C + s.c, hw[k]);
+        });
+        for_rows<kSplitRows>([&](auto k_) {
+          constexpr int k = decltype(k_)::value;
+          if (r + k >= nr) return;
+          float v[V];
+          split_x<T, V>(L, my[r + k], has_db, hw[k], v);
+          f(row0 + r + k, v);
+        });
+      }
+    }
+    __syncthreads();  // the buffer is read before the next step's copies overwrite it
+  }
+}
+
+// K1 with the split prologue
+template <typename T, int V, bool WIDE = V == 8>
+__global__ void __launch_bounds__(kThreads, WIDE ? kCtasReduceSplitWide : kCtasReduceSplit)
+    bn_stats_split_kernel(const T* __restrict__ x, Prologue<T> pro, Plan pl, int fan_in, double* __restrict__ ws,
+                          int* __restrict__ tickets, double* __restrict__ sum, double* __restrict__ sumsq,
+                          StatsEnd e) {
+  extern __shared__ float4 stage_sh[];
+  const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
+  double acc[2][V] = {};
+  SplitLane<V> L;
+  if (s.c >= 0) L.load(pro, s.c);
+  split_rows<T, V>(x, pro, pl, s, L, stage_sh, [&](int64_t, const float (&v)[V]) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {  // x and x * x exact in f64
+      const double xv = v[j];
+      acc[0][j] = __dadd_rn(acc[0][j], xv);
+      acc[1][j] = __dadd_rn(acc[1][j], __dmul_rn(xv, xv));
+    }
+  });
+  const int C = pl.C;
+  finish_sums<2, V>(s, C, pl.W, fan_in, acc, ws, tickets, [&](int c, const double (&p)[2]) {
+    if (e.out != nullptr) {
+      stats_end(e, C, c, p[0], p[1]);
+    } else {
+      sum[c] = p[0];
+      sumsq[c] = p[1];
+    }
+  });
+}
+
+// K2 with the split prologue (y in x's type)
+template <typename T, int V, bool WIDE = V == 8>
+__global__ void __launch_bounds__(kThreads, WIDE ? kCtasApplySplitWide : kCtasApplySplit)
+    bn_apply_split_kernel(const T* __restrict__ x, Prologue<T> pro, Plan pl, T* __restrict__ y, ApplyChannels ch,
+                          bool relu_on) {
+  extern __shared__ float4 stage_sh[];
+  const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
+  float m[V], k[V], bi[V];
+  SplitLane<V> L;
+  if (s.c >= 0) {
+    load_apply<V>(ch, s, pl.C, m, k, bi);
+    L.load(pro, s.c);
+  }
+  split_rows<T, V>(x, pro, pl, s, L, stage_sh, [&](int64_t row, const float (&v)[V]) {
+    T* out = y + row * pl.C + s.c;
+    if constexpr (words_of<T, V>() * 2 == V) {  // bf16 pairs
+      uint32_t o[V / 2];
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        o[i] = pack_rn(affine(v[2 * i], m[2 * i], k[2 * i], bi[2 * i]),
+                       affine(v[2 * i + 1], m[2 * i + 1], k[2 * i + 1], bi[2 * i + 1]));
+        if (relu_on) o[i] = relu2(o[i]);
+      }
+      if constexpr (V == 8) {
+        *reinterpret_cast<uint4*>(out) = make_uint4(o[0], o[1], o[2], o[3]);
+      } else {
+        *reinterpret_cast<uint2*>(out) = make_uint2(o[0], o[1]);
+      }
+    } else {
+      float o[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float t = normalized<T>(v[j], m[j], k[j], bi[j]);
+        o[j] = relu_on ? relu(t) : t;
+      }
+      store<T, V>(out, o);
+    }
+  });
 }
 
 // K2's pool variant: per unit (S rows) the max of y over the rows, a NaN
@@ -1252,6 +1556,29 @@ cudaError_t dispatch_split(int a_bf16, int vec, F&& f) {
   return a_bf16 ? with_v(Tag<bf16>{}) : with_v(Tag<float>{});
 }
 
+// The same for the split K1 and K2, which also take 8 bf16 channels a lane
+template <typename F>
+cudaError_t dispatch_staged(int a_bf16, int vec, F&& f) {
+  if (vec == 8) {
+    if (!a_bf16) return cudaErrorInvalidValue;
+    return f(Tag<bf16>{}, std::integral_constant<int, 8>{});
+  }
+  return dispatch_split(a_bf16, vec, f);
+}
+
+// A split K1 or K2 launch: the staging's dynamic shared memory for the
+// plan's row groups (the kernel's limit raised to the most any plan takes,
+// once), then the kernel
+template <auto kernel, typename... Args>
+cudaError_t launch_staged(const Plan& pl, int ctas, int tiles, cudaStream_t cs, Args... args) {
+  static const cudaError_t raised = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                         stage_bytes(kThreads, stage_window(kStageRows, kThreads)));
+  if (raised != cudaSuccess) return raised;
+  const int groups = kThreads / pl.W;
+  kernel<<<grid_of(ctas, tiles), kThreads, stage_bytes(groups, stage_window(pl.S, groups)), cs>>>(args...);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1259,7 +1586,7 @@ extern "C" {
 // Each takes the plan of ops/cuda/batchnorm.py::bn_plan: W lanes a CTA,
 // `ctas` CTAs along the units (units_per_cta each, a unit S rows) and
 // `tiles` along the channels; vec is V, the channels a lane (1, 4, or 8 in
-// the bf16 pool kernels). The prologue's corr (R / S x C) is in x's type,
+// the bf16 pool kernels and the bf16 split K1 and K2). The prologue's corr (R / S x C) is in x's type,
 // dbias (C) f32, either may be null; fewer than 2^31 rows. With xyz
 // non-null the split prologue (corr null; xyz R x 3, centre R / S x 3,
 // W3[k][c] = w3[k * w3_k + c * w3_c], all f32; full rows, the output in x's
@@ -1283,11 +1610,11 @@ int votenet_bn_stats(const void* x, int x_bf16, const void* corr, const float* d
   const StatsEnd e{st, weight, running_mean, running_var, update, inv_count, eps, f_old, f_new};
   if (xyz != nullptr) {
     const SplitArgs sp{xyz, centre, w3, w3_k, w3_c};
-    return static_cast<int>(dispatch_split(x_bf16, vec, [&](auto ta, auto v) {
+    return static_cast<int>(dispatch_staged(x_bf16, vec, [&](auto ta, auto v) {
       using T = typename decltype(ta)::type;
-      bn_stats_kernel<T, decltype(v)::value, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
-          static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), pl, fan_in, ws, tickets, sum, sumsq, e);
-      return cudaGetLastError();
+      return launch_staged<bn_stats_split_kernel<T, decltype(v)::value>>(
+          pl, ctas, tiles, cs, static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), pl, fan_in, ws, tickets,
+          sum, sumsq, e);
     }));
   }
   return static_cast<int>(dispatch(x_bf16, 0, vec, [&](auto ta, auto, auto v) {
@@ -1315,13 +1642,13 @@ int votenet_bn_apply(const void* x, int x_bf16, const void* corr, const float* d
   const ApplyChannels ch{mean, mul, bias, eval_var, eps, sums,
                          StatsEnd{st, weight, running_mean, running_var, update, inv_count, end_eps, f_old, f_new}};
   if (xyz != nullptr) {  // the split prologue: full rows, y in x's type
-    if (count != nullptr || x_bf16 != y_bf16 || vec == 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (count != nullptr || x_bf16 != y_bf16) return static_cast<int>(cudaErrorInvalidValue);
     const SplitArgs sp{xyz, centre, w3, w3_k, w3_c};
-    return static_cast<int>(dispatch_split(x_bf16, vec, [&](auto ta, auto v) {
+    return static_cast<int>(dispatch_staged(x_bf16, vec, [&](auto ta, auto v) {
       using T = typename decltype(ta)::type;
-      bn_apply_kernel<T, T, decltype(v)::value, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
-          static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), pl, static_cast<T*>(y), ch, relu_on != 0);
-      return cudaGetLastError();
+      return launch_staged<bn_apply_split_kernel<T, decltype(v)::value>>(
+          pl, ctas, tiles, cs, static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), pl, static_cast<T*>(y),
+          ch, relu_on != 0);
     }));
   }
   if (vec == 8) {  // the bf16 pool variant, 8 channels a lane

@@ -71,13 +71,22 @@ BN_MIN_ROWS = 8
 # a centred site, and the dense bias's tree); "reduce_dx_split" K4 with the
 # split prologue (four f64 accumulators a channel: the dense bias's and
 # W3's three, and W3 in registers); "reduce_split" and "apply_split" K1
-# and K2 with it (W3 and a row's coordinates beside the rows in flight
-# spill at 4); "apply" K2, its f32 pool
+# and K2 with it, 4 channels a lane or 1 (at 3 an SM they spill; at 2, in
+# f32 over sa2-sa4 at B=8, 191.6 against 195.2 us and 354.3 against 364.2
+# on an H100); "reduce_split_wide" and "apply_split_wide" the same in bf16
+# with 8 channels a lane (W3's 24 floats and the lane's 8 f64 pairs or 24
+# per-channel floats: 126-128 registers); "apply" K2, its f32 pool
 # variant and K4 without the epilogue (K4 at a pooled site: 702 us at 4
 # against 820 at 3 in bf16, equal in f32); "apply_wide" K2's pool variant in
 # bf16 with 8 channels a lane (spills at 4).
-BN_CTAS_PER_SM = {"reduce": 4, "reduce_split": 3, "reduce_dy": 2, "reduce_pooled": 3, "reduce_pooled_wide": 2,
-                  "reduce_dx": 3, "reduce_dx_split": 2, "apply": 4, "apply_split": 3, "apply_wide": 3}
+BN_CTAS_PER_SM = {"reduce": 4, "reduce_split": 2, "reduce_split_wide": 2, "reduce_dy": 2, "reduce_pooled": 3,
+                  "reduce_pooled_wide": 2, "reduce_dx": 3, "reduce_dx_split": 2, "apply": 4, "apply_split": 2,
+                  "apply_split_wide": 2, "apply_wide": 3}
+# Kinds whose CTAs take their units in chunks of one unit a row group (the
+# split K1 and K2, which stage a chunk's coordinates in shared memory): a
+# CTA's units are a multiple of its row groups, so that no chunk but the
+# last CTA's runs part-full
+CHUNKED_KINDS = ("reduce_split", "reduce_split_wide", "apply_split", "apply_split_wide")
 BN_DTYPES = (torch.float32, torch.bfloat16)
 # launches that took a prologue, over the four stages: "centre" (corr and
 # the dense bias: the centred first layer), "split" (the split first
@@ -97,11 +106,13 @@ def bn_plan(R: int, C: int, vec: bool, sms: int, kind: str, S: int = 1,
     of which takes whole units. Along the units, enough CTAs that each
     thread takes ``BN_MIN_ROWS`` rows or more (a unit at least), at most
     ``BN_CTAS_PER_SM[kind] * sms`` over all tiles (the kinds are listed
-    there). A reduction adds its CTAs' partials in blocks of ``fan_in =
-    ceil(sqrt(CTAs))`` consecutive CTAs, then the blocks' sums (0 for the
-    apply kernels). No rows: one CTA a channel tile, which takes none (a
-    kernel's per-channel end alone). Depends on the shape and the SM count
-    alone, so a reduction's order is the same in every run on one card."""
+    there); for the ``CHUNKED_KINDS`` the units a CTA rounded up to a
+    multiple of the row groups. A reduction adds its CTAs' partials in
+    blocks of ``fan_in = ceil(sqrt(CTAs))`` consecutive CTAs, then the
+    blocks' sums (0 for the apply kernels). No rows: one CTA a channel tile,
+    which takes none (a kernel's per-channel end alone). Depends on the
+    shape and the SM count alone, so a reduction's order is the same in
+    every run on one card."""
     if R % S:
         raise ValueError(f"bn_plan: {R} rows are not units of {S}")
     lanes = C // width if vec else C
@@ -114,6 +125,8 @@ def bn_plan(R: int, C: int, vec: bool, sms: int, kind: str, S: int = 1,
     min_units = -(-BN_MIN_ROWS // S)
     ctas = max(1, min(-(-units // (groups * min_units)), BN_CTAS_PER_SM[kind] * sms // tiles))
     per_cta = -(-units // ctas)
+    if kind in CHUNKED_KINDS:
+        per_cta = -(-per_cta // groups) * groups
     ctas = -(-units // per_cta)
     return W, ctas, tiles, per_cta, math.isqrt(ctas - 1) + 1 if kind.startswith("reduce") else 0
 
@@ -344,8 +357,9 @@ def bn_stats_cuda(x: torch.Tensor, corr: torch.Tensor | None = None, dense_bias:
     bits on the card), and moves the running statistics in place when
     ``channels.update``; without rows, one CTA that takes none runs it on
     zero sums. With ``coords`` (:class:`Coords`) the split prologue in
-    place of corr. Adds one to ``bn_stats_cuda.launches`` (none for the sums
-    of no rows, which are zeros)."""
+    place of corr (in bf16 with C % 8 == 0, 8 channels a lane). Adds one to
+    ``bn_stats_cuda.launches`` (none for the sums of no rows, which are
+    zeros)."""
     _check_rows("bn_stats_cuda", x)
     R, C = x.shape
     S = _prologue("bn_stats_cuda", x, corr, dense_bias, coords)
@@ -353,8 +367,10 @@ def bn_stats_cuda(x: torch.Tensor, corr: torch.Tensor | None = None, dense_bias:
         _channel_vectors("bn_stats_cuda", x.device, C, channels)
     if x.numel() == 0 and channels is None:
         return torch.zeros((2, C), dtype=torch.float64, device=x.device)
-    vec = _vec(C, x, corr)
-    plan = bn_plan(R, C, vec, sm_count(x.device.index), "reduce_split" if coords is not None else "reduce", S)
+    wide = coords is not None and _wide(x, x)
+    vec = wide or _vec(C, x, corr)
+    kind = ("reduce_split_wide" if wide else "reduce_split") if coords is not None else "reduce"
+    plan = bn_plan(R, C, vec, sm_count(x.device.index), kind, S, 8 if wide else 4)
     W, ctas, tiles, per_cta, fan_in = plan
     ws, tickets, stream = _tree(x, R, C, plan, 2)
     sums = st = None
@@ -364,8 +380,8 @@ def bn_stats_cuda(x: torch.Tensor, corr: torch.Tensor | None = None, dense_bias:
         st = torch.empty((4, C), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = library().votenet_bn_stats(
-            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, *_split_args(coords), R, C, 4 if vec else 1, W,
-            ctas, tiles, per_cta,
+            x.data_ptr(), _bf16(x), _ptr(corr), _ptr(dense_bias), S, *_split_args(coords), R, C,
+            8 if wide else 4 if vec else 1, W, ctas, tiles, per_cta,
             fan_in, ws.data_ptr(), tickets.data_ptr(), _ptr(None if sums is None else sums[0]),
             _ptr(None if sums is None else sums[1]), *_stats_args(st, channels), stream.cuda_stream)
     check_launch(err, "bn_stats")
@@ -402,7 +418,8 @@ def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor | None, mul: torch.Tensor 
     of S rows' max of y (torch.amax's) and the int32 count of its rows equal
     to it, each (R / S, C), in place of y; the full y is not written; in
     bf16 with C % 8 == 0, 8 channels a lane. With ``coords`` the split
-    prologue (full rows, y in x's dtype). Equal to
+    prologue (full rows, y in x's dtype; in bf16 with C % 8 == 0, 8
+    channels a lane). Equal to
     ``ops.batchnorm.bn_apply_plain`` on the card. Adds one to
     ``bn_apply_cuda.launches`` (or ``.pool.launches``), and with the group's
     sums to ``bn_apply_cuda.group.launches``."""
@@ -436,9 +453,12 @@ def bn_apply_cuda(x: torch.Tensor, mean: torch.Tensor | None, mul: torch.Tensor 
     st = None if channels is None else torch.empty((4, C), dtype=torch.float32, device=x.device)
     if x.numel() == 0 and st is None:
         return out
-    wide = bool(pool) and _wide(x, y, corr, count)
+    wide = (bool(pool) or coords is not None) and _wide(x, y, corr, count)
     vec = wide or _vec(C, x, y, corr, count)
-    kind = "apply_wide" if wide else "apply_split" if coords is not None else "apply"
+    if coords is not None:
+        kind = "apply_split_wide" if wide else "apply_split"
+    else:
+        kind = "apply_wide" if wide else "apply"
     W, ctas, tiles, per_cta, _ = bn_plan(R, C, vec, sm_count(x.device.index), kind, S, 8 if wide else 4)
     with torch.cuda.device(x.device):
         err = library().votenet_bn_apply(
