@@ -618,7 +618,8 @@ def test_launch_plan_kinds_match_the_compiled_launch_bounds():
     assert {kind: int(n) for _, n, kind in found} == bn_cuda.BN_CTAS_PER_SM
     names = {name for name, _, _ in found}
     bounds = re.findall(r"__launch_bounds__\(kThreads, ([^)]*)\)", src)
-    assert len(bounds) == 7  # K1, K2, the split K1 and K2, K2's pool variant, K3, K4
+    assert len(bounds) == 9  # K1, K2, the split K1-K4, K2's pool variant, K3, K4
+    assert {"reduce_dy_split", "reduce_dx_split"} <= set(bn_cuda.CHUNKED_KINDS)
     used = [re.findall(r"kCtas\w+", b) for b in bounds]
     assert all(u and re.fullmatch(r"[\w ?:]+", b) for u, b in zip(used, bounds))  # constants and choices only
     assert set().union(*used) == names
@@ -647,26 +648,62 @@ def test_launch_plan_takes_whole_units(R, S, C, vec, kind):
             bn_cuda.bn_plan(R + 1, C, vec, 132, kind, S)
 
 
-def stage_rows() -> int:
-    """csrc/batchnorm.cu's kStageRows: the rows a staging buffer of the split
-    K1 and K2 holds."""
+@pytest.mark.parametrize("name", ["rows_from_global", "centre_every_row", "single_roundings", "four_a_lane",
+                                  "k3_eight_a_lane", "narrow_three_ctas", "k4_plan_b"])
+def test_split_ablation_variants_apply_to_the_package(name):
+    """Each of ``chip_smoke.py --split-ablation``'s variants edits this
+    package's sources where it means to: every replacement's old text (the
+    tried designs' patch hunks too, ``chip_smoke.SPLIT_WIDE_PATCH``) is in
+    its file once when its turn comes; the patch adds the flag the variant
+    sets."""
+    from pathlib import Path
+
+    import chip_smoke
+
+    pkg = Path(bn_cuda.__file__).resolve().parents[2]
+    what, changes = chip_smoke.split_ablation_edits()[name]
+    files = {}
+    for f, old, new in changes:
+        text = files.setdefault(f, (pkg / f).read_text())
+        assert text.count(old) == 1, (what, f, old[:80])
+        files[f] = text.replace(old, new)
+    assert all(files[f] != (pkg / f).read_text() for f in files)
+    if name in ("k3_eight_a_lane", "k4_plan_b"):
+        flag = "SPLIT_K3_WIDE" if name.startswith("k3") else "SPLIT_K4_WIDE"
+        assert f"{flag} = True" in files["ops/cuda/batchnorm.py"]
+        assert "split_rows_bulk" in files["csrc/batchnorm.cu"]
+
+
+def cu_constant(name: str) -> int:
+    """An integer constant of csrc/batchnorm.cu (``constexpr int name = ...;``)."""
     import re
     from pathlib import Path
 
     src = (Path(bn_cuda.__file__).resolve().parents[2] / "csrc" / "batchnorm.cu").read_text()
-    return int(re.search(r"constexpr int kStageRows = (\d+);", src).group(1))
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-def staged_row_order(plan, R: int, S: int):
-    """The split K1 and K2's row loop (``csrc/batchnorm.cu::split_rows``)
-    transcribed: each CTA takes its units in chunks of one unit a row group
-    (the chunk's g-th unit to row group g), each chunk in windows of ``win =
-    min(S, kStageRows // groups)`` rows a unit, all row groups' windows
-    staged together. Returns {(CTA, row group): rows in the order it takes
-    them} and the most rows one step stages."""
+def stage_rows() -> int:
+    """csrc/batchnorm.cu's kStageRows: the rows a staging buffer of the split
+    K1-K4 holds."""
+    return cu_constant("kStageRows")
+
+
+def split_window(S: int, groups: int) -> int:
+    """A unit's rows a step of the split kernels' row loop: ``min(S,
+    kStageRows // groups)`` (``split_rows``)."""
+    return min(S, stage_rows() // groups)
+
+
+def staged_row_order(plan, R: int, S: int, win: int):
+    """The split kernels' row loop (``csrc/batchnorm.cu::split_rows``)
+    transcribed: each CTA takes its units in chunks of
+    one unit a row group (the chunk's g-th unit to row group g), each chunk
+    in windows of ``win`` rows a unit (:func:`split_window`), all row groups'
+    windows staged together. Returns {(CTA, row group): rows in the order it
+    takes them} and the most rows one step stages."""
     W, ctas, _, per_cta, _ = plan
     groups = bn_cuda.BN_THREADS // W
-    win = min(S, stage_rows() // groups)
     wins = -(-S // win)
     units = R // S
     order, most = {}, 0
@@ -690,16 +727,17 @@ def staged_row_order(plan, R: int, S: int):
                                          (13, False, 4)])
 @pytest.mark.parametrize("kind", bn_cuda.CHUNKED_KINDS)
 def test_split_plans_keep_units_whole_within_row_groups(R, S, C, vec, width, kind):
-    """The split K1 and K2's plans (``CHUNKED_KINDS``) give a CTA a multiple
-    of its row groups' count of units, and their staged row loop takes each
-    row once, each row group's units whole and in the order K1's sums
-    assume (:func:`kernel_sum_order`: units u0 + rg, + groups, ..., each
-    unit's S rows in turn), no step staging more rows than a buffer holds."""
+    """The split K1-K4's plans (``CHUNKED_KINDS``) give a CTA a multiple of
+    its row groups' count of units, and their staged row loop takes each
+    row once, each row group's units whole and in the order K1's and K3's
+    sums assume (:func:`kernel_sum_order`: units u0 + rg, + groups, ...,
+    each unit's S rows in turn), no step staging more rows than a buffer
+    holds."""
     plan = bn_cuda.bn_plan(R, C, vec, 132, kind, S, width)
     W, ctas, tiles, per_cta, _ = plan
     groups = bn_cuda.BN_THREADS // W
     assert per_cta % groups == 0 and (ctas - 1) * per_cta < R // S <= ctas * per_cta
-    order, most = staged_row_order(plan, R, S)
+    order, most = staged_row_order(plan, R, S, split_window(S, groups))
     assert most <= stage_rows()
     for (k, rg), rows in order.items():
         units = np.arange(k * per_cta + rg, min((k + 1) * per_cta, R // S), groups)
@@ -710,24 +748,84 @@ def test_split_plans_keep_units_whole_within_row_groups(R, S, C, vec, width, kin
 @pytest.mark.parametrize("R,C,S,width", [(2048 * 64, 128, 64, 8), (2048 * 64, 64, 64, 4), (9000 * 30, 128, 30, 8),
                                          (500 * 64, 36, 64, 4)])
 def test_split_kernel_sum_order_against_f64(R, C, S, width):
-    """K1's order from the split K1's plans (8 channels a lane in bf16, else
-    4): the transcription's f32 sums are within one f32 ulp of the f64 sums
-    of K1's terms; and at 8 channels a lane the order is another than the
-    4-channel plan's (its row groups and CTAs differ), which a test of the
-    card against it can tell apart."""
+    """K1's order from the split K1's plans (8 channels a lane in bf16,
+    else 4) and K3's from the split K3's (4 channels a lane): the
+    transcription's f32 sums are within one f32 ulp of the f64 sums of K1's
+    terms (x, x * x) and K3's (a masked cotangent g and g * f32(x - mean));
+    and at 8 channels a lane K1's order is another than the 4-channel
+    plan's (its row groups and CTAs differ), which a test of the card
+    against it can tell apart."""
     rng = np.random.RandomState(R + C)
-    kind = "reduce_split_wide" if width == 8 else "reduce_split"
-    plan = bn_cuda.bn_plan(R, C, C % width == 0, 132, kind, S, width)
     x = (rng.randn(R, C) * 3 + 1).astype(np.float32)
-    for terms in k1_terms(x):
-        got = kernel_sums(terms, plan, S)
-        want = terms.sum(0)
-        assert np.all(np.abs(got - want.astype(np.float32)) <= np.spacing(np.abs(want).astype(np.float32)))
+    g = np.where(rng.rand(R, C) < 0.5, 0, rng.randn(R, C)).astype(np.float32)
+    k1_kind = "reduce_split_wide" if width == 8 else "reduce_split"
+    for kind, lanes, all_terms in ((k1_kind, width, k1_terms(x)),
+                                   ("reduce_dy_split", 4, k3_terms(g, x, np.float32(1.0)))):
+        plan = bn_cuda.bn_plan(R, C, C % lanes == 0, 132, kind, S, lanes)
+        for terms in all_terms:
+            got = kernel_sums(terms, plan, S)
+            want = terms.sum(0)
+            assert np.all(np.abs(got - want.astype(np.float32)) <= np.spacing(np.abs(want).astype(np.float32)))
     if width == 8:
+        plan = bn_cuda.bn_plan(R, C, True, 132, k1_kind, S, 8)
         narrow = bn_cuda.bn_plan(R, C, True, 132, "reduce_split", S, 4)
         assert narrow[0] != plan[0]
         sq = k1_terms(x)[1]
         assert not np.array_equal(kernel_sum_order(sq, plan, S), kernel_sum_order(sq, narrow, S))
+
+
+def round_bf16_f64(v: np.ndarray) -> np.ndarray:
+    """f64 values rounded once to bf16 (nearest, ties to even:
+    ``__double2bfloat16``), as f32; for values of bf16's normal range, 0,
+    infinities and NaN."""
+    m, e = np.frexp(np.asarray(v, np.float64))
+    with np.errstate(invalid="ignore"):
+        return np.ldexp(np.rint(m * 256), e - 8).astype(np.float32)
+
+
+def split_k4_sums(dx, xyz, centre, plan, S: int, dtype: str = "float32") -> tuple[np.ndarray, np.ndarray]:
+    """The split K4's epilogue (``csrc/batchnorm.cu::bn_bwd_apply_split_kernel``)
+    in numpy for a launch ``plan`` (kind ``"reduce_dx_split"``) in units of
+    S rows. Each row's xyz_r -
+    centre_u is formed in f64 (one rounding), each term in f64 (the dense
+    bias's dx_r, W3's (xyz_r - centre_u)[k] * dx_r, one f64 product), and
+    the terms are added in K4s's order, which is :func:`kernel_sum_order`'s
+    (a thread's rows in order, the row groups, the CTAs' two levels). The
+    dense bias's sum is rounded once to ``dtype`` (held in f32), W3's to f32.
+    Returns (d_bias (C,), d_w3 (3, C))."""
+    d = np.asarray(dx, np.float32).astype(np.float64)
+    diff = (np.asarray(xyz, np.float32).astype(np.float64).reshape(-1, S, 3)
+            - np.asarray(centre, np.float32).astype(np.float64)[:, None]).reshape(-1, 3)
+    bias = kernel_sum_order(d, plan, S)
+    w3 = np.stack([kernel_sum_order(diff[:, k:k + 1] * d, plan, S) for k in range(3)]).astype(np.float32)
+    return (bias.astype(np.float32) if dtype == "float32" else round_bf16_f64(bias)), w3
+
+
+@pytest.mark.parametrize("R,C,S", [(2048 * 64, 128, 64), (2048 * 64, 64, 64), (9000 * 30, 128, 30),
+                                   (500 * 64, 36, 64), (37 * 7, 128, 7), (37 * 7, 13, 7)])
+def test_split_k4_sum_order_against_f64(R, C, S):
+    """The split K4's dense-bias and W3 sums, transcribed over its plan
+    (:func:`split_k4_sums`: 4 channels a lane, or 1), are within one f32 ulp of the f64 sums of the same terms (2^-23 of |sum|
+    plus 2^-40 of the sum of |terms|: :func:`test_epilogue_order_against_f64`'s
+    allowance), on dx whose channels sum to ~0 (batch norm's training
+    cotangent takes out its mean: the dense bias's case) and on plain random
+    dx, with coordinates around their units' centres; the bf16 rounding of
+    the bias's sum within one bf16 ulp."""
+    rng = np.random.RandomState(R + C + S)
+    plan = bn_cuda.bn_plan(R, C, C % 4 == 0, 132, "reduce_dx_split", S)
+    centre = rng.uniform(-3, 3, (R // S, 3)).astype(np.float32)
+    xyz = (np.repeat(centre, S, 0) + rng.randn(R, 3) * 0.3).astype(np.float32)
+    diff = (xyz.astype(np.float64).reshape(-1, S, 3) - centre.astype(np.float64)[:, None]).reshape(-1, 3)
+    for dx in ((rng.randn(R, C) * 2).astype(np.float32),
+               (lambda v: (v - v.mean(0)).astype(np.float32))(rng.randn(R, C) * 2)):
+        d = dx.astype(np.float64)
+        d_bias, d_w3 = split_k4_sums(dx, xyz, centre, plan, S)
+        for got, want, terms in ((d_bias, d.sum(0), np.abs(d).sum(0)),
+                                 (d_w3, diff.T @ d, np.abs(diff).T @ np.abs(d))):
+            assert np.all(np.abs(got.astype(np.float64) - want) <= 2.0 ** -23 * np.abs(want) + 2.0 ** -40 * terms)
+        b16, _ = split_k4_sums(dx, xyz, centre, plan, S, "bfloat16")
+        assert np.all(np.abs(b16.astype(np.float64) - d.sum(0))
+                      <= 2.0 ** -8 * np.abs(d.sum(0)) + 2.0 ** -40 * np.abs(d).sum(0))
 
 
 # ------------------------------------------------------ the model's stacks

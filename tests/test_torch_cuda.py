@@ -1953,7 +1953,9 @@ SPLIT_CASES = [(8 * 1024 * 64, 64, 128, 131, "sa2 B=8"), (1024 * 64, 64, 128, 13
                (40 * 16, 16, 13, 20, "unaligned"), (3 * 5, 5, 36, 9, "small"),
                (8 * 2048 * 64, 64, 64, 6, "sa1 B=8"), (9000 * 30, 30, 128, 131, "S=30, 3 chunks a CTA"),
                (400 * 150, 150, 128, 131, "S=150, windows"), (500 * 64, 64, 36, 131, "C=36, 4 a lane"),
-               (3000 * 16, 16, 13, 20, "C=13, 1 a lane"), (37 * 7, 7, 128, 9, "S=7, 37 units")]
+               (3000 * 16, 16, 13, 20, "C=13, 1 a lane"), (37 * 7, 7, 128, 9, "S=7, 37 units"),
+               (700 * 16, 16, 72, 20, "C=72, 28 row groups"), (64 * 8, 8, 2056, 9, "C=2056, 2 tiles"),
+               (8 * 256 * 32, 32, 128, 259, "sa4 B=8")]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -1964,9 +1966,10 @@ def test_split_prologue_kernels_match_plain(cuda, dtype, R, S, C, cin, what):
     versions, K1's and K3's sums within the f64 gate and their ends bit for
     bit (K1's sums NaN where the plain sums are), K4's bias and W3
     cotangents within the f64 gate; at the sites' shapes (bf16_hilo's sa1
-    too) and at the split K1 and K2's edges (chip_smoke.SPLIT_EDGES: S not a
+    too) and at the split kernels' edges (chip_smoke.SPLIT_EDGES: S not a
     multiple of the rows in flight, several chunks of units a CTA, units
-    longer than a staging window, 4 channels a lane and one)."""
+    longer than a staging window, 4 channels a lane and one, row groups
+    that leave threads idle, two tiles of channels)."""
     import chip_smoke
 
     _, bad, summary, _ = chip_smoke.split_check(R, S, C, cin, dtype, seed=R + C, times=False)
@@ -1975,26 +1978,92 @@ def test_split_prologue_kernels_match_plain(cuda, dtype, R, S, C, cin, what):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("R,S,C", [(8 * 1024 * 64, 64, 128), (8 * 2048 * 64, 64, 64), (9000 * 30, 30, 128),
-                                   (400 * 150, 150, 128), (500 * 64, 64, 36), (3000 * 16, 16, 13)])
+                                   (400 * 150, 150, 128), (500 * 64, 64, 36), (3000 * 16, 16, 13),
+                                   (700 * 16, 16, 72), (64 * 8, 8, 2056)])
 def test_split_sums_follow_the_stated_order(cuda, dtype, R, S, C):
-    """The split K1's sums equal, bit for bit, the numpy transcription of
-    K1's order (tests/test_torch_bn_layer.py ``kernel_sums``) from the split
-    K1's launch plan on this card's SM count (``"reduce_split_wide"``, 8
-    channels a lane, in bf16 with C % 8 == 0; else ``"reduce_split"``), over
-    x as the plain split prologue forms it."""
-    from tests.test_torch_bn_layer import k1_terms, kernel_sums
+    """The split K1's and K3's sums, and the split K4's dense-bias and W3
+    sums, equal bit for bit the numpy transcriptions of their orders
+    (tests/test_torch_bn_layer.py ``kernel_sums``, ``split_k4_sums``) from
+    their launch plans on this card's SM count (the split K1 at 8 channels
+    a lane in bf16 with C % 8 == 0, ``"reduce_split_wide"``, else
+    ``"reduce_split"``; the split K3 and K4 at 4 channels a lane or 1,
+    ``"reduce_dy_split"`` and ``"reduce_dx_split"``), over x as the plain
+    split prologue forms it, g as the plain stage masks dy, and the
+    kernel's dx."""
+    from tests.test_torch_bn_layer import k1_terms, k3_terms, kernel_sums, split_k4_sums
     import chip_smoke
     from votenet_tpu_torch.ops import batchnorm as bn
     from votenet_tpu_torch.ops.cuda import batchnorm as bnc
 
-    h, coords, db, _, _, _ = chip_smoke.split_site_inputs(R, S, C, 9, dtype, R + C)
+    h, coords, db, _, bias, dy = chip_smoke.split_site_inputs(R, S, C, 9, dtype, R + C)
     x = bn.layer_rows_plain(h, None, db, coords)
+    sms = bnc.sm_count(0)
     wide = bnc._wide(h, h)
     kind = "reduce_split_wide" if wide else "reduce_split"
-    plan = bnc.bn_plan(R, C, wide or bnc._vec(C, h), bnc.sm_count(0), kind, S, 8 if wide else 4)
+    plan = bnc.bn_plan(R, C, wide or bnc._vec(C, h), sms, kind, S, 8 if wide else 4)
     s, sq = (v.float() for v in bnc.bn_stats_cuda(h, dense_bias=db, coords=coords))
     for got, terms in zip((s, sq), k1_terms(x.float().cpu().numpy())):
         assert np.array_equal(got.cpu().numpy().view(np.uint32), kernel_sums(terms, plan, S).view(np.uint32))
+    # K3s: g and g * f32(x - mean)
+    gen = torch.Generator(device="cuda").manual_seed(R + C)
+    mean = (s / R).float()
+    mul = torch.rand(C, generator=gen, device="cuda") + 0.5
+    pro = dict(dense_bias=db, coords=coords)
+    plan3 = bnc.bn_plan(R, C, bnc._vec(C, h, dy), sms, "reduce_dy_split", S)
+    sg, sgx = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, True, **pro)
+    g = bn._masked(x, dy, mean, mul, bias, True)
+    for got, terms in zip((sg, sgx), k3_terms(g.cpu().numpy(), x.float().cpu().numpy(), mean.cpu().numpy())):
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), kernel_sums(terms, plan3, S).view(np.uint32))
+    # K4s: the dense bias's and W3's sums of its dx
+    a, b = (torch.randn(C, generator=gen, device="cuda") * 1e-3 for _ in range(2))
+    dx, _, d_bias, d_w3 = bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, a, b, True, **pro)
+    plan4 = bnc.bn_plan(R, C, bnc._vec(C, h, dy, dx), sms, "reduce_dx_split", S)
+    want_b, want_w3 = split_k4_sums(dx.float().cpu().numpy(), coords.xyz.cpu().numpy(), coords.centre.cpu().numpy(),
+                                    plan4, S, str(dtype)[6:])
+    for got, want in ((d_bias, want_b), (d_w3, want_w3)):
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("relu,with_bias", [(False, True), (True, False), (False, False)],
+                         ids=["no-relu", "no-bias", "neither"])
+@pytest.mark.parametrize("R,S,C", [(512 * 64, 64, 128), (300 * 16, 16, 36)])
+def test_split_backward_without_the_relu_or_the_bias(cuda, dtype, relu, with_bias, R, S, C):
+    """The split K3 and K4 where the ReLU or the dense bias is absent (the
+    kernels' run-time-flag instances; the model's split layers take the
+    instance with both): K4's dx (training and eval) bit-equal to its plain
+    version, K3's sums and K4's dense-bias and W3 sums bit-equal to the
+    numpy transcriptions of their orders (tests/test_torch_bn_layer.py)."""
+    from tests.test_torch_bn_layer import k3_terms, kernel_sums, split_k4_sums
+    import chip_smoke
+    from votenet_tpu_torch.ops import batchnorm as bn
+    from votenet_tpu_torch.ops.cuda import batchnorm as bnc
+
+    h, coords, db, _, bias, dy = chip_smoke.split_site_inputs(R, S, C, 9, dtype, R + C)
+    pro = dict(dense_bias=db if with_bias else None, coords=coords)
+    x = bn.layer_rows_plain(h, None, pro["dense_bias"], coords)
+    gen = torch.Generator(device="cuda").manual_seed(R)
+    mean = x.float().mean(0)
+    mul = torch.rand(C, generator=gen, device="cuda") + 0.5
+    a, b = (torch.randn(C, generator=gen, device="cuda") * 1e-3 for _ in range(2))
+    sms = bnc.sm_count(0)
+    plan3 = bnc.bn_plan(R, C, bnc._vec(C, h, dy), sms, "reduce_dy_split", S)
+    sg, sgx = bnc.bn_bwd_reduce_cuda(h, dy, mean, mul, bias, relu, **pro)
+    g = bn._masked(x, dy, mean, mul, bias, relu)
+    for got, terms in zip((sg, sgx), k3_terms(g.cpu().numpy(), x.float().cpu().numpy(), mean.cpu().numpy())):
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), kernel_sums(terms, plan3, S).view(np.uint32))
+    for ab in ((a, b), (None, None)):
+        dx, _, d_bias, d_w3 = bnc.bn_bwd_apply_cuda(h, dy, mean, mul, bias, *ab, relu, **pro)
+        want = bn.bn_bwd_apply_plain(h, dy, mean, mul, bias, *ab, relu, **pro, sums=True)[0]
+        assert torch.equal(dx.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+        plan4 = bnc.bn_plan(R, C, bnc._vec(C, h, dy, dx), sms, "reduce_dx_split", S)
+        want_b, want_w3 = split_k4_sums(dx.float().cpu().numpy(), coords.xyz.cpu().numpy(),
+                                        coords.centre.cpu().numpy(), plan4, S, str(dtype)[6:])
+        assert (d_bias is None) != with_bias
+        assert np.array_equal(d_w3.cpu().numpy().view(np.uint32), want_w3.view(np.uint32))
+        if with_bias:
+            assert np.array_equal(d_bias.cpu().numpy().view(np.uint32), want_b.view(np.uint32))
 
 
 @pytest.mark.parametrize("mode", ["bf16", "bf16-remat", "mixed"])

@@ -329,6 +329,53 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         cuda.build()
 
 
+def test_build_compiles_every_source_at_once_then_links(monkeypatch, tmp_path):
+    """The build starts one compiler process a source before it waits for
+    any (each into an object file, without -shared), then links the objects
+    into the library with the full flags; the log holds every compiler's
+    output in the sources' order and the link's, and the objects are gone."""
+    import votenet_tpu_torch.ops.cuda as cuda
+
+    calls = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"""#!{sys.executable}
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open({str(calls)!r}, "a") as f:
+    f.write(("link " if "-c" not in args else "compile ") + out + " " + args[-1] + "\\n")
+if "-c" in args:
+    time.sleep(2.0)
+    with open({str(calls)!r}, "a") as f:
+        f.write("done " + out + "\\n")
+open(out, "w").write("x")
+print("log of", args[-1].rsplit("/", 1)[-1])
+""")
+    fake.chmod(0o755)
+    started = []
+    real_popen = subprocess.Popen
+
+    def popen(cmd, **kw):
+        started.append(cmd)
+        return real_popen(cmd, **kw)
+
+    monkeypatch.setattr(cuda.shutil, "which", lambda name: str(fake))
+    monkeypatch.setattr(cuda.subprocess, "Popen", popen)
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "build")
+    out = cuda.build()
+    sources = sorted(cuda.CSRC_DIR.glob("*.cu"))
+    n = len(sources)  # the compilers, then the link (subprocess.run's process)
+    assert [cmd[-1] for cmd in started[:n]] == [str(src) for src in sources] and len(started) == n + 1
+    assert all("-c" in cmd and "-shared" not in cmd for cmd in started[:n]) and "-shared" in started[n]
+    lines = calls.read_text().splitlines()  # every compiler started before the first ended
+    assert [line.split()[0] for line in lines] == ["compile"] * n + ["done"] * n + ["link"]
+    objects = sorted(line.split()[1] for line in lines[:n])
+    assert out.exists() and lines[-1].split()[1].endswith(".tmp.so")
+    assert not any(Path(obj).exists() for obj in objects)
+    log = out.with_suffix(".log").read_text()
+    assert log.index("log of " + sources[0].name) < log.index("log of " + sources[-1].name)
+
+
 def test_build_flags_target_hopper_without_fma():
     import votenet_tpu_torch.ops.cuda as cuda
 

@@ -202,13 +202,41 @@ def round_bf16_exact(v: np.ndarray) -> np.ndarray:
     return np.ldexp(np.rint(m * 256), e - 8)
 
 
+def le0_mask_np(t: np.ndarray) -> np.ndarray:
+    """__hle2_mask(t, 0) on bf16 values held in f32, by their 16 bits:
+    0xffff where t <= 0 (either zero, or a negative that is not a NaN), 0
+    elsewhere (a NaN compares false)."""
+    h = (np.asarray(t, np.float32).view(np.uint32) >> 16).astype(np.uint32)
+    mag = h & 0x7FFF
+    return np.where((mag == 0) | ((h >> 15 == 1) & (mag <= 0x7F80)), 0xFFFF, 0).astype(np.uint32)
+
+
+def packed_backward_np(x, dy, mean, mul, bias, a, b):
+    """The split K3's and K4's bf16 pair arithmetic (``csrc/batchnorm.cu``
+    ``bn_bwd_reduce_split_kernel``, ``bn_bwd_apply_split_kernel``) in numpy on
+    bf16 values held in f32: t = pack_rn(((x - mean) * mul) + bias) (each f32
+    op one rounding, the pack one bf16 rounding of each half), the ReLU's
+    mask ``__hle2_mask(t, 0)`` cleared from dy's 16 bits (g), and dx =
+    pack_rn(((g * mul) + a) + (b * x)). Returns (g, dx) as f32."""
+    f = np.float32
+    t = round_np((((x - mean).astype(f) * mul).astype(f) + bias).astype(f), "bfloat16")
+    bits = (np.asarray(dy, f).view(np.uint32) >> 16) & ~le0_mask_np(t)
+    g = (bits.astype(np.uint32) << 16).view(f)
+    dx = round_np(((((g * mul).astype(f) + a).astype(f)) + (b * x).astype(f)).astype(f), "bfloat16")
+    return g, dx
+
+
 def test_packed_adds_round_as_the_f32_op_and_the_cast():
     """The split K1 and K2 add bf16 pairs with bf16x2 adds, which round the
     exact sum once to bf16; the plain stages add in f32 and cast. The two
     agree on every pair of bf16 values: the sums of split_inputs' terms and
     h, pairs whose exact sum is a bf16 tie, pairs a tie's f32 rounding would
     move (a bf16 far below the other), and random pairs of wide exponent
-    range."""
+    range. The split K3 and K4 form the normalised t, the ReLU's mask and
+    dx in pairs (:func:`packed_backward_np`): g and dx equal the plain
+    stages' (``_masked``, ``bn_bwd_apply_plain``) bit for bit on
+    split_inputs' rows, with t's NaNs (a NaN in h passes dy), both zeros and
+    exact ties of the pack among them."""
     rng = np.random.RandomState(7)
     d = split_inputs(3, R=512, S=16, C=32, nan=False)
     w3 = d["weight"].T[:3].astype(np.float32)
@@ -227,6 +255,25 @@ def test_packed_adds_round_as_the_f32_op_and_the_cast():
         via_f32 = round_np((a + b).astype(np.float32), "bfloat16")
         once = round_bf16_exact(a.astype(np.float64) + b.astype(np.float64)).astype(np.float32)
         assert np.array_equal(via_f32, once)
+    # the backward's pairs
+    d = split_inputs(5, R=2048, S=16, C=32)
+    h, coords, db = as_torch(d, "bfloat16")
+    x = bn.layer_rows_plain(h, None, db, coords)
+    xf = x.float().numpy()
+    mean = np.float32(xf[~np.isnan(xf).any(1)].mean(0))
+    mean[:4] = xf[0, :4]  # t = bias exactly on row 0: ties of the pack, zeros with bias 0
+    mul, a, b = d["mul"], d["a"], d["b"]
+    bias = d["bn_b"].copy()
+    bias[:2] = 0.0
+    dy = t(d["dy"]).to(BF16)
+    g, dx = packed_backward_np(xf, d["dy"], mean, mul, bias, a, b)
+    want_g = bn._masked(x, dy, t(mean), t(mul), t(bias), True)
+    want_dx = bn.bn_bwd_apply_plain(h, dy, t(mean), t(mul), t(bias), t(a), t(b), True, dense_bias=db,
+                                    coords=coords, sums=True)[0]
+    for got, want in ((t(g), want_g), (t(dx), want_dx.float())):
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan) and torch.equal(bits(got)[~nan], bits(want)[~nan])
+    assert np.isnan(xf).any() and (g == 0).any() and (g != 0).any() and (xf[0, :2] == mean[:2]).all()
 
 
 def f64_layer(h, xyz, centre, w3, db, bn_w, bn_b, S):

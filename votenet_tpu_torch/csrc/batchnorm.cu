@@ -36,10 +36,11 @@
 // type as it is read: the bits of the bias cast to h's type) are optional.
 // So x is never written, and the backward needs h alone.
 //
-// The split prologue (K1 and K2 over full rows in kernels of their own,
+// The split prologue (K1-K4 over full rows in kernels of their own,
 // bn_stats_split_kernel and bn_apply_split_kernel, whose layout the section
-// "K1 and K2 with the split prologue" below sets out; K3 and K4 as their
-// SPLIT instances; mixed precision's and bf16_hilo's first layer,
+// "K1 and K2 with the split prologue" below sets out, and
+// bn_bwd_reduce_split_kernel and bn_bwd_apply_split_kernel, "K3 and K4
+// with the split prologue"; mixed precision's and bf16_hilo's first layer,
 // CenteredDense._split_call, votenet_tpu/models/pointnet2.py:105-130): h is
 // the features' product alone, and the coordinates' term is formed here
 // from the f32 grouped coordinates xyz (R x 3), each unit's f32 centre (R /
@@ -158,10 +159,11 @@ constexpr int kCtasReduce = 4;            // "reduce": K1
 constexpr int kCtasReduceSplit = 2;       // "reduce_split": the split K1, 4 channels a lane or 1
 constexpr int kCtasReduceSplitWide = 2;   // "reduce_split_wide": the split K1 in bf16, 8 channels a lane
 constexpr int kCtasReduceDy = 2;          // "reduce_dy": K3 over a full dy
+constexpr int kCtasReduceDySplit = 2;     // "reduce_dy_split": the split K3, 4 channels a lane or 1
 constexpr int kCtasReducePooled = 3;      // "reduce_pooled": K3 at a pooled site
 constexpr int kCtasReducePooledWide = 2;  // "reduce_pooled_wide": the pooled K3 in bf16, 8 channels a lane
 constexpr int kCtasReduceDx = 3;          // "reduce_dx": K4 with the epilogue (the dense bias's tree)
-constexpr int kCtasReduceDxSplit = 2;     // "reduce_dx_split": K4 with the split prologue (4 f64 sums a channel)
+constexpr int kCtasReduceDxSplit = 2;     // "reduce_dx_split": the split K4, 4 channels a lane or 1
 constexpr int kCtasApply = 4;             // "apply": K2 and its f32 pool variant, K4 without the epilogue
 constexpr int kCtasApplySplit = 2;        // "apply_split": the split K2, 4 channels a lane or 1
 constexpr int kCtasApplySplitWide = 2;    // "apply_split_wide": the split K2 in bf16, 8 channels a lane
@@ -307,7 +309,7 @@ template <typename T>
 struct Prologue {
   const T* __restrict__ corr;
   const float* __restrict__ dbias;
-  // the split prologue's (SPLIT kernels): xyz (R x 3), centre (units x 3),
+  // the split prologue's (the split kernels): xyz (R x 3), centre (units x 3),
   // W3[k][c] = w3[k * w3_k + c * w3_c]; all f32
   const float* __restrict__ xyz;
   const float* __restrict__ centre;
@@ -402,69 +404,6 @@ __device__ __forceinline__ void prologue8(const uint32_t (&corr)[4], const uint3
   for (int i = 0; i < 4; ++i) {
     if (has_corr) w[i] = as_u32(__hsub2(as_bf2(w[i]), as_bf2(corr[i])));
     if (has_db) w[i] = as_u32(__hadd2(as_bf2(w[i]), as_bf2(db[i])));
-  }
-}
-
-// The split prologue's W3 for a lane's V channels, in registers (SPLIT
-// kernels; empty elsewhere)
-template <int V, bool SPLIT>
-struct W3Lane {
-  template <typename T>
-  __device__ __forceinline__ void load(const Prologue<T>&, int) {}
-};
-
-template <int V>
-struct W3Lane<V, true> {
-  float w[3][V];
-  template <typename T>
-  __device__ __forceinline__ void load(const Prologue<T>& p, int c) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) w[k][j] = p.w3[k * p.w3_k + static_cast<int64_t>(c + j) * p.w3_c];
-    }
-  }
-};
-
-// (p0 * w0 + p1 * w1) + p2 * w2, each operation one f32 rounding
-__device__ __forceinline__ float dot3(const float (&p)[3], float w0, float w1, float w2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(p[0], w0), __fmul_rn(p[1], w1)), __fmul_rn(p[2], w2));
-}
-
-// A row's coordinates and its unit's centre (the split prologue's)
-template <typename T>
-__device__ __forceinline__ void load_coords(const Prologue<T>& pro, int row, int unit, float (&p)[3], float (&q)[3]) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    p[k] = __ldg(pro.xyz + static_cast<int64_t>(row) * 3 + k);
-    q[k] = __ldg(pro.centre + static_cast<int64_t>(unit) * 3 + k);
-  }
-}
-
-// x = (T(dot3(p, W3) - dot3(q, W3)) + h) + T(dbias) in place, each step
-// rounded to T
-template <typename T, int V>
-__device__ __forceinline__ void split_prologue(const W3Lane<V, true>& wl, const float (&p)[3], const float (&q)[3],
-                                               const float (&db)[V], bool has_db, float (&v)[V]) {
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const float a = dot3(p, wl.w[0][j], wl.w[1][j], wl.w[2][j]);
-    const float b = dot3(q, wl.w[0][j], wl.w[1][j], wl.w[2][j]);
-    v[j] = round_to<T>(__fadd_rn(round_to<T>(__fsub_rn(a, b)), v[j]));
-    if (has_db) v[j] = round_to<T>(__fadd_rn(v[j], db[j]));
-  }
-}
-
-// x of a row: the split prologue (SPLIT) or the centred / bias one
-template <typename T, int V, bool SPLIT>
-__device__ __forceinline__ void layer_x(const Prologue<T>& pro, const W3Lane<V, SPLIT>& wl, int row, int unit, int C,
-                                        int c, const float (&db)[V], float (&v)[V]) {
-  if constexpr (SPLIT) {
-    float p[3], q[3];
-    load_coords(pro, row, unit, p, q);
-    split_prologue<T, V>(wl, p, q, db, pro.dbias != nullptr, v);
-  } else {
-    prologue<T, V>(pro, unit, C, c, db, v);
   }
 }
 
@@ -846,11 +785,11 @@ __host__ __device__ __forceinline__ int stage_window(int S, int groups) {
   return S < kStageRows / groups ? S : kStageRows / groups;
 }
 
-__device__ __forceinline__ Staging staging_of(const Slot& s, int S) {
+__device__ __forceinline__ Staging staging_of(const Slot& s, int S, int win) {
   Staging st;
   st.S = S;
   st.groups = s.groups;
-  st.win = stage_window(S, s.groups);
+  st.win = win;
   st.wins = (S + st.win - 1) / st.win;
   st.u0 = s.u0;
   st.u1 = s.u1;
@@ -922,13 +861,15 @@ __device__ __forceinline__ void load_words(const T* __restrict__ p, uint32_t (&w
 
 // A lane's split prologue in registers: W3's columns, T(dense bias) (as
 // floats and as bf16x2 words), and b, the centre's term of the row group's
-// current unit
-template <int V>
+// current unit; with CENTRE the unit's centre in f64 too (the split K4's
+// W3 cotangent takes xyz_r - centre_u in f64)
+template <int V, bool CENTRE = false>
 struct SplitLane {
   float w[3][V];
   float db[V];
   uint32_t dbw[V > 1 ? V / 2 : 1];
   float b[V];
+  double q[CENTRE ? 3 : 1];
 
   template <typename T>
   __device__ __forceinline__ void load(const Prologue<T>& p, int c) {
@@ -952,13 +893,26 @@ struct SplitLane {
   __device__ __forceinline__ void enter(const float4& centre) {
 #pragma unroll
     for (int j = 0; j < V; ++j) b[j] = dot(centre, j);
+    if constexpr (CENTRE) {
+      q[0] = centre.x;
+      q[1] = centre.y;
+      q[2] = centre.z;
+    }
+  }
+
+  // (xyz_r - centre_u)[k] in f64, p the row's coordinates (exact where the
+  // coordinates' exponents lie close)
+  __device__ __forceinline__ void diff(const float4& p, double (&dk)[3]) const {
+    dk[0] = __dsub_rn(static_cast<double>(p.x), q[0]);
+    dk[1] = __dsub_rn(static_cast<double>(p.y), q[1]);
+    dk[2] = __dsub_rn(static_cast<double>(p.z), q[2]);
   }
 };
 
 // x of one row in v: (T(dot3(p, W3) - b) + h) + T(dbias), each step rounded
 // to T; h the row's words
-template <typename T, int V>
-__device__ __forceinline__ void split_x(const SplitLane<V>& L, const float4& p, bool has_db,
+template <typename T, int V, typename Lane>
+__device__ __forceinline__ void split_x(const Lane& L, const float4& p, bool has_db,
                                         const uint32_t (&h)[words_of<T, V>()], float (&v)[V]) {
   if constexpr (words_of<T, V>() * 2 == V) {  // bf16 pairs
 #pragma unroll
@@ -982,17 +936,20 @@ __device__ __forceinline__ void split_x(const SplitLane<V>& L, const float4& p, 
 
 // The split kernels' row loop: every row of the thread's row group in
 // order (its units u0 + rg, + groups, ..., each unit's S rows in turn),
-// f(row, x) with x through the split prologue (the lane's channels). Every
+// f(row, x, p, d) with x through the split prologue (the lane's channels),
+// p the row's coordinates and, with DY, d the row's dy words (else its h
+// words); ROWS rows of h (and dy) in flight. With DB the dense bias is
+// known to be there (the split K3 and K4 in the model's layers). Every
 // thread of the CTA calls it (the staging's barriers); threads without a
 // lane (s.c < 0) stage and wait only.
-template <typename T, int V, typename F>
-__device__ __forceinline__ void split_rows(const T* __restrict__ x, const Prologue<T>& pro, const Plan& pl,
-                                           const Slot& s, SplitLane<V>& L, float4* sh, F&& f) {
+template <typename T, int V, int ROWS, bool DY, bool DB = false, typename Lane, typename F>
+__device__ __forceinline__ void split_rows(const T* __restrict__ x, const T* __restrict__ dy, const Prologue<T>& pro,
+                                           const Plan& pl, const Slot& s, Lane& L, float4* sh, F&& f) {
   constexpr int N = words_of<T, V>();
-  const Staging st = staging_of(s, pl.S);
+  const Staging st = staging_of(s, pl.S, stage_window(pl.S, s.groups));
   float4* const rows = sh;                              // two buffers of groups * win rows
   float4* const centres = sh + 2 * st.groups * st.win;  // two buffers of groups centres
-  const bool has_db = pro.dbias != nullptr;
+  const bool has_db = DB || pro.dbias != nullptr;
   if (st.steps > 0) stage_step(pro.xyz, pro.centre, st, 0, rows, centres);
   for (int step = 0; step < st.steps; ++step) {
     const int buf = step & 1;
@@ -1012,18 +969,26 @@ __device__ __forceinline__ void split_rows(const T* __restrict__ x, const Prolog
       const float4* my = rows + buf * st.groups * st.win + s.rg * st.win;
       const int64_t row0 = u * st.S + r0;
 #pragma unroll 1
-      for (int r = 0; r < nr; r += kSplitRows) {
-        uint32_t hw[kSplitRows][N];
-        for_rows<kSplitRows>([&](auto k_) {
+      for (int r = 0; r < nr; r += ROWS) {
+        uint32_t hw[ROWS][N], dw[DY ? ROWS : 1][N];
+        for_rows<ROWS>([&](auto k_) {
           constexpr int k = decltype(k_)::value;
-          if (r + k < nr) load_words<T, V>(x + (row0 + r + k) * pl.C + s.c, hw[k]);
+          if (r + k < nr) {
+            load_words<T, V>(x + (row0 + r + k) * pl.C + s.c, hw[k]);
+            if constexpr (DY) load_words<T, V>(dy + (row0 + r + k) * pl.C + s.c, dw[k]);
+          }
         });
-        for_rows<kSplitRows>([&](auto k_) {
+        for_rows<ROWS>([&](auto k_) {
           constexpr int k = decltype(k_)::value;
           if (r + k >= nr) return;
           float v[V];
-          split_x<T, V>(L, my[r + k], has_db, hw[k], v);
-          f(row0 + r + k, v);
+          const float4 p = my[r + k];
+          split_x<T, V>(L, p, has_db, hw[k], v);
+          if constexpr (DY) {
+            f(row0 + r + k, v, p, dw[k]);
+          } else {
+            f(row0 + r + k, v, p, hw[k]);
+          }
         });
       }
     }
@@ -1042,7 +1007,8 @@ __global__ void __launch_bounds__(kThreads, WIDE ? kCtasReduceSplitWide : kCtasR
   double acc[2][V] = {};
   SplitLane<V> L;
   if (s.c >= 0) L.load(pro, s.c);
-  split_rows<T, V>(x, pro, pl, s, L, stage_sh, [&](int64_t, const float (&v)[V]) {
+  split_rows<T, V, kSplitRows, false>(x, nullptr, pro, pl, s, L, stage_sh, [&](int64_t, const float (&v)[V],
+                                                                               const float4&, const auto&) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {  // x and x * x exact in f64
       const double xv = v[j];
@@ -1074,7 +1040,8 @@ __global__ void __launch_bounds__(kThreads, WIDE ? kCtasApplySplitWide : kCtasAp
     load_apply<V>(ch, s, pl.C, m, k, bi);
     L.load(pro, s.c);
   }
-  split_rows<T, V>(x, pro, pl, s, L, stage_sh, [&](int64_t row, const float (&v)[V]) {
+  split_rows<T, V, kSplitRows, false>(x, nullptr, pro, pl, s, L, stage_sh, [&](int64_t row, const float (&v)[V],
+                                                                               const float4&, const auto&) {
     T* out = y + row * pl.C + s.c;
     if constexpr (words_of<T, V>() * 2 == V) {  // bf16 pairs
       uint32_t o[V / 2];
@@ -1269,7 +1236,7 @@ __device__ __forceinline__ void cotangent(const PooledUnit<Tout, V>& pu, const f
 // (q * (y == max), masked where the pre-ReLU y <= 0) pairwise.
 constexpr int kDyRows = 4;
 
-template <typename Tin, typename Tout, int V, bool POOLED, bool SPLIT = false, bool WIDE = V == 8>
+template <typename Tin, typename Tout, int V, bool POOLED, bool WIDE = V == 8>
 __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWide : kCtasReducePooled : kCtasReduceDy)
     bn_bwd_reduce_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Cotangent<Tout> ct, Plan pl, int fan_in,
                          ApplyChannels ch, bool relu_on, double* __restrict__ ws,
@@ -1330,9 +1297,6 @@ __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWid
         }
       }
     } else {
-      static_assert(!(SPLIT && POOLED), "the split prologue runs at a layer's first width, never pooled");
-      W3Lane<V, SPLIT> wl;
-      wl.load(pro, s.c);
       PooledUnit<Tout, V> pu;
       Rows it(s, pl.S);
       while (true) {
@@ -1353,7 +1317,7 @@ __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWid
         for_rows<kU>([&](auto r_) {
           constexpr int r = decltype(r_)::value;
           if (!ok[r]) return;
-          layer_x<Tin, V, SPLIT>(pro, wl, row[r], unit[r], pl.C, s.c, db, v[r]);
+          prologue<Tin, V>(pro, unit[r], pl.C, s.c, db, v[r]);
           if constexpr (POOLED) pu.at(ct, unit[r], pl.C, s.c);
           float g[V];
           cotangent<Tout, POOLED, V>(pu, d[r], v[r], m, k, b, relu_on, g);
@@ -1381,7 +1345,7 @@ __global__ void __launch_bounds__(kThreads, POOLED ? WIDE ? kCtasReducePooledWid
 // K4's epilogue: where the prologue's cotangents go. dcorr (units x C, in
 // x's type; with EPI 2) and dbias (C floats, through the tree's workspace
 // and tickets) may each be null; dw3 (3 x C floats, the split prologue's
-// W3; with SPLIT) goes through the tree beside dbias.
+// W3; the split K4's) goes through the tree beside dbias.
 template <typename Tin>
 struct Epilogue {
   Tin* __restrict__ dcorr;
@@ -1395,30 +1359,23 @@ struct Epilogue {
 // K4; a and b are null in eval (dx = g * mul). The epilogue: EPI 0 none; 1
 // the dense bias's sum(dx), a thread's rows added in order; 2 also each
 // unit's -sum(dx) (corr's cotangent), the unit's rows from +0, and the
-// thread's sum adds its units' sums. SPLIT (with EPI 1): the split prologue,
-// and beside the dense bias's sum the three sums of W3's cotangent, a
-// thread's rows added in order, each term (xyz_r - centre_u)[k] * dx_r[c]
-// formed in f64.
-template <typename Tin, typename Tout, int V, bool POOLED, int EPI, bool SPLIT = false>
-__global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceDxSplit : EPI ? kCtasReduceDx : kCtasApply)
+// thread's sum adds its units' sums.
+template <typename Tin, typename Tout, int V, bool POOLED, int EPI>
+__global__ void __launch_bounds__(kThreads, EPI ? kCtasReduceDx : kCtasApply)
     bn_bwd_apply_kernel(const Tin* __restrict__ x, Prologue<Tin> pro, Cotangent<Tout> ct, Plan pl,
                         Tin* __restrict__ dx, ApplyChannels ch, const float* __restrict__ a,
                         const float* __restrict__ b, bool relu_on, Epilogue<Tin> ep) {
-  static_assert(!SPLIT || (EPI == 1 && !POOLED), "the split prologue: full rows, the dense bias's and W3's sums");
   constexpr bool SUMS = EPI != 0;
-  constexpr int NS = SPLIT ? 4 : 1;  // the tree's sums: the dense bias's, and W3's three
   const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
   if constexpr (!SUMS) {
     if (s.c < 0) return;
   }
-  double tot[NS][V] = {}, un[V] = {};  // the thread's sums, and (EPI 2) the current unit's
+  double tot[1][V] = {}, un[V] = {};  // the thread's sum, and (EPI 2) the current unit's
   if (s.c >= 0) {
     const bool stats = a != nullptr;
     float m[V], k[V], bi[V], db[V], ca[V] = {}, cb[V] = {};
     load_apply<V>(ch, s, pl.C, m, k, bi);
     load_dbias<Tin, V>(pro, s.c, db);
-    W3Lane<V, SPLIT> wl;
-    wl.load(pro, s.c);
     if (stats) {
       load_channels<V>(a, s.c, ca);
       load_channels<V>(b, s.c, cb);
@@ -1456,13 +1413,7 @@ __global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceDxSplit : EPI ? k
       for_rows<kPairRows>([&](auto r_) {
         constexpr int r = decltype(r_)::value;
         if (!ok[r]) return;
-        float pc[3], qc[3];  // (SPLIT) the row's coordinates and its unit's centre
-        if constexpr (SPLIT) {
-          load_coords(pro, row[r], unit[r], pc, qc);
-          split_prologue<Tin, V>(wl, pc, qc, db, pro.dbias != nullptr, v[r]);
-        } else {
-          prologue<Tin, V>(pro, unit[r], pl.C, s.c, db, v[r]);
-        }
+        prologue<Tin, V>(pro, unit[r], pl.C, s.c, db, v[r]);
         if constexpr (POOLED) pu.at(ct, unit[r], pl.C, s.c);
         float g[V];
         cotangent<Tout, POOLED, V>(pu, d[r], v[r], m, k, bi, relu_on, g);
@@ -1472,18 +1423,7 @@ __global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceDxSplit : EPI ? k
           v[r][j] = round_to<Tin>(stats ? __fadd_rn(__fadd_rn(t, ca[j]), __fmul_rn(cb[j], v[r][j])) : t);
         }
         store<Tin, V>(dx + static_cast<int64_t>(row[r]) * pl.C + s.c, v[r]);
-        if constexpr (SPLIT) {
-          double dk[3];  // (xyz_r - centre_u)[k] in f64
-#pragma unroll
-          for (int q = 0; q < 3; ++q) dk[q] = __dsub_rn(static_cast<double>(pc[q]), static_cast<double>(qc[q]));
-#pragma unroll
-          for (int j = 0; j < V; ++j) {
-            const double dv = v[r][j];
-            tot[0][j] = __dadd_rn(tot[0][j], dv);
-#pragma unroll
-            for (int q = 0; q < 3; ++q) tot[1 + q][j] = __dadd_rn(tot[1 + q][j], __dmul_rn(dk[q], dv));
-          }
-        } else if constexpr (EPI == 2) {
+        if constexpr (EPI == 2) {
           if (unit[r] != cur) {
             flush();
             cur = unit[r];
@@ -1498,20 +1438,181 @@ __global__ void __launch_bounds__(kThreads, SPLIT ? kCtasReduceDxSplit : EPI ? k
     }
     if constexpr (EPI == 2) flush();
   }
-  if constexpr (SPLIT) {  // W3's sums always (dbias may be null)
-    const int C = pl.C;
-    finish_sums<NS, V>(s, C, pl.W, ep.fan_in, tot, ep.ws, ep.tickets, [&](int c, const double (&p)[NS]) {
-      if (ep.dbias != nullptr) ep.dbias[c] = round_from_double<Tin>(p[0]);
-#pragma unroll
-      for (int q = 0; q < 3; ++q) ep.dw3[q * C + c] = __double2float_rn(p[1 + q]);
-    });
-  } else if constexpr (SUMS) {
+  if constexpr (SUMS) {
     if (ep.dbias != nullptr) {  // the same for every CTA: the tree's barriers are safe
       finish_sums<1, V>(s, pl.C, pl.W, ep.fan_in, tot, ep.ws, ep.tickets, [&](int c, const double (&p)[1]) {
         ep.dbias[c] = round_from_double<Tin>(p[0]);
       });
     }
   }
+}
+
+// ------------------------------------- K3 and K4 with the split prologue
+//
+// The backward pair of the split first layer (bn_bwd_reduce_split_kernel,
+// bn_bwd_apply_split_kernel), redesigned for Hopper as K1s and K2s were:
+// the coordinates staged on chip, the centre's term once a unit, bf16 in
+// packed pairs (split_rows and split_x), and split_rows loading dy beside
+// h. In bf16 pairs the normalised t of two channels is one pack_rn, the
+// ReLU's mask one comparison of the pair (__hle2_mask: t <= 0) cleared from
+// the dy word, K4s's dx one pack_rn; the sums convert the pair's halves to
+// f64 as before. Both take 4 channels a lane (or 1) in bf16 and f32 alike:
+// at 8 an H100 ran each slower (chip_smoke.py --split-ablation).
+// - K3s: kDyRows rows of h and dy in flight a thread at kCtasReduceDySplit
+//   CTAs an SM; its sums in K3's order (each thread its rows, the row
+//   groups, the two-level tree).
+// - K4s holds four f64 sums a channel (the dense bias's and W3's three,
+//   tot[4][V]) beside W3 and five per-channel vectors: kDxRowsBf16 rows of h
+//   and dy in flight a thread in bf16 (8-byte loads), kPairRows in f32, at
+//   kCtasReduceDxSplit CTAs an SM, in 128 registers without spills. Each
+//   row's xyz_r - centre_u is formed once in f64 (the centre's f64 kept
+//   from the unit's entry); the model's layers (the ReLU and the dense bias
+//   there) take an instance without branches on them (LAYER).
+
+// The cotangent through the ReLU of channels 2i and 2i + 1 (bf16 pairs): x
+// the two channels' values, d their dy word; t, the normalised value,
+// rounded to bf16 and packed, +0 in g's half where t <= 0 (a NaN passes);
+// d0 and d1 the f32 x - mean
+__device__ __forceinline__ uint32_t cotangent_pair(float x0, float x1, float m0, float m1, float k0, float k1,
+                                                   float b0, float b1, uint32_t d, bool relu_on, float& d0,
+                                                   float& d1) {
+  d0 = __fsub_rn(x0, m0);
+  d1 = __fsub_rn(x1, m1);
+  const uint32_t t = pack_rn(__fadd_rn(__fmul_rn(d0, k0), b0), __fadd_rn(__fmul_rn(d1, k1), b1));
+  return relu_on ? d & ~__hle2_mask(as_bf2(t), as_bf2(0u)) : d;
+}
+
+// Rows of h and dy a thread of the split K4 keeps in flight in bf16 (8
+// bytes a row at 4 channels a lane; K3s kDyRows, K4s in f32 kPairRows)
+constexpr int kDxRowsBf16 = 4;
+
+// K3s
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, kCtasReduceDySplit)
+    bn_bwd_reduce_split_kernel(const T* __restrict__ x, const T* __restrict__ dy, Prologue<T> pro, Plan pl,
+                               int fan_in, ApplyChannels ch, bool relu_on, double* __restrict__ ws,
+                               int* __restrict__ tickets, float* __restrict__ sum_g, float* __restrict__ sum_gx,
+                               CoefEnd e) {
+  extern __shared__ float4 stage_sh[];
+  constexpr int N = words_of<T, V>();
+  const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
+  double acc[2][V] = {};
+  float m[V], k[V], bi[V];
+  SplitLane<V> L;
+  if (s.c >= 0) {
+    load_apply<V>(ch, s, pl.C, m, k, bi);
+    L.load(pro, s.c);
+  }
+  split_rows<T, V, kDyRows, true>(x, dy, pro, pl, s, L, stage_sh, [&](int64_t, const float (&v)[V], const float4&,
+                                                                  const uint32_t (&d)[N]) {
+    if constexpr (N * 2 == V) {  // bf16 pairs
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        float d0, d1;
+        const uint32_t g = cotangent_pair(v[2 * i], v[2 * i + 1], m[2 * i], m[2 * i + 1], k[2 * i], k[2 * i + 1],
+                                          bi[2 * i], bi[2 * i + 1], d[i], relu_on, d0, d1);
+        const double g0 = lo_of(g), g1 = hi_of(g);  // g and g * f32(x - mean) exact in f64
+        acc[0][2 * i] = __dadd_rn(acc[0][2 * i], g0);
+        acc[1][2 * i] = __dadd_rn(acc[1][2 * i], __dmul_rn(g0, static_cast<double>(d0)));
+        acc[0][2 * i + 1] = __dadd_rn(acc[0][2 * i + 1], g1);
+        acc[1][2 * i + 1] = __dadd_rn(acc[1][2 * i + 1], __dmul_rn(g1, static_cast<double>(d1)));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float dj = std::is_same<T, float>::value ? __uint_as_float(d[j]) : __uint_as_float(d[j] << 16);
+        const double gv = masked(dj, normalized<T>(v[j], m[j], k[j], bi[j]), relu_on);
+        acc[0][j] = __dadd_rn(acc[0][j], gv);
+        acc[1][j] = __dadd_rn(acc[1][j], __dmul_rn(gv, static_cast<double>(__fsub_rn(v[j], m[j]))));
+      }
+    }
+  });
+  const int C = pl.C;
+  finish_sums<2, V>(s, C, pl.W, fan_in, acc, ws, tickets, [&](int c, const double (&p)[2]) {
+    if (e.out != nullptr) {
+      coef_end(e, C, c, p[0], p[1]);
+    } else {  // the result: rounded once to f32
+      sum_g[c] = __double2float_rn(p[0]);
+      sum_gx[c] = __double2float_rn(p[1]);
+    }
+  });
+}
+
+// K4s: dx and, through the tree, the dense bias's and W3's cotangents.
+// STATS: training's a and b (dx = ((g * mul) + a) + (b * x)), else eval's
+// dx = g * mul (a and b null), a choice outside the row loop (in f32 over
+// sa2-sa4 at B=8 an H100 reads 523-525 us with it, 565 without: the 128
+// registers' allocation); LAYER: the ReLU and the dense bias known to be
+// there (the model's split layers: the hot loop holds no branch on them),
+// else read at run time
+template <typename T, int V, bool STATS, bool LAYER>
+__global__ void __launch_bounds__(kThreads, kCtasReduceDxSplit)
+    bn_bwd_apply_split_kernel(const T* __restrict__ x, const T* __restrict__ dy, Prologue<T> pro, Plan pl,
+                              T* __restrict__ dx, ApplyChannels ch, const float* __restrict__ a,
+                              const float* __restrict__ b, bool relu_on, Epilogue<T> ep) {
+  const bool relu = LAYER || relu_on;
+  extern __shared__ float4 stage_sh[];
+  constexpr int N = words_of<T, V>();
+  const Slot s = slot<V>(pl.units, pl.C, pl.W, pl.units_per_cta);
+  double tot[4][V] = {};  // the thread's sums: the dense bias's, and W3's three
+  float m[V], k[V], bi[V], ca[V] = {}, cb[V] = {};
+  SplitLane<V, true> L;
+  if (s.c >= 0) {
+    load_apply<V>(ch, s, pl.C, m, k, bi);
+    L.load(pro, s.c);
+    if constexpr (STATS) {
+      load_channels<V>(a, s.c, ca);
+      load_channels<V>(b, s.c, cb);
+    }
+  }
+  auto row_fn = [&](int64_t row, const float (&v)[V], const float4& p, const uint32_t (&d)[N]) {
+    T* out = dx + row * pl.C + s.c;
+    float o[V];  // dx, rounded to T
+    if constexpr (N * 2 == V) {  // bf16 pairs
+      uint32_t ow[V / 2];
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        float d0, d1;
+        const uint32_t g = cotangent_pair(v[2 * i], v[2 * i + 1], m[2 * i], m[2 * i + 1], k[2 * i], k[2 * i + 1],
+                                          bi[2 * i], bi[2 * i + 1], d[i], relu, d0, d1);
+        const float t0 = __fmul_rn(lo_of(g), k[2 * i]), t1 = __fmul_rn(hi_of(g), k[2 * i + 1]);
+        if constexpr (STATS) {
+          ow[i] = pack_rn(__fadd_rn(__fadd_rn(t0, ca[2 * i]), __fmul_rn(cb[2 * i], v[2 * i])),
+                          __fadd_rn(__fadd_rn(t1, ca[2 * i + 1]), __fmul_rn(cb[2 * i + 1], v[2 * i + 1])));
+        } else {
+          ow[i] = pack_rn(t0, t1);
+        }
+        o[2 * i] = lo_of(ow[i]);
+        o[2 * i + 1] = hi_of(ow[i]);
+      }
+      *reinterpret_cast<uint2*>(out) = make_uint2(ow[0], ow[1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float dj = std::is_same<T, float>::value ? __uint_as_float(d[j]) : __uint_as_float(d[j] << 16);
+        const float t = __fmul_rn(masked(dj, normalized<T>(v[j], m[j], k[j], bi[j]), relu), k[j]);
+        o[j] = round_to<T>(STATS ? __fadd_rn(__fadd_rn(t, ca[j]), __fmul_rn(cb[j], v[j])) : t);
+      }
+      store<T, V>(out, o);
+    }
+    double dk[3];
+    L.diff(p, dk);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {  // dx, and (xyz_r - centre_u)[k] * dx, exact in f64
+      const double dv = o[j];
+      tot[0][j] = __dadd_rn(tot[0][j], dv);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) tot[1 + q][j] = __dadd_rn(tot[1 + q][j], __dmul_rn(dk[q], dv));
+    }
+  };
+  constexpr int kIn = std::is_same<T, bf16>::value ? kDxRowsBf16 : kPairRows;  // rows in flight
+  split_rows<T, V, kIn, true, LAYER>(x, dy, pro, pl, s, L, stage_sh, row_fn);
+  const int C = pl.C;  // W3's sums always (dbias may be null)
+  finish_sums<4, V>(s, C, pl.W, ep.fan_in, tot, ep.ws, ep.tickets, [&](int c, const double (&p)[4]) {
+    if (ep.dbias != nullptr) ep.dbias[c] = round_from_double<T>(p[0]);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) ep.dw3[q * C + c] = __double2float_rn(p[1 + q]);
+  });
 }
 
 template <typename T>
@@ -1566,7 +1667,7 @@ cudaError_t dispatch_staged(int a_bf16, int vec, F&& f) {
   return dispatch_split(a_bf16, vec, f);
 }
 
-// A split K1 or K2 launch: the staging's dynamic shared memory for the
+// A split kernel's launch: the staging's dynamic shared memory for the
 // plan's row groups (the kernel's limit raised to the most any plan takes,
 // once), then the kernel
 template <auto kernel, typename... Args>
@@ -1586,13 +1687,13 @@ extern "C" {
 // Each takes the plan of ops/cuda/batchnorm.py::bn_plan: W lanes a CTA,
 // `ctas` CTAs along the units (units_per_cta each, a unit S rows) and
 // `tiles` along the channels; vec is V, the channels a lane (1, 4, or 8 in
-// the bf16 pool kernels and the bf16 split K1 and K2). The prologue's corr (R / S x C) is in x's type,
-// dbias (C) f32, either may be null; fewer than 2^31 rows. With xyz
-// non-null the split prologue (corr null; xyz R x 3, centre R / S x 3,
-// W3[k][c] = w3[k * w3_k + c * w3_c], all f32; full rows, the output in x's
-// type). The reductions'
-// ws holds NS x (ctas + ceil(ctas / fan_in)) x C doubles (NS = 2 for K1 and
-// K3, 1 for K4's epilogue), and tickets (ceil(ctas / fan_in) + 1) x tiles
+// the bf16 pool kernels and the bf16 split K1 and K2). The prologue's corr
+// (R / S x C) is in x's type, dbias (C) f32, either may be null; fewer than
+// 2^31 rows. With xyz non-null the split prologue (corr null; xyz R x 3,
+// centre R / S x 3, W3[k][c] = w3[k * w3_k + c * w3_c], all f32; full
+// rows, the output in x's type). The reductions' ws holds NS x (ctas +
+// ceil(ctas / fan_in)) x C doubles (NS = 2 for K1 and K3, 1 for K4's
+// epilogue, 4 for the split K4's), and tickets (ceil(ctas / fan_in) + 1) x tiles
 // ints that are 0 on entry and on exit (each is set back by the CTA that
 // took its last count), so a stream can reuse them without a memset.
 // Returns the launch's CUDA error (0).
@@ -1695,11 +1796,9 @@ int votenet_bn_bwd_reduce(const void* x, int x_bf16, const void* corr, const flo
     const SplitArgs sp{xyz, centre, w3, w3_k, w3_c};
     return static_cast<int>(dispatch_split(x_bf16, vec, [&](auto ta, auto v) {
       using T = typename decltype(ta)::type;
-      const Cotangent<T> ct{static_cast<const T*>(dy), nullptr, nullptr};
-      bn_bwd_reduce_kernel<T, T, decltype(v)::value, false, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
-          static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), ct, pl, fan_in, ch, relu_on != 0, ws,
-          tickets, sum_g, sum_gx, e);
-      return cudaGetLastError();
+      return launch_staged<bn_bwd_reduce_split_kernel<T, decltype(v)::value>>(
+          pl, ctas, tiles, cs, static_cast<const T*>(x), static_cast<const T*>(dy),
+          prologue_of<T>(nullptr, dbias, sp), pl, fan_in, ch, relu_on != 0, ws, tickets, sum_g, sum_gx, e);
     }));
   }
   if (vec == 8) {  // the pooled K3 in bf16, 8 channels a lane
@@ -1749,12 +1848,18 @@ int votenet_bn_bwd_apply(const void* x, int x_bf16, const void* corr, const floa
     const SplitArgs sp{xyz, centre, w3, w3_k, w3_c};
     return static_cast<int>(dispatch_split(x_bf16, vec, [&](auto ta, auto v) {
       using T = typename decltype(ta)::type;
-      const Cotangent<T> ct{static_cast<const T*>(dy), nullptr, nullptr};
+      constexpr int V = decltype(v)::value;
       const Epilogue<T> ep{nullptr, dbias_out, dw3, ws, tickets, fan_in};
-      bn_bwd_apply_kernel<T, T, decltype(v)::value, false, 1, true><<<grid_of(ctas, tiles), kThreads, 0, cs>>>(
-          static_cast<const T*>(x), prologue_of<T>(nullptr, dbias, sp), ct, pl, static_cast<T*>(dx), ch, a, b,
-          relu_on != 0, ep);
-      return cudaGetLastError();
+      const T *xt = static_cast<const T*>(x), *dyt = static_cast<const T*>(dy);
+      const Prologue<T> pro = prologue_of<T>(nullptr, dbias, sp);
+      T* dxt = static_cast<T*>(dx);
+      const bool r = relu_on != 0, layer = r && dbias != nullptr;
+      if (a != nullptr) {
+        return layer ? launch_staged<bn_bwd_apply_split_kernel<T, V, true, true>>(pl, ctas, tiles, cs, xt, dyt, pro, pl, dxt, ch, a, b, r, ep)
+                     : launch_staged<bn_bwd_apply_split_kernel<T, V, true, false>>(pl, ctas, tiles, cs, xt, dyt, pro, pl, dxt, ch, a, b, r, ep);
+      }
+      return layer ? launch_staged<bn_bwd_apply_split_kernel<T, V, false, true>>(pl, ctas, tiles, cs, xt, dyt, pro, pl, dxt, ch, a, b, r, ep)
+                   : launch_staged<bn_bwd_apply_split_kernel<T, V, false, false>>(pl, ctas, tiles, cs, xt, dyt, pro, pl, dxt, ch, a, b, r, ep);
     }));
   }
   return static_cast<int>(dispatch(x_bf16, dy_bf16, vec, [&](auto ta, auto tb, auto v) {

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 ``votenet_tpu_torch/csrc/*.cu`` (and the ``*.cuh`` headers they include) are
-compiled on first use into one shared library with a plain C interface,
+compiled on first use, one nvcc a source in parallel, and linked into one
+shared library with a plain C interface,
 ``build/libvotenet_kernels_<hash>.so`` inside the package, and loaded with
 :mod:`ctypes`. The hash covers the sources, the headers and the flags, so an edited source builds anew and an unchanged one
 is loaded as built. Nothing here runs at import time: this module is
@@ -66,25 +67,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists.
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc a source, all started together (each into an object file), then
+    one link into the shared library.
 
-    Returns the library's path; the compiler's output (``-Xptxas=-v``) is
-    kept beside it as ``.log``. Raises RuntimeError if nvcc fails.
+    Returns the library's path; the compilers' output (``-Xptxas=-v``), in
+    the sources' order, and the link's are kept beside it as ``.log``.
+    Raises RuntimeError if nvcc fails.
     """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    nvcc = _nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{stem}.tmp.so")
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for src, obj in zip(sources, objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [f"{src.name} (exit code {proc.returncode})" for src, proc in zip(sources, procs) if proc.returncode]
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)], capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode:
+            failed = [f"the link (exit code {res.returncode})"]
+    text = "".join(logs)
+    out.with_suffix(".log").write_text(text)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n{res.stdout}{res.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{text}")
     os.replace(tmp, out)
     return out
 

@@ -68,25 +68,30 @@ BN_MIN_ROWS = 8
 # against 797 in bf16); "reduce_pooled_wide" the pooled K3 in bf16 with 8
 # channels a lane (16 f64 accumulators a thread); "reduce_dx" K4 with the
 # epilogue (the prologue's cotangents: an f64 accumulator a channel, two at
-# a centred site, and the dense bias's tree); "reduce_dx_split" K4 with the
-# split prologue (four f64 accumulators a channel: the dense bias's and
-# W3's three, and W3 in registers); "reduce_split" and "apply_split" K1
-# and K2 with it, 4 channels a lane or 1 (at 3 an SM they spill; at 2, in
-# f32 over sa2-sa4 at B=8, 191.6 against 195.2 us and 354.3 against 364.2
-# on an H100); "reduce_split_wide" and "apply_split_wide" the same in bf16
-# with 8 channels a lane (W3's 24 floats and the lane's 8 f64 pairs or 24
-# per-channel floats: 126-128 registers); "apply" K2, its f32 pool
-# variant and K4 without the epilogue (K4 at a pooled site: 702 us at 4
-# against 820 at 3 in bf16, equal in f32); "apply_wide" K2's pool variant in
-# bf16 with 8 channels a lane (spills at 4).
-BN_CTAS_PER_SM = {"reduce": 4, "reduce_split": 2, "reduce_split_wide": 2, "reduce_dy": 2, "reduce_pooled": 3,
-                  "reduce_pooled_wide": 2, "reduce_dx": 3, "reduce_dx_split": 2, "apply": 4, "apply_split": 2,
-                  "apply_split_wide": 2, "apply_wide": 3}
+# a centred site, and the dense bias's tree); "reduce_split" and
+# "apply_split" K1 and K2 with the split prologue, 4 channels a lane or 1
+# (at 3 an SM they spill; at 2, in f32 over sa2-sa4 at B=8, 191.6 against
+# 195.2 us and 354.3 against 364.2 on an H100); "reduce_split_wide" and
+# "apply_split_wide" the same in bf16 with 8 channels a lane (W3's 24
+# floats and the lane's 8 f64 pairs or 24 per-channel floats: 126-128
+# registers); "reduce_dy_split" K3 with the split prologue and
+# "reduce_dx_split" K4 with it (four f64 accumulators a channel: the dense
+# bias's and W3's three, and W3), each 4 channels a lane or 1 in bf16 and
+# f32 alike (at 8 in bf16 an H100 ran each slower: K3 236.3 against 205.5
+# us over a mixed step's 3 split sites, K4 with its rows in shared memory
+# by bulk copies at one CTA an SM 338.7 against 301.9); "apply" K2, its f32
+# pool variant and K4 without the epilogue (K4 at a pooled site: 702 us at
+# 4 against 820 at 3 in bf16, equal in f32); "apply_wide" K2's pool variant
+# in bf16 with 8 channels a lane (spills at 4).
+BN_CTAS_PER_SM = {"reduce": 4, "reduce_split": 2, "reduce_split_wide": 2, "reduce_dy": 2, "reduce_dy_split": 2,
+                  "reduce_pooled": 3, "reduce_pooled_wide": 2, "reduce_dx": 3, "reduce_dx_split": 2, "apply": 4,
+                  "apply_split": 2, "apply_split_wide": 2, "apply_wide": 3}
 # Kinds whose CTAs take their units in chunks of one unit a row group (the
-# split K1 and K2, which stage a chunk's coordinates in shared memory): a
-# CTA's units are a multiple of its row groups, so that no chunk but the
-# last CTA's runs part-full
-CHUNKED_KINDS = ("reduce_split", "reduce_split_wide", "apply_split", "apply_split_wide")
+# split K1-K4, which stage a chunk's coordinates in shared memory): a CTA's
+# units are a multiple of its row groups, so that no chunk but the last
+# CTA's runs part-full
+CHUNKED_KINDS = ("reduce_split", "reduce_split_wide", "apply_split", "apply_split_wide", "reduce_dy_split",
+                 "reduce_dx_split")
 BN_DTYPES = (torch.float32, torch.bfloat16)
 # launches that took a prologue, over the four stages: "centre" (corr and
 # the dense bias: the centred first layer), "split" (the split first
@@ -101,7 +106,7 @@ def bn_plan(R: int, C: int, vec: bool, sms: int, kind: str, S: int = 1,
     """The launch of a kernel over R rows of C channels in units of S rows:
     (W lanes a CTA, CTAs along the units, channel tiles, units a CTA, the
     reduction's fan-in). A lane holds ``width`` channels (4, or 8 in the
-    bf16 pool kernels) with ``vec``, else 1; a CTA
+    bf16 pool and split kernels) with ``vec``, else 1; a CTA
     holds min(lanes, BN_THREADS) lanes and BN_THREADS // W row groups, each
     of which takes whole units. Along the units, enough CTAs that each
     thread takes ``BN_MIN_ROWS`` rows or more (a unit at least), at most
@@ -524,6 +529,7 @@ def bn_bwd_reduce_cuda(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, mu
     wide = pooled is not None and _wide(x, dy, corr, ymax, count)
     vec = wide or _vec(C, x, dy, corr, ymax, count)
     kind = ("reduce_pooled_wide" if wide else "reduce_pooled") if pooled is not None else "reduce_dy"
+    kind = "reduce_dy_split" if coords is not None else kind
     plan = bn_plan(R, C, vec, sm_count(x.device.index), kind, S, 8 if wide else 4)
     W, ctas, tiles, per_cta, fan_in = plan
     ws, tickets, stream = _tree(x, R, C, plan, 2)
