@@ -10,9 +10,10 @@ paths on one NVIDIA GPU.
     python3 chip_smoke.py --e2e-times  # serving, training and eval times alone, public names only (no final line)
     python3 chip_smoke.py --bn-library  # batch norm's K1 and K3 beside their library calls alone (no final line)
     python3 chip_smoke.py --bn  # phase 32 alone (no final line)
-    python3 chip_smoke.py --sass  # SASS instructions an element of the batch-norm pool and split kernels' hot loops
+    python3 chip_smoke.py --sass  # SASS of the batch-norm pool and split kernels' hot loops and the samlp kernels
     python3 chip_smoke.py --split  # phase 33 alone (no final line), the split K1-K4 beside their controls
     python3 chip_smoke.py --split-ablation  # the split K1-K4 with one step of their design taken out each
+    python3 chip_smoke.py --samlp-ablation  # samlp's bf16 kernel without its gather, products or epilogues
     python3 chip_smoke.py --cast-sites  # a bf16 forward's and step's and a mixed step's launches, copies by call site
     python3 chip_smoke.py --outputs PATH  # serving, training-step and eval outputs saved for --compare-outputs
     python3 chip_smoke.py --compare-outputs A B  # two checkouts' --outputs files: bit-equal but MOVED_GROUPS
@@ -131,11 +132,13 @@ Phases, each checked; any failure exits non-zero without the final line:
    mixed: sa2-sa4's bf16 cotangents take the exact variant, 3, and the f32
    proposal layer the fast one), ms a step beside phase 7's; then phase 11
    at ``--preset=throughput``: 24 fast scatters and no exact one.
-16. samlp's bf16-operand variant (``precision="bf16"``) at phase 9's five
+16. samlp's bf16-operand kernel (``precision="bf16"``) at phase 9's five
    calls, B=1 and B=8: within SAMLP_BF16_TOL of its plain version on the
    card and, at B=1, on the CPU, with the 3xTF32 kernel's output outside it;
    device us beside the 3xTF32 kernel's; the bound is 2 operations a
-   multiply-add at bf16's tensor-core peak. Then phase 10 under
+   multiply-add at bf16's tensor-core peak; each call's route (the chain
+   resident in shared memory, or the ring) and both routes' us, their
+   outputs bit-equal (``samlp_bf16_routes_us``). Then phase 10 under
    ``set_samlp_precision("bf16")`` (reset to "f32" after): each samlp-on
    forward launches the bf16 variant 5 times and the 3xTF32 kernel never;
    mAP beside phase 10's.
@@ -315,8 +318,10 @@ Phases, each checked; any failure exits non-zero without the final line:
    and
    ``csrc/cast.cu``'s ``cast_bf16_multi`` on a full-width bf16 model's 27
    weight views and special values, bit-equal to the card's own casts both
-   ways (``cast_check``), beside the per-leaf ``.to()`` it replaces and
-   ``torch._foreach_copy_``. Every training path's launch check counts the
+   ways (``cast_check``), beside the per-leaf ``.to()`` it replaces,
+   ``torch._foreach_copy_`` and the card's launch floor (an empty kernel's
+   launch, with and without an argument of the cast table's size:
+   ``launch_floor_ms``). Every training path's launch check counts the
    copies' two casts a step (``step_launches``), every serving and eval
    forward's none after the first, and the split stages at each split site
    (``bn_launches``: ``bn_split_*``, ``bn_prologue_split``). It runs after
@@ -1537,16 +1542,22 @@ def phase_precision_train(scenes, bare_step_ms, profile=False):
 
 
 def phase_samlp_bf16(cfg, scenes, state_dict, report, production_ms):
-    """Phase 16's kernels: samlp's bf16-operand variant against its plain
+    """Phase 16's kernels: samlp's bf16-operand kernel against its plain
     version at phase 9's five calls, B=1 and 8: within SAMLP_BF16_TOL of the
     card's plain version and, at B=1, of the CPU's; the 3xTF32 kernel's
     output outside it. Device us beside the 3xTF32 kernel's in this process
-    (summed at B=8 into ``production_ms``)."""
+    (summed at B=8 into ``production_ms``). In a checkout whose bf16 kernel
+    has routes, each call's route from the plan and both routes' us, their
+    outputs bit-equal, printed as one JSON line ``samlp_bf16_routes_us``
+    (sums at B=1 and B=8 by route)."""
     import torch
 
+    from votenet_tpu_torch.ops.cuda import samlp as samlp_mod
     from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain
 
-    print("phase 16: samlp bf16-operand variant vs plain (trained checkpoint's arguments; CUDA events, warm L2)")
+    routes = samlp_mod.ROUTES if "route" in inspect.signature(fused_sa_mlp_pool_cuda).parameters else ()
+    route_us = {B: dict.fromkeys(routes, 0.0) for B in (1, 8)}
+    print("phase 16: samlp bf16-operand kernel vs plain (trained checkpoint's arguments; CUDA events, warm L2)")
     print(TABLE_HEAD)
     for B in (1, 8):
         points = torch.from_numpy(np.stack([s["points"] for s in scenes[:B]])).cuda()
@@ -1575,11 +1586,25 @@ def phase_samlp_bf16(cfg, scenes, state_dict, report, production_ms):
                 f_ms = cuda_ms(lambda: fused_sa_mlp_pool_cuda(*args), 10)
                 p_ms = cuda_ms(lambda: fused_sa_mlp_pool_plain(*args, precision="bf16"), 5)
                 shape = f"M={idx.shape[1]} S={idx.shape[2]} w={'/'.join(map(str, widths))}"
+                if routes:
+                    plan = samlp_mod.samlp_plan(idx.shape[2], widths, "bf16")
+                    shape += f" {plan.route}"
+                    same = True
+                    for r in routes:
+                        same &= torch.equal(fused_sa_mlp_pool_cuda(*args, precision="bf16", route=r), got)
+                        us = cuda_ms(lambda: fused_sa_mlp_pool_cuda(*args, precision="bf16", route=r), 10) * 1e3
+                        route_us[B][r] += us
+                        line += f"; {r} {us:.1f} us"
+                    ok = ok and same
+                    line += (f" (the plan's route {plan.route}: {plan.slots} staged tiles"
+                             f"{f', {plan.stages} ring stages' if plan.stages else ''}; routes bit-equal: {same})")
                 bound, _ = samlp_bound(*args, precision="bf16")
                 report("samlp_bf16", layer, B, shape, ok, err, k_ms, p_ms, bound)
                 if B == 8:
                     production_ms["samlp_bf16"] += f_ms
                 print(line + f"; the 3xTF32 kernel {f_ms * 1e3:.1f} us in this process")
+    if routes:
+        print(json.dumps({"samlp_bf16_routes_us": route_us}))
 
 
 def phase_eval_samlp_bf16(cfg, state_dict, f32_maps):
@@ -4019,6 +4044,44 @@ def bn_sass(lib_path=None) -> dict:
               f"FMUL {r['fmul_per_element']:.2f}, HADD2 {r['hadd2_per_element']:.2f}, LDG {r['ldg_per_element']:.3f}, "
               f"LDS {r['lds_per_element']:.3f}, DADD + DMUL {r['f64_per_element']:.2f}); top {r['top']}")
     print(json.dumps({"bn_sass": res}))
+    samlp_sass(text)
+    return res
+
+
+def samlp_sass(text: str) -> dict:
+    """``--sass``'s samlp part: static SASS counts of the samlp kernels (the
+    3xTF32 ``samlp_kernel``, the bf16 ``samlp_bf16_kernel``; an earlier
+    checkout's ``samlp_kernel<false>`` and ``<true>``), whose layers are
+    unrolled code and no loop: the wgmmas (HGMMA), the 128-bit shared
+    stores and loads (STS.128, LDS.128: the 3xTF32 kernel parks and reloads
+    its A fragments so, four floats a thread a k8 step) per wgmma, which
+    the bf16 kernel's A fragments, chained in registers, should not take
+    (expected 0), all shared loads and stores, and local memory (spills).
+    Printed as one JSON line ``samlp_sass``."""
+    import re
+
+    names = (("bf16 kernel", r"17samlp_bf16_kernel"), ("bf16 variant <true>", r"12samlp_kernelILb1E"),
+             ("3xTF32", r"12samlp_kernel(ILb0E|EPK)"))
+    res = {}
+    for name, ins in sass_functions(text).items():
+        label = next((lb for lb, pat in names if re.search(pat, name)), None)
+        if label is None:
+            continue
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for _, t in ins]
+
+        def count(*prefixes):
+            return sum(1 for o in ops if o.startswith(prefixes))
+
+        hgmma = count("HGMMA")
+        wide = count("LDS.128", "STS.128")
+        res[label] = {"instructions": len(ops), "hgmma": hgmma, "lds128_sts128": wide,
+                      "a_fragment_shared_per_wgmma": wide / max(hgmma, 1), "lds": count("LDS"), "sts": count("STS"),
+                      "ldl_stl": count("LDL", "STL"), "bar": count("BAR")}
+        r = res[label]
+        print(f"  samlp {label}: {len(ops)} instructions, {hgmma} HGMMA, LDS.128 + STS.128 {wide} "
+              f"({r['a_fragment_shared_per_wgmma']:.2f} a wgmma), LDS {r['lds']}, STS {r['sts']}, "
+              f"LDL + STL {r['ldl_stl']}, BAR {r['bar']}")
+    print(json.dumps({"samlp_sass": res}))
     return res
 
 
@@ -4600,6 +4663,109 @@ def split_ablation():
     print(json.dumps({"split_ablation": res}))
 
 
+# --samlp-ablation: samlp's bf16 kernel with one part of its work taken out
+# at compile time (csrc/samlp.cu edited by exact replacement, built alone
+# into build/samlp_ablation/<name>.so) and timed through this checkout's
+# wrapper at phase 16's five calls (B=8): what bounds it, measured apart
+SAMLP_COPIES = ("          bulk_load(dst, src, bytes, &st.full[slot]);\n",
+                "        if (p == 0) mbar_expect_tx(&st.full[slot], rows_all * bytes);")
+SAMLP_PRODUCTS = "      issue_resident<K, NC>(acc, a, wbase + c * NC * ks * 2, N * ks * 2, ks);\n"
+SAMLP_EPILOGUES = """    if constexpr (LAST) {
+      if (cx.grp16) {
+        pool_rows_once<NC>(cx, acc, aff + c * NC, aff + N + c * NC, aff + 2 * N + c * NC, rows, c * NC);
+      } else {
+        pool_tile<NC>(cx, acc, aff + c * NC, aff + N + c * NC, rows, c * NC);
+      }
+    } else {
+      acc_frags<NC>(acc, out, c * NC / 4, aff + c * NC, aff + N + c * NC, cx.t & 3);
+    }"""
+
+
+def samlp_ablation_edits():
+    """{name: (what it takes out, [(old text, new text)] in csrc/samlp.cu)}."""
+    gather = [(SAMLP_COPIES[0], "          (void)src;\n          (void)dst;\n"),
+              (SAMLP_COPIES[1], "        if (p == 0) mbar_arrive(&st.full[slot]);")]
+    products = [(SAMLP_PRODUCTS, "#pragma unroll\n      for (int i = 0; i < NC / 2; ++i) acc[i] = __uint_as_float(a[i % 16]);\n")]
+    epilogues = [(SAMLP_EPILOGUES, """    if constexpr (LAST) {
+      if (rows.blk_ok[0]) fold(cx.pooled + c * NC + (cx.t & 63), acc[0] + acc[NC / 2 - 1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NC / 4; ++i) out[c * NC / 4 + i] = __float_as_uint(acc[2 * i]) ^ __float_as_uint(acc[2 * i + 1]);
+    }""")]
+    return {
+        "no_gather": ("the rows' bulk copies (the slots signalled full at once, stale rows read)", gather),
+        "no_products": ("the wgmma products (the accumulators copied from the A registers)", products),
+        "no_epilogues": ("the epilogues' affine, ReLU, rounding and pooling (a move and one fold)", epilogues),
+        "no_pingpong": ("the consumers' turns at issuing", [("  Turn turn{resident, resident, true, cw};",
+                                                            "  Turn turn{resident, false, true, cw};")]),
+        "skeleton": ("the gather, the products and the epilogues: what stays is the staging's and the tiles' "
+                     "synchronisation, layer 0's arithmetic and the pooled rows' write", gather + products + epilogues),
+    }
+
+
+def samlp_ablation(cfg, scenes, state_dict):
+    """``--samlp-ablation``: :func:`samlp_ablation_edits`' variants of
+    csrc/samlp.cu and the source as it is ("checkout"), each built alone
+    with the package's nvcc flags (all at once), the bf16 kernel of each
+    timed through this checkout's wrapper (its ``library`` pointed at the
+    variant) at phase 16's five calls, B=8, the chain resident, in turns
+    (checkout first and last); the checkout's build must give the package
+    library's bits. Sums over the five calls, printed and as one JSON line."""
+    import ctypes
+
+    import torch
+
+    from votenet_tpu_torch.ops.cuda import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc
+    from votenet_tpu_torch.ops.cuda import samlp as samlp_mod
+
+    points = torch.from_numpy(np.stack([s["points"] for s in scenes[:8]])).cuda()
+    calls = capture_samlp_args(cfg, state_dict, points)
+    src = (CSRC_DIR / "samlp.cu").read_text()
+    out_dir = BUILD_DIR / "samlp_ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    edits = samlp_ablation_edits()
+    builds = {}
+    for name, (_, changes) in {"checkout": ("", []), **edits}.items():
+        text = src
+        for old, new in changes:
+            if text.count(old) != 1:
+                raise RuntimeError(f"--samlp-ablation {name}: the text to replace is not in csrc/samlp.cu once")
+            text = text.replace(old, new)
+        (out_dir / f"{name}.cu").write_text(text)
+        with open(out_dir / f"{name}.log", "w") as log:
+            builds[name] = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out_dir / f"{name}.so"),
+                 str(out_dir / f"{name}.cu")], stdout=log, stderr=subprocess.STDOUT)
+    libs = {}
+    for name, b in builds.items():
+        if b.wait() != 0:
+            raise RuntimeError(f"--samlp-ablation: {name} did not build:\n{(out_dir / f'{name}.log').read_text()[-3000:]}")
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        lib.votenet_samlp_bf16.argtypes = samlp_mod.library().votenet_samlp_bf16.argtypes
+        lib.votenet_samlp_bf16.restype = ctypes.c_int
+        libs[name] = lib
+    orig = samlp_mod.library
+    res = {}
+    try:
+        with torch.inference_mode():
+            want = [samlp_mod.fused_sa_mlp_pool_cuda(*args, precision="bf16") for args in calls]
+            for i, name in enumerate(["checkout", *edits, "checkout"]):
+                samlp_mod.library = lambda name=name: libs[name]
+                us = [cuda_ms(lambda: samlp_mod.fused_sa_mlp_pool_cuda(*args, precision="bf16"), 10) * 1e3
+                      for args in calls]
+                if name == "checkout" and not all(torch.equal(samlp_mod.fused_sa_mlp_pool_cuda(*args, precision="bf16"), w)
+                                                  for args, w in zip(calls, want)):
+                    raise RuntimeError("--samlp-ablation: the checkout's own build gives other bits than the package's")
+                key = f"checkout ({'first' if i == 0 else 'last'})" if name == "checkout" else name
+                res[key] = {"sum_us": sum(us), "us": dict(zip(SA_LAYERS, us))}
+                what = "" if name == "checkout" else f" ({edits[name][0]})"
+                print(f"  {key}{what}: {sum(us):.1f} us over the five calls; "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in zip(SA_LAYERS, us)))
+    finally:
+        samlp_mod.library = orig
+    print(json.dumps({"samlp_ablation": res}))
+
+
 def cast_specials(device):
     """f32 values at the bf16 rounding's edges: ties to even both ways,
     subnormals (f32 and bf16), the largest finite values and the overflow
@@ -4667,6 +4833,56 @@ def cast_check(device="cuda"):
     return checks, [0.0, ms, plain_ms, library_ms], bound_ms(0.0, 6.0 * elems), (len(srcs), elems)
 
 
+# An empty kernel, launched with no argument and with a by-value argument of
+# the size of csrc/cast.cu's table (64 entries), for launch_floor_ms
+LAUNCH_FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+struct Table { unsigned char b[TABLE_BYTES]; };
+__global__ void empty_kernel() {}
+__global__ void empty_table_kernel(const __grid_constant__ Table t) {}
+extern "C" int launch_empty(int table, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table) {
+    Table t = {};
+    empty_table_kernel<<<1, 32, 0, s>>>(t);
+  } else {
+    empty_kernel<<<1, 32, 0, s>>>();
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def launch_floor_ms(reps: int = 200) -> dict:
+    """The card's launch floor by cuda_ms (queued behind a sleep, so the
+    device runs the launches back to back): device ms a launch of an empty
+    kernel of one warp, with no argument ("empty") and with a by-value
+    argument of the cast kernel's table ("table", 64 entries of
+    ``votenet_cast_entry_bytes``). Built with nvcc beside the package's
+    library, in its build directory."""
+    import ctypes
+
+    import torch
+
+    from votenet_tpu_torch.ops.cuda import BUILD_DIR, NVCC_FLAGS, _nvcc, library
+
+    table = 64 * library().votenet_cast_entry_bytes()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, lib_path = BUILD_DIR / "launch_floor.cu", BUILD_DIR / f"liblaunch_floor_{table}.so"
+    src.write_text(LAUNCH_FLOOR_SRC)
+    subprocess.run([_nvcc(), *NVCC_FLAGS, f"-DTABLE_BYTES={table}", "-o", str(lib_path), str(src)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.launch_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.launch_empty.restype = ctypes.c_int
+    out = {}
+    for name, arg in (("empty", 0), ("table", 1)):
+        if lib.launch_empty(arg, torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+        out[name] = cuda_ms(lambda: lib.launch_empty(arg, torch.cuda.current_stream().cuda_stream), reps)
+    return out
+
+
 def phase_split_copies(cfg, report, device="cuda"):
     """Phase 33: the split prologue's K1-K4 (``split_check``) at sa2-sa4's
     split first layers, B=8 and B=1, in bf16 (mixed precision) and at B=8 in
@@ -4710,6 +4926,12 @@ def phase_split_copies(cfg, report, device="cuda"):
           f"({'the library call is faster' if faster else 'the kernel is not slower than the library call'})")
     checks.update(c_checks)
     extra[CAST_ROW] = {"library_faster": faster, "tensors": n, "elements": elems}
+    if device == "cuda":  # the launch floor beside the cast's byte bound
+        floor = launch_floor_ms()
+        print(f"  launch floor (an empty kernel, cuda_ms): {floor['empty'] * 1e3:.2f} us, with the cast table's "
+              f"argument {floor['table'] * 1e3:.2f} us; cast_bf16_multi's byte bound {bound[1] * 1e3:.2f} us, "
+              f"its time {ms * 1e3:.2f} us")
+        extra[CAST_ROW].update({"launch_floor_ms": floor["empty"], "launch_floor_table_ms": floor["table"]})
     return finish(checks, "split prologue and weight-cast checks", extra)
 
 
@@ -4861,9 +5083,11 @@ def dump_outputs(cfg, scenes, state_dict, path):
     and bf16; the f32 step with ``gather_packing="bf16_hilo"`` (the split
     prologue in f32), twice; the bf16 step under remat; four bf16 steps of
     ``Trainer(steps_per_dispatch=4)`` (the parameters, Adam's moments and
-    the running statistics after them); and
-    the committed checkpoint's eval predictions of scenes[:8] (samlp off
-    and on). Deterministic algorithms on: the scatter's and the gather's
+    the running statistics after them);
+    the committed checkpoint's eval predictions of scenes[:8] (samlp off,
+    on, and on under ``set_samlp_precision("bf16")``); and the samlp
+    kernels' outputs at phase 9's and 16's five calls (B=8), 3xTF32 and
+    bf16. Deterministic algorithms on: the scatter's and the gather's
     library backwards are atomic otherwise."""
     import torch
     import torch.distributed as dist
@@ -4872,6 +5096,8 @@ def dump_outputs(cfg, scenes, state_dict, path):
     from votenet_tpu_torch.data.dataflow import batch_scenes
     from votenet_tpu_torch.eval import make_packed_predict_fn
     from votenet_tpu_torch.models import VoteNet, predict_boxes
+    from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda
+    from votenet_tpu_torch.ops.dispatch import set_samlp_precision
     from votenet_tpu_torch.parallel import comm, make_mesh
     from votenet_tpu_torch.parallel.launch import free_port, init_process_group
     from votenet_tpu_torch.train import Trainer, create_train_state, forward_backward
@@ -4926,6 +5152,15 @@ def dump_outputs(cfg, scenes, state_dict, path):
             model.load_state_dict(state_dict)
             pred = make_packed_predict_fn(model.cuda(), cfg)(points)
             out.update({f"eval_samlp_{samlp}/{k}": v.cpu() for k, v in pred.items()})
+        set_samlp_precision("bf16")
+        try:
+            pred = make_packed_predict_fn(model, cfg)(points)
+            out.update({f"eval_samlp_bf16/{k}": v.cpu() for k, v in pred.items()})
+        finally:
+            set_samlp_precision("f32")
+        for layer, args in zip(SA_LAYERS, capture_samlp_args(cfg, state_dict, points)):  # phases 9 and 16's calls
+            out[f"samlp_f32/{layer}"] = fused_sa_mlp_pool_cuda(*args).cpu()
+            out[f"samlp_bf16/{layer}"] = fused_sa_mlp_pool_cuda(*args, precision="bf16").cpu()
     finally:
         torch.use_deterministic_algorithms(False)
     torch.save(out, path)
@@ -5115,6 +5350,12 @@ def main() -> int:
                                           for k in SPLIT_ROWS + (CAST_ROW,)}, "failed": failed}))
         print(card)
         return 1 if failed else 0
+    if "--samlp-ablation" in sys.argv[1:]:  # samlp's bf16 kernel with one part of its work taken out each
+        state_dict = run("read checkpoint", trained_state_dict)
+        if state_dict is not None:
+            run("samlp ablation", lambda: samlp_ablation(cfg, scenes, state_dict))
+        print(card)
+        return 1 if failed else 0
     if "--split-ablation" in sys.argv[1:]:  # the split K1 and K2 with one step of their design taken out each
         run("split ablation", split_ablation)
         print(card)
@@ -5133,7 +5374,7 @@ def main() -> int:
         i = sys.argv.index("--compare-outputs")
         run("compare outputs", lambda: compare_outputs(sys.argv[i + 1], sys.argv[i + 2]))
         return 1 if failed else 0
-    if "--sass" in sys.argv[1:]:  # SASS instructions an element of the pool kernels' hot loops
+    if "--sass" in sys.argv[1:]:  # the pool and split kernels' hot loops, the samlp kernels
         run("sass", bn_sass)
         print(card)
         return 1 if failed else 0

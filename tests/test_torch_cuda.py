@@ -638,44 +638,107 @@ def test_device_timeit_agrees_with_chip_smoke(cuda):
 BF16_TOL = 1.5e-3
 
 
+def card_chain(args, cuda):
+    """chain_inputs' arrays as (CPU tensors, the same on the card)."""
+    cpu = [torch.from_numpy(a) for a in args[:4]] + [[tuple(torch.from_numpy(x) for x in lay) for lay in args[4]]]
+    return cpu, [a.to(cuda) for a in cpu[:4]] + [[tuple(x.to(cuda) for x in lay) for lay in cpu[4]]]
+
+
+@pytest.mark.parametrize("route", ["resident", "ring"])
 @pytest.mark.parametrize("B", [1, 8])
 @pytest.mark.parametrize("case", list(SAMLP_SHAPES))
-def test_samlp_bf16_kernel_matches_plain(cuda, case, B):
-    """The bf16-operand variant within BF16_TOL of its plain version on the
-    card and on the CPU, at the f32 kernel's shapes (ks 64 and 32 slices,
-    S in {5, 8, 16, 24, 64, 100}, odd widths); its launches count apart."""
+def test_samlp_bf16_kernel_matches_plain(cuda, case, B, route):
+    """The bf16-operand kernel within BF16_TOL of its plain version on the
+    card and on the CPU, on both routes, at the f32 kernel's shapes (ks 64
+    and 32 slices, S in {5, 8, 16, 24, 64, 100}, odd widths); its launches
+    count apart."""
     from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain
 
     N, M, S, widths = SAMLP_SHAPES[case]
-    args = chain_inputs(B * M + S, B, N, M, S, widths)
-    cpu = [torch.from_numpy(a) for a in args[:4]] + [[tuple(torch.from_numpy(x) for x in lay) for lay in args[4]]]
-    card = [a.to(cuda) for a in cpu[:4]] + [[tuple(x.to(cuda) for x in lay) for lay in cpu[4]]]
+    cpu, card = card_chain(chain_inputs(B * M + S, B, N, M, S, widths), cuda)
     before = (fused_sa_mlp_pool_cuda.launches, fused_sa_mlp_pool_cuda.bf16.launches)
-    got = fused_sa_mlp_pool_cuda(*card, precision="bf16")
+    got = fused_sa_mlp_pool_cuda(*card, precision="bf16", route=route)
     torch.cuda.synchronize()
     assert (fused_sa_mlp_pool_cuda.launches, fused_sa_mlp_pool_cuda.bf16.launches) == (before[0], before[1] + 1)
     for want in (fused_sa_mlp_pool_plain(*card, precision="bf16").cpu(), fused_sa_mlp_pool_plain(*cpu, precision="bf16")):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=BF16_TOL * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("case", list(SAMLP_SHAPES))
+def test_samlp_bf16_routes_are_bit_equal(cuda, case, B):
+    """The resident chain and the ring run the same k16 products in the same
+    order: the same bits, and reruns give them again."""
+    from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda
+
+    N, M, S, widths = SAMLP_SHAPES[case]
+    _, card = card_chain(chain_inputs(B * M + S + 2, B, N, M, S, widths), cuda)
+    resident = fused_sa_mlp_pool_cuda(*card, precision="bf16", route="resident")
+    ring = fused_sa_mlp_pool_cuda(*card, precision="bf16", route="ring")
+    again = fused_sa_mlp_pool_cuda(*card, precision="bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(resident, ring) and torch.equal(resident, again)
+
+
+def test_samlp_bf16_counts_its_own_launches(cuda):
+    """Through the op: a bf16 call adds one to the bf16 kernel's counter and
+    none to the 3xTF32 kernel's, an f32 call the reverse."""
+    from votenet_tpu_torch import ops
+    from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda
+
+    _, card = card_chain(chain_inputs(5, 2, 300, 40, 64, [64, 64, 128]), cuda)
+    counts = lambda: (fused_sa_mlp_pool_cuda.launches, fused_sa_mlp_pool_cuda.bf16.launches)  # noqa: E731
+    before = counts()
+    ops.fused_sa_mlp_pool(*card, "bf16")
+    assert counts() == (before[0], before[1] + 1)
+    ops.fused_sa_mlp_pool(*card, "f32")
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("route", ["resident", "ring"])
 @pytest.mark.parametrize("case", ["sa1", "sa2", "proposal"])
-def test_samlp_bf16_kernel_is_not_3xtf32(cuda, case):
-    """At live widths the bf16 variant lies within BF16_TOL of the bf16 plain
-    version and the 3xTF32 kernel outside it; the bf16 variant lies outside
+def test_samlp_bf16_kernel_is_not_3xtf32(cuda, case, route):
+    """At live widths the bf16 kernel lies within BF16_TOL of the bf16 plain
+    version and the 3xTF32 kernel outside it; the bf16 kernel lies outside
     the f32 kernel's 1e-5 of the f32 plain version."""
     from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain
 
     N, M, S, widths = SAMLP_SHAPES[case]
-    args = chain_inputs(M + S + 1, 2, N, M, S, widths)
-    card = [torch.from_numpy(a).to(cuda) for a in args[:4]] + [[tuple(torch.from_numpy(x).to(cuda) for x in lay)
-                                                               for lay in args[4]]]
-    bf16 = fused_sa_mlp_pool_cuda(*card, precision="bf16")
+    _, card = card_chain(chain_inputs(M + S + 1, 2, N, M, S, widths), cuda)
+    bf16 = fused_sa_mlp_pool_cuda(*card, precision="bf16", route=route)
     tf32 = fused_sa_mlp_pool_cuda(*card)
     want, want_f32 = fused_sa_mlp_pool_plain(*card, precision="bf16"), fused_sa_mlp_pool_plain(*card)
     torch.cuda.synchronize()
     tol = BF16_TOL * float(want.abs().max())
     assert float((bf16 - want).abs().max()) <= tol < float((tf32 - want).abs().max())
     assert float((bf16 - want_f32).abs().max()) > 1e-5 * float(want_f32.abs().max())
+
+
+def test_samlp_bf16_kernel_gathers_out_of_range_indices_as_zero_rows(cuda):
+    """An index outside [0, N) stages a row of zeros on both routes, by bulk
+    copies (h_all 16-byte aligned) and by 8-byte cp.async (h_all at an
+    address 8 bytes past a 16-byte boundary)."""
+    from votenet_tpu_torch.ops.cuda.samlp import fused_sa_mlp_pool_cuda, fused_sa_mlp_pool_plain, stage_chunk
+
+    h_all, idx, sh0, s0, layers = chain_inputs(3, 1, 40, 6, 8, [8, 8, 16])
+    bad = idx.copy()
+    bad[0, 2, 3] = 40
+    bad[0, 4, 0] = -1
+    zero_row = np.concatenate([h_all, np.zeros((1, 1, 8), np.float32)], axis=1)
+    ref = idx.copy()
+    ref[0, 2, 3] = ref[0, 4, 0] = 40  # the appended row of zeros
+    dev = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    lay = [tuple(dev(x) for x in lay) for lay in layers]
+    shifted = torch.zeros(h_all.size + 2, dtype=torch.float32, device=cuda)[2:].view(h_all.shape)
+    shifted.copy_(dev(h_all))
+    assert stage_chunk(8, dev(h_all)) == 0 and stage_chunk(8, shifted) == 8
+    want = fused_sa_mlp_pool_plain(dev(zero_row), dev(ref), dev(sh0), dev(s0), lay, precision="bf16")
+    for h in (dev(h_all), shifted):
+        for route in ("resident", "ring"):
+            got = fused_sa_mlp_pool_cuda(h, dev(bad), dev(sh0), dev(s0), lay, precision="bf16", route=route)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=BF16_TOL * float(want.abs().max()))
 
 
 def emit_reference(xyz, q, radius, S):

@@ -159,34 +159,106 @@ def test_3xtf32_within_tolerance_of_f32_and_jax(B, M, S, widths):
     assert float((one - plain).abs().max()) > tol
 
 
+def bf16_smem(plan, held):
+    """The bf16 kernel's shared memory (csrc/samlp.cu ``bf16_smem``) beside
+    ``held`` bytes of weights (the chain or the ring): its slots' staged
+    tiles (64 rows of h_all and T + 1 of sh0, K0 + 8 floats a row), pooled
+    rows, the affine vectors and the last layer's scale's signs, five steps'
+    index rows (two tiles each), 25 mbarriers."""
+    tile = (64 + plan.T + 1) * (plan.kpad[0] + 8) * 4
+    return (held + plan.slots * tile + 2 * plan.T * plan.npad[-1] * 4
+            + (plan.kpad[0] + 2 * sum(plan.npad) + plan.npad[-1]) * 4 + 10 * 64 * 4 + 25 * 8)
+
+
 @pytest.mark.parametrize("cfg_name", list(CONFIGS))
 def test_samlp_plan_bf16_fits_every_shape(cfg_name):
-    """The bf16 variant's plan at every SA layer: one 2-byte term a weight
-    (the scratch a quarter of 3xTF32's), slices of 64 channels where every
-    layer's K takes them (four k16 steps), within the shared memory, with
-    the f32 plan's tile, N and K."""
+    """The bf16 kernel's plan at every SA layer: the chain resident in shared
+    memory beside the staged tiles (one 2-byte term a weight, the scratch a
+    quarter of 3xTF32's and a row of zeros), slices of 64 channels where every layer's K takes
+    them (four k16 steps), with the f32 plan's tile, N and K; forced onto
+    the ring, two to four stages of the same slices."""
     for layer, _, _, _, S, widths in sa_shapes(CONFIGS[cfg_name]):
         plan = samlp_mod.samlp_plan(S, widths, "bf16")
         f32 = samlp_mod.samlp_plan(S, widths)
         assert (plan.T, plan.R, plan.npad, plan.kpad) == (f32.T, f32.R, f32.npad, f32.kpad), layer
+        assert plan.route == "resident" and plan.stages == 0 and f32.route == "ring", layer
         assert plan.ks == (64 if all(k % 64 == 0 for k in plan.kpad) else 32), layer
         assert all(k % plan.ks == 0 for k in plan.kpad), layer
-        assert plan.smem <= samlp_mod.SMEM_LIMIT and 2 <= plan.stages <= samlp_mod.MAX_STAGES, layer
-        assert plan.wsplit * 4 == sum(2 * k * n for k, n in zip(plan.kpad, plan.npad)) == f32.wsplit
-        assert plan.smem - plan.stages * max(plan.npad) * plan.ks * 2 == f32.smem - f32.stages * max(f32.npad) * f32.ks * 8
+        assert plan.wsplit * 4 - 1024 == sum(2 * k * n for k, n in zip(plan.kpad, plan.npad)) == f32.wsplit  # a zero row
+        assert plan.smem == bf16_smem(plan, plan.wsplit * 4 - 1024) <= samlp_mod.SMEM_LIMIT, layer
+        assert 2 <= plan.slots <= samlp_mod.MAX_SLOTS, layer
+        ring = samlp_mod.samlp_plan(S, widths, "bf16", "ring")
+        assert ring.route == "ring" and 2 <= ring.stages <= samlp_mod.MAX_STAGES and ring.ks == plan.ks, layer
+        stage = min(max(plan.npad), 128) * plan.ks * 2  # a chunk of at most 128 columns of a slice
+        assert ring.smem == bf16_smem(ring, ring.stages * stage) <= samlp_mod.SMEM_LIMIT, layer
+        assert 2 <= ring.slots <= samlp_mod.MAX_SLOTS and ring[:4] == plan[:4] and ring.wsplit == plan.wsplit, layer
 
 
-@pytest.mark.parametrize("S,widths,ks,stages", [(64, [64, 64, 128], 64, 4), (64, [128, 128, 256], 64, 4),
-                                                (8, [16, 16, 32], 32, 4), (7, [6, 9, 13], 32, 4),
-                                                (100, [128, 256, 64], 64, 2), (24, [40, 32, 64], 32, 4)])
-def test_samlp_plan_bf16_slices(S, widths, ks, stages):
-    """sa2-sa4's 256-wide layer holds four 64-channel bf16 stages where
-    3xTF32 holds two 32-channel ones; a K of 32 (a 32-wide layer, or w0 <= 32)
-    takes 32-channel slices."""
+@pytest.mark.parametrize("S,widths,route,ks,stages,ring_stages,slots",
+                         [(64, [64, 64, 128], "resident", 64, 0, 4, 8), (64, [128, 128, 256], "resident", 64, 0, 4, 3),
+                          (8, [16, 16, 32], "resident", 32, 0, 4, 8), (7, [6, 9, 13], "resident", 32, 0, 4, 8),
+                          (100, [128, 256, 64], "resident", 64, 0, 4, 3), (24, [40, 32, 64], "resident", 32, 0, 4, 8),
+                          (64, [128, 256, 256, 128], "ring", 64, 4, 4, 4), (64, [256] * 4, "ring", 64, 4, 4, 2),
+                          (64, [200, 256, 128], "ring", 64, 4, 4, 2), (64, [200, 64, 128], "resident", 64, 0, 4, 2),
+                          (2, [128, 128, 256], "ring", 64, 3, 3, 2), (1, [64, 64, 128], "resident", 64, 0, 4, 3),
+                          (100, [96, 256, 256, 64], "ring", 64, 4, 4, 4)])
+def test_samlp_plan_bf16_slices(S, widths, route, ks, stages, ring_stages, slots):
+    """sa2-sa4's chain (96 KB) and every chain of the five live shapes' sizes
+    stay resident in 64-channel slices where every K takes them, else 32; a
+    chain too wide for the shared memory beside its tiles streams through
+    the ring, a chunk of at most 128 columns of a slice a stage, four stages
+    where they fit (the 3xTF32 kernel holds two 32-channel slices of all 256
+    columns at sa2), three where 32 centres' sh0 rows and pooled rows a
+    tile (S = 2) take the room; w0 of 200 or 96 takes a K0 of 256 or 128.
+    The staged tiles take what is left, 2 to 8 slots (sa1: 8, sa2-sa4: 3)."""
     plan = samlp_mod.samlp_plan(S, widths, "bf16")
-    assert (plan.ks, plan.stages) == (ks, stages)
+    assert (plan.route, plan.ks, plan.stages, plan.slots) == (route, ks, stages, slots)
+    assert plan.kpad[0] == next(k for k in (32, 64, 128, 256) if k >= widths[0])
+    assert plan.smem <= samlp_mod.SMEM_LIMIT
+    assert samlp_mod.samlp_plan(S, widths, "bf16", "ring").stages == ring_stages
+
+
+def test_samlp_plan_bf16_takes_the_ring_where_the_chain_is_too_wide():
+    """Three 256 x 256 layers (384 KB of bf16) never fit: the default plan
+    and a forced ring stream them, a forced resident chain raises."""
+    widths = [256, 256, 256, 256]
+    assert samlp_mod.samlp_plan(64, widths, "bf16").route == "ring"
+    assert samlp_mod.samlp_plan(64, widths, "bf16", "ring").stages >= 2
+    with pytest.raises(ValueError, match="resident"):
+        samlp_mod.samlp_plan(64, widths, "bf16", "resident")
+
+
+@pytest.mark.parametrize("S,widths", [(1, [256, 256, 256]), (2, [256, 256, 256]), (1, [256, 32, 256])])
+def test_samlp_plan_bf16_refuses_what_fits_neither_route(S, widths):
+    """One or two slots a tile (64 or 32 centres, their sh0 rows staged and
+    pooled) at K0 = 256: the staged tiles alone leave no room for two ring
+    stages."""
+    with pytest.raises(ValueError, match="shared memory"):
+        samlp_mod.samlp_plan(S, widths, "bf16")
+
+
+@pytest.mark.parametrize("precision,route", [("f32", "resident"), ("bf16", "tiled"), ("f32", "ring-fast")])
+def test_samlp_plan_refuses_other_routes(precision, route):
+    with pytest.raises(ValueError, match="route"):
+        samlp_mod.samlp_plan(64, [64, 64, 128], precision, route)
 
 
 def test_samlp_plan_refuses_other_precisions():
     with pytest.raises(ValueError, match="precision"):
         samlp_mod.samlp_plan(64, [64, 64, 128], "tf32")
+
+
+def test_samlp_ablation_variants_apply_to_the_source():
+    """chip_smoke.py --samlp-ablation edits csrc/samlp.cu by exact
+    replacement: each variant's old texts stand in the source once, in
+    turn, so an edit of the kernel that moves them fails here first."""
+    import chip_smoke
+    from votenet_tpu_torch.ops.cuda import CSRC_DIR
+
+    src = (CSRC_DIR / "samlp.cu").read_text()
+    for name, (_, changes) in chip_smoke.samlp_ablation_edits().items():
+        text = src
+        for old, new in changes:
+            assert text.count(old) == 1, (name, old[:60])
+            text = text.replace(old, new)
+        assert text != src, name

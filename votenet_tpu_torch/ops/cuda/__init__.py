@@ -123,11 +123,12 @@ def library() -> ctypes.CDLL:
             lib.votenet_scatter_add.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
             lib.votenet_scatter_add.restype = i32
             ptrs, ints = ctypes.POINTER(ptr), ctypes.POINTER(i32)
-            lib.votenet_samlp.argtypes = [
-                ptr, ptr, ptr, ptr, ptrs, ptrs, ptrs, ints, ints, ints,
-                i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
-            ]
-            lib.votenet_samlp.restype = i32
+            # h_all, idx, sh0, s0, the layers' W, scale and shift, widths, npad, kpad, n_layers, B, N, M, S, T, R,
+            # ks, stages, grid (the bf16 kernel: its staged tiles and cp.async bytes), wsplit, out, stream
+            samlp_args = [ptr, ptr, ptr, ptr, ptrs, ptrs, ptrs, ints, ints, ints, *[i32] * 10]
+            lib.votenet_samlp.argtypes = [*samlp_args, ptr, ptr, ptr]
+            lib.votenet_samlp_bf16.argtypes = [*samlp_args, i32, i32, ptr, ptr, ptr]
+            lib.votenet_samlp.restype = lib.votenet_samlp_bf16.restype = i32
             i64 = ctypes.c_int64
             lib.votenet_nms3d.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, f32, ptr, ptr, ptr]
             lib.votenet_nms3d.restype = i32

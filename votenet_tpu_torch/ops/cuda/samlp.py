@@ -18,8 +18,13 @@ the top of the source.
 ``ops/dispatch.py::set_samlp_precision``): before each dense layer after the
 first the f32 activations and the weights are rounded to bf16 (round to
 nearest even) and multiplied with f32 accumulation, one bf16 ``wgmma`` a
-product (``samlp_kernel<true>``); layer 0's affine + ReLU, the epilogues and
-the pooling stay f32. Its launches count on
+product; layer 0's affine + ReLU, the epilogues and the pooling stay f32.
+It has a kernel of its own, ``samlp_bf16_kernel``: the activations chained
+in registers as packed bf16, the producer warpgroup staging the gather, and
+the whole weight chain resident in shared memory (``route="resident"``)
+where it fits beside the tiles, else streamed through the 3xTF32 kernel's
+ring (``route="ring"``); :func:`samlp_plan` chooses from the shapes, a
+caller may force either. Its launches count on
 ``fused_sa_mlp_pool_cuda.bf16.launches``.
 
 Semantics of both versions, with the eval batch norm and the dense biases
@@ -64,19 +69,32 @@ SMEM_LIMIT = 232448
 N_PADS = (32, 64, 128, 256)
 CONSUMER_WGS = 2  # consumer warpgroups of a block
 PRECISIONS = ("f32", "bf16")
-# bytes of one weight in the ring (3xTF32: two f32 terms; bf16: one term)
-# and the slice widths tried, widest first (a bf16 slice must divide every
-# layer's K: four k16 steps where it can, else two)
-TERM_BYTES = {"f32": 8, "bf16": 2}
+# bytes of one weight in the 3xTF32 kernel's ring (two f32 terms; bf16's
+# one term is 2) and the slice widths tried, widest first (a bf16 slice
+# must divide every layer's K: four k16 steps where it can, else two)
+TF32_TERM_BYTES = 8
 SLICE_KS = {"f32": (32, 16), "bf16": (64, 32)}
+# the bf16 kernel's routes: the weight chain resident in shared memory, or
+# streamed through the ring; floats past K0 in a staged row; staged tiles
+# (slots, each 64 rows of h_all and T + 1 of sh0), at most; the index rows
+# held (kIdxAhead + 1 steps of two tiles); mbarriers (the chain's, each
+# slot's full and empty, the ring's full and empty a stage)
+ROUTES = ("resident", "ring")
+CHUNK = 128  # columns of a layer's products at a time (the ring streams slices a chunk at a time)
+STAGE_PAD = 8
+MAX_SLOTS = 8
+IDX_AHEAD_ROWS = 10
+BF16_BARRIERS = 1 + 2 * MAX_SLOTS + 2 * MAX_STAGES
 
 
 class SamlpPlan(NamedTuple):
-    """A launch of the fused kernel: T centres a 64-row tile (S <= 64) or R
+    """A launch of a fused kernel: T centres a 64-row tile (S <= 64) or R
     tiles a centre (S > 64); each layer's wgmma N (``npad``) and K
     (``kpad``); ``ks`` channels of K a weight slice and ``stages`` slices in
-    the ring; the block's dynamic shared memory and the split weights'
-    scratch in floats (a float holds two bf16 terms)."""
+    the ring (0 where the bf16 chain is resident); the block's dynamic shared
+    memory and the weights' scratch in floats (a float holds two bf16
+    terms); the route ("ring" for the 3xTF32 kernel, "resident" or "ring"
+    for the bf16 one) and the bf16 kernel's staged tiles (``slots``)."""
 
     T: int
     R: int
@@ -86,26 +104,33 @@ class SamlpPlan(NamedTuple):
     stages: int
     smem: int
     wsplit: int
+    route: str = "ring"
+    slots: int = 0
 
 
-def samlp_plan(S: int, widths: Sequence[int], precision: str = "f32") -> SamlpPlan:
+def samlp_plan(S: int, widths: Sequence[int], precision: str = "f32", route: str | None = None) -> SamlpPlan:
     """The launch plan of ``csrc/samlp.cu`` for S ball slots, the chain's
     widths (w0, then each layer's output) and the operand ``precision``
-    ("f32": 3xTF32, "bf16"). Raises ValueError for another precision, where
-    a width exceeds 256 or the block's shared memory would not hold two
-    stages."""
+    ("f32": 3xTF32, "bf16"). In bf16 ``route`` forces "resident" or "ring";
+    None takes the resident chain where it fits. Raises ValueError for
+    another precision or route, where a width exceeds 256 or the block's
+    shared memory would not hold the route (two ring stages at least)."""
     if precision not in PRECISIONS:
         raise ValueError(f"samlp: precision must be one of {PRECISIONS}, got {precision!r}")
+    if route not in (None, *ROUTES) or (precision == "f32" and route not in (None, "ring")):
+        raise ValueError(f"samlp: route must be None or one of {ROUTES} (f32: the ring), got {route!r}")
     if S < 1 or len(widths) < 2 or min(widths) < 1 or max(widths) > N_PADS[-1]:
         raise ValueError(f"samlp: need S >= 1 and widths in [1, {N_PADS[-1]}], got S={S}, widths {list(widths)}")
     T, R = (ROWS // S, 1) if S <= ROWS else (1, -(-S // ROWS))
     npad = tuple(next(p for p in N_PADS if p >= w) for w in widths[1:])
+    if precision == "bf16":
+        return _bf16_plan(S, widths, T, R, npad, route)
+    term = TF32_TERM_BYTES
     kpad = (-(-widths[0] // 32) * 32,) + npad[:-1]
     affine = kpad[0] + 2 * sum(npad)  # s0, then each layer's scale and shift, in floats
     fixed = (CONSUMER_WGS * (max(kpad) // 8) * 128 * 16 + CONSUMER_WGS * T * npad[-1] * 4 + affine * 4
              + 2 * MAX_STAGES * 8)
-    term = TERM_BYTES[precision]
-    for ks in SLICE_KS[precision]:  # the wider slice while two stages fit
+    for ks in SLICE_KS["f32"]:  # the wider slice while two stages fit
         if any(k % ks for k in kpad):
             continue
         stage = max(npad) * ks * term
@@ -114,6 +139,40 @@ def samlp_plan(S: int, widths: Sequence[int], precision: str = "f32") -> SamlpPl
             wsplit = sum(k * n for k, n in zip(kpad, npad)) * term // 4
             return SamlpPlan(T, R, npad, kpad, ks, stages, fixed + stages * stage, wsplit)
     raise ValueError(f"samlp: widths {list(widths)} at S={S} need more shared memory than a block has ({SMEM_LIMIT})")
+
+
+def _bf16_plan(S, widths, T, R, npad, route) -> SamlpPlan:
+    """The bf16 kernel's plan (``csrc/samlp.cu`` ``bf16_smem``): K0 a power
+    of two, every K a multiple of the slice; the pooled rows, affine vectors,
+    index rows, barriers and as many staged tiles as fit (2 to MAX_SLOTS)
+    beside the resident chain, or beside two to four ring stages."""
+    k0 = 32
+    while k0 < widths[0]:
+        k0 *= 2
+    kpad = (k0,) + npad[:-1]
+    slices = [k for k in SLICE_KS["bf16"] if all(kp % k == 0 for kp in kpad)]
+    tile = (ROWS + T + 1) * (k0 + STAGE_PAD) * 4  # a slot
+    # pooled rows; s0, each layer's scale and shift, the last one's signs; index rows; barriers
+    fixed = (CONSUMER_WGS * T * npad[-1] * 4 + (k0 + 2 * sum(npad) + npad[-1]) * 4 + IDX_AHEAD_ROWS * ROWS * 4
+             + BF16_BARRIERS * 8)
+    weights = sum(k * n for k, n in zip(kpad, npad)) * 2
+    wsplit = weights // 4 + N_PADS[-1]  # the chain, then a row of zeros
+
+    def plan(ks, stages, held):
+        slots = min(MAX_SLOTS, (SMEM_LIMIT - fixed - held) // tile)
+        return SamlpPlan(T, R, npad, kpad, ks, stages, fixed + held + slots * tile, wsplit,
+                         "ring" if stages else "resident", slots)
+
+    if route in (None, "resident") and fixed + weights + 2 * tile <= SMEM_LIMIT:
+        return plan(slices[0], 0, weights)
+    if route in (None, "ring"):
+        for k in slices:  # the wider slice while two stages fit beside two slots
+            stage = min(max(npad), CHUNK) * k * 2  # a chunk's columns of a slice
+            stages = min(MAX_STAGES, (SMEM_LIMIT - fixed - 2 * tile) // stage)
+            if stages >= 2:
+                return plan(k, stages, stages * stage)
+    raise ValueError(f"samlp: bf16 widths {list(widths)} at S={S} need more shared memory than a block has "
+                     f"({SMEM_LIMIT}) on the {route or 'resident or the ring'} route")
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -190,15 +249,16 @@ def fused_sa_mlp_pool_plain(
 
 def fused_sa_mlp_pool_cuda(
     h_all: torch.Tensor, idx: torch.Tensor, sh0: torch.Tensor, s0: torch.Tensor, layers: Sequence[Layer],
-    precision: str = "f32",
+    precision: str = "f32", route: str | None = None,
 ) -> torch.Tensor:
     """Launch the fused kernel: contiguous f32 CUDA tensors h_all (B, N, w0),
     sh0 (B, M, w0), s0 (w0,), each layer's s and t (w_out,), and int32 idx
     (B, M, S); each layer's W (w_in, w_out) f32 of any strides (the kernel
     reads W.t(), which is contiguous where W is a transposed view of
     ``nn.Linear.weight``) -> (B, M, w_last) f32. Every width at most 256.
-    ``precision``: "f32" (3xTF32) or "bf16" (bf16 operands, f32
-    accumulation).
+    ``precision``: "f32" (3xTF32, ``samlp_kernel``) or "bf16" (bf16
+    operands, f32 accumulation, ``samlp_bf16_kernel``); ``route`` forces the
+    bf16 kernel's "resident" or "ring" route (see :func:`samlp_plan`).
 
     Raises for a tensor that is not on a CUDA device; it never computes the
     plain version. Adds one per launch to ``fused_sa_mlp_pool_cuda.launches``
@@ -235,7 +295,7 @@ def fused_sa_mlp_pool_cuda(
     for name, tt in [("sh0", sh0), ("s0", s0)] + [(f"layer {i + 1}", w) for i, lay in enumerate(layers) for w in lay]:
         if tt.device != h_all.device:
             raise RuntimeError(f"fused_sa_mlp_pool_cuda: {name} is on {tt.device}, h_all on {h_all.device}")
-    plan = samlp_plan(S, widths, precision)
+    plan = samlp_plan(S, widths, precision, route)
     lib = library()
     n = len(layers)
     ptrs, ints = ctypes.c_void_p * n, ctypes.c_int * n
@@ -245,15 +305,20 @@ def fused_sa_mlp_pool_cuda(
         items = B * (-(-M // plan.T) if S <= ROWS else M)
         out = torch.empty((B, M, widths[-1]), dtype=torch.float32, device=h_all.device)
         wsplit = torch.empty((plan.wsplit,), dtype=torch.float32, device=h_all.device)
-        err = lib.votenet_samlp(
+        args = (
             h_all.data_ptr(), idx.data_ptr(), sh0.data_ptr(), s0.data_ptr(),
             ptrs(*[w.data_ptr() for w in wts]),
             ptrs(*[s.data_ptr() for _, s, _ in layers]),
             ptrs(*[t.data_ptr() for _, _, t in layers]),
             (ctypes.c_int * (n + 1))(*widths), ints(*plan.npad), ints(*plan.kpad), n, B, N, M, S,
             plan.T, plan.R, plan.ks, plan.stages, min(-(-items // CONSUMER_WGS), sm_count(h_all.device.index)),
-            int(precision == "bf16"), wsplit.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
+        stream = torch.cuda.current_stream().cuda_stream
+        if precision == "bf16":
+            err = lib.votenet_samlp_bf16(*args, plan.slots, stage_chunk(w0, h_all, sh0), wsplit.data_ptr(),
+                                         out.data_ptr(), stream)
+        else:
+            err = lib.votenet_samlp(*args, wsplit.data_ptr(), out.data_ptr(), stream)
     check_launch(err, "fused_sa_mlp_pool")
     if precision == "bf16":
         fused_sa_mlp_pool_cuda.bf16.launches += 1
@@ -262,5 +327,12 @@ def fused_sa_mlp_pool_cuda(
     return out
 
 
+def stage_chunk(w0: int, *tensors: torch.Tensor) -> int:
+    """How the bf16 kernel stages its rows: 0, a bulk copy a row, where a
+    row of w0 floats and every tensor's address are multiples of 16 bytes,
+    else the bytes a cp.async (8 or 4), the widest that divides them."""
+    return next(c for c in (16, 8, 4) if (w0 * 4) % c == 0 and all(t.data_ptr() % c == 0 for t in tensors)) % 16
+
+
 fused_sa_mlp_pool_cuda.launches = 0
-fused_sa_mlp_pool_cuda.bf16 = SimpleNamespace(launches=0)  # the bf16 variant's own count
+fused_sa_mlp_pool_cuda.bf16 = SimpleNamespace(launches=0)  # the bf16 kernel's own count
