@@ -1,0 +1,3 @@
+"""launches of a cell of the kind its name ends in (``portbench/yardstick/readers.py``)."""
+
+from portbench.yardstick.readers import launches as read  # noqa: F401
