@@ -12,6 +12,7 @@ paths on one NVIDIA GPU.
     python3 chip_smoke.py --bn  # phase 32 alone (no final line)
     python3 chip_smoke.py --sass  # SASS of the batch-norm pool and split kernels' hot loops and the samlp kernels
     python3 chip_smoke.py --split  # phase 33 alone (no final line), the split K1-K4 beside their controls
+    python3 chip_smoke.py --fps  # FPS's routes alone (no final line): occupancy, B=1-64 rows, scratch vs staged
     python3 chip_smoke.py --split-ablation  # the split K1-K4 with one step of their design taken out each
     python3 chip_smoke.py --samlp-ablation  # samlp's bf16 kernel without its gather, products or epilogues
     python3 chip_smoke.py --cast-sites  # a bf16 forward's and step's and a mixed step's launches, copies by call site
@@ -45,9 +46,11 @@ Phases, each checked; any failure exits non-zero without the final line:
 2. Build the kernels of ``votenet_tpu_torch/csrc`` and time the build.
 3. FPS and the ball query against their plain PyTorch versions on the card,
    at the five shapes of a full-width forward (sa1-sa4 and the proposal
-   layer), at B=1 and B=8, plus the ball query's r^2 boundary case. Integer
+   layer), at B=1 and B=8 (FPS also at B=32 and 64: training's and eval's
+   batches), plus the ball query's r^2 boundary case. Integer
    outputs must be equal; CUDA-event times of both are printed, beside each
-   call's bound (see BOUNDS below), for FPS the CTAs a row is split over and
+   call's bound (see BOUNDS below), for FPS the CTAs a row is split over, its
+   route (ops/cuda/fps.py fps_plan) and us a step, and
    for the ball query the route (``seg``: segments a row's points are cut
    into, 1 for the unsplit route); then FPS's time a step at every cluster
    size at sa1's and sa2's shapes (B=8), the evidence for ops/cuda/fps.py's
@@ -570,8 +573,93 @@ def layer_inputs(points, cfg):
     return fps_cases, bq_cases
 
 
+def fps_rows(fps_cases, report):
+    """Phase 3's FPS rows: each (layer, npoint, xyz) case against the plain
+    version, with its cluster size, route and us a step."""
+    import torch
+
+    from votenet_tpu_torch.ops.cuda import fps as fps_mod
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda, farthest_point_sample_plain
+
+    for layer, npoint, xyz in fps_cases:
+        got = farthest_point_sample_cuda(npoint, xyz)
+        want = farthest_point_sample_plain(npoint, xyz)
+        equal = torch.equal(got, want)
+        err = int((got - want).abs().max())
+        k_ms = cuda_ms(lambda: farthest_point_sample_cuda(npoint, xyz), 10)
+        p_ms = cuda_ms(lambda: farthest_point_sample_plain(npoint, xyz), 1)
+        B, N = xyz.shape[0], xyz.shape[1]
+        route = fps_mod.fps_route(xyz)
+        shape = f"{N}->{npoint} cs={route[0]}" + (f" {route[2]} {k_ms * 1e3 / max(npoint - 1, 1):.3f}/step"
+                                                  if len(route) > 2 else "")
+        report("fps", layer, B, shape, equal, err, k_ms, p_ms, fps_bound(B, N, npoint))
+
+
+def fps_routes(cfg, scenes, report):
+    """``--fps``: FPS's routes on the card. The resident-cluster counts of
+    every register variant and of the staged instance at each cluster size
+    (ops/cuda/fps.py's rule reads the former); phase 3's FPS rows at B=1, 8,
+    32 and 64; at eval's sa1 shape (B=64, 20480 -> 2048) the scratch route,
+    the rule's choice before the staged route, against the staged route in
+    turns (p, c, c, p), both bit-equal to the plain version; then the route
+    tally of a B=64 f32 forward (the staged route once, registers 4 times)
+    and of a B=32 mixed training step (registers 5 times). Returns the us
+    of the four turns."""
+    import torch
+
+    from votenet_tpu_torch.config import default_config
+    from votenet_tpu_torch.data.dataflow import batch_scenes
+    from votenet_tpu_torch.ops.cuda import fps as fps_mod
+    from votenet_tpu_torch.ops.cuda import library
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda, farthest_point_sample_plain
+    from votenet_tpu_torch.predictor import VoteNetPredictor
+    from votenet_tpu_torch.train import Trainer, create_train_state
+
+    lib = library()
+    print("fps: resident clusters by cluster size, each register variant (points a thread) and the staged instance")
+    for cs in fps_mod.FPS_CLUSTER_SIZES:
+        counts = {ppt: lib.votenet_fps_max_clusters(cs, ppt) for ppt in (0, *fps_mod.FPS_POINTS_PER_THREAD)}
+        print(f"  cs={cs}: {counts}, staged {lib.votenet_fps_staged_max_clusters(cs)}")
+    print(TABLE_HEAD)
+    for B in (1, 8, 32, 64):
+        points = torch.from_numpy(np.stack([scenes[i % len(scenes)]["points"] for i in range(B)])).cuda()
+        fps_rows(layer_inputs(points, cfg)[0], report)
+
+    xyz = torch.from_numpy(np.stack([scenes[i % len(scenes)]["points"] for i in range(64)])).cuda()
+    want = farthest_point_sample_plain(2048, xyz)
+    turns = []
+    for route in ("scratch", None, None, "scratch"):
+        got = farthest_point_sample_cuda(2048, xyz, route=route)
+        if not torch.equal(got, want):
+            raise AssertionError(f"fps at B=64 on the {route or 'rule'}'s route differs from its plain version")
+        turns.append(cuda_ms(lambda: farthest_point_sample_cuda(2048, xyz, route=route), 5) * 1e3)
+    plan = fps_mod.fps_route(xyz)
+    print(f"  fps sa1 B=64, p, c, c, p (scratch at cs={fps_mod.fps_route(xyz, route='scratch')[0]}, then the "
+          f"rule's {plan}): {', '.join(f'{t:.1f}' for t in turns)} us; us a step "
+          f"{', '.join(f'{t / 2047:.3f}' for t in turns)}; all bit-equal")
+
+    def tally(fn):
+        before = dict(farthest_point_sample_cuda.routes)
+        fn()
+        torch.cuda.synchronize()
+        return {k: v - before[k] for k, v in farthest_point_sample_cuda.routes.items()}
+
+    predictor = VoteNetPredictor(cfg, device="cuda", batch_size=64)
+    batch = np.stack([scenes[i % len(scenes)]["points"] for i in range(64)])
+    forward = tally(lambda: predictor(batch))
+    mcfg = default_config(mixed_precision=True)
+    state = create_train_state(mcfg, 512, torch.Generator().manual_seed(SEED), device="cuda")
+    train_batch = next(batch_scenes(iter([scenes[i % len(scenes)] for i in range(32)]), 32, mcfg.max_gt_boxes))
+    step = tally(lambda: Trainer(mcfg, state).train_epoch([train_batch], metrics_every=1))
+    print(f"  route tally: a B=64 f32 forward {forward}; a B=32 mixed training step {step}")
+    if forward != {"registers": 4, "staged": 1, "scratch": 0} or step != {"registers": 5, "staged": 0, "scratch": 0}:
+        raise AssertionError(f"fps routes: a B=64 forward took {forward}, a B=32 step {step}")
+    return turns
+
+
 def phase_kernels(cfg, scenes, report):
-    """Kernel against plain at every main-path shape, B=1 and B=8."""
+    """Kernel against plain at every main-path shape, B=1 and B=8 (FPS also
+    at B=32 and 64)."""
     import torch
 
     from votenet_tpu_torch.ops.cuda import ballquery as bq_mod
@@ -580,25 +668,20 @@ def phase_kernels(cfg, scenes, report):
 
     # None where --kernel-times runs in a checkout whose ball query has one route
     ballquery_route = getattr(bq_mod, "ballquery_route", None)
-    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda, farthest_point_sample_plain
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda
 
     print("phase 3: kernel vs plain on the card (CUDA events, warm L2)")
     print(TABLE_HEAD)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     forced = []  # (layer, B, case): the ball query through the route the rule did not take
-    for B in (1, 8):
-        points = torch.from_numpy(np.stack([s["points"] for s in scenes[:B]])).cuda()
-        fps_cases, bq_cases = layer_inputs(points, cfg)
-        for layer, npoint, xyz in fps_cases:
-            got = farthest_point_sample_cuda(npoint, xyz)
-            want = farthest_point_sample_plain(npoint, xyz)
-            equal = torch.equal(got, want)
-            err = int((got - want).abs().max())
-            k_ms = cuda_ms(lambda: farthest_point_sample_cuda(npoint, xyz), 10)
-            p_ms = cuda_ms(lambda: farthest_point_sample_plain(npoint, xyz), 1)
-            N = xyz.shape[1]
-            cs, _ = fps_mod.fps_route(xyz)
-            report("fps", layer, B, f"{N}->{npoint} cs={cs}", equal, err, k_ms, p_ms, fps_bound(B, N, npoint))
+    for B in (1, 8, 32, 64):
+        points = torch.from_numpy(np.stack([scenes[i % len(scenes)]["points"] for i in range(B)])).cuda()
+        cases, bq_cases = layer_inputs(points, cfg)
+        fps_rows(cases, report)
+        if B == 8:
+            fps_cases = cases
+        if B > 8:  # FPS alone at training's and eval's batches
+            continue
         for layer, radius, nsample, xyz, q in bq_cases:
             got = query_ball_point_cuda(radius, nsample, xyz, q)
             want = query_ball_point_plain(radius, nsample, xyz, q)
@@ -1734,7 +1817,7 @@ def phase_fps_noscalar(cfg, scenes, report, production_ms):
         k_ms = cuda_ms(lambda: fps_rowwise_noscalar_cuda(npoint, xyz), 10)
         prod_ms = cuda_ms(lambda: farthest_point_sample_cuda(npoint, xyz), 10)
         p_ms = cuda_ms(lambda: farthest_point_sample_plain(npoint, xyz), 1)
-        cs, _ = fps_mod.fps_route(xyz)
+        cs = fps_mod.fps_route(xyz)[0]
         report("fps_noscalar", layer, B, f"{N}->{npoint} cs={cs}", ok, err, k_ms, p_ms, fps_bound(B, N, npoint),
                total=main)
         if main:
@@ -5348,6 +5431,11 @@ def main() -> int:
         print(json.dumps({"split_times": {k: {"ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
                                               "bound_ms": stats[k]["bound_ms"], "library_ms": stats[k]["library_ms"]}
                                           for k in SPLIT_ROWS + (CAST_ROW,)}, "failed": failed}))
+        print(card)
+        return 1 if failed else 0
+    if "--fps" in sys.argv[1:]:  # FPS's routes alone
+        turns = run("fps routes", lambda: fps_routes(cfg, scenes, report))
+        print(json.dumps({"fps_sa1_b64_pccp_us": turns, "failed": failed}))
         print(card)
         return 1 if failed else 0
     if "--samlp-ablation" in sys.argv[1:]:  # samlp's bf16 kernel with one part of its work taken out each

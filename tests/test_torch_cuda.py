@@ -43,8 +43,8 @@ def cloud(seed, B, N, kind):
 )
 def test_fps_kernel_matches_plain(cuda, B, N, npoint, kind):
     """The cluster-size rule's route at each shape: N=70000 in registers at 16
-    CTAs a row, N=140000 the global-scratch variant, N=20000 not a multiple
-    of a cluster's threads, N=100 below one CTA, npoint 1 and N."""
+    CTAs a row, N=140000 the staged route at 16, N=20000 not a multiple of a
+    cluster's threads, N=100 below one CTA, npoint 1 and N."""
     from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda, farthest_point_sample_plain
 
     xyz = torch.from_numpy(cloud(B + N, B, N, kind)).to(cuda)
@@ -87,6 +87,103 @@ def test_fps_kernel_ties_across_cta_boundaries(cuda, cluster):
     want = farthest_point_sample_plain(64, xyz)
     assert torch.equal(got, want)
     assert (want[0, 1:38] < S).all()  # the first copies win: all in slice 0
+
+
+def fps_launch_counted(npoint, xyz, **forced):
+    """farthest_point_sample_cuda's output and the route its launch was
+    counted under; one launch, counted once."""
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda
+
+    launches, routes = farthest_point_sample_cuda.launches, dict(farthest_point_sample_cuda.routes)
+    got = farthest_point_sample_cuda(npoint, xyz, **forced)
+    torch.cuda.synchronize()
+    moved = {k: v - routes[k] for k, v in farthest_point_sample_cuda.routes.items() if v != routes[k]}
+    assert farthest_point_sample_cuda.launches == launches + 1 and len(moved) == 1 and sum(moved.values()) == 1
+    return got, next(iter(moved))
+
+
+@pytest.mark.parametrize(
+    "B,N,npoint,kind,cs",
+    [(64, 20480, 2048, "scene", 2), (65, 20480, 512, "scene", 2), (128, 20480, 256, "normal", 2),
+     (64, 20000, 300, "normal", 2), (64, 20481, 300, "normal", 4), (1, 140000, 64, "normal", 16)],
+)
+def test_fps_staged_route_matches_plain(cuda, B, N, npoint, kind, cs):
+    """The staged route where the rule sends it: eval's sa1 (B=64, 20480
+    points, 2048 centres) in one wave, B=65 still in one, B=128 in two,
+    ragged rows (the last CTA's slice short; 20481 points at 4 CTAs), one
+    row at 16 CTAs. Bit-equal to the plain version, counted once."""
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_plain, fps_route
+
+    xyz = torch.from_numpy(cloud(B + N + 2, B, N, kind)).to(cuda)
+    assert fps_route(xyz) == (cs, 40, "staged")
+    got, route = fps_launch_counted(npoint, xyz)
+    assert route == "staged"
+    assert torch.equal(got, farthest_point_sample_plain(npoint, xyz))
+
+
+def test_fps_staged_route_holds_eval_batch_in_one_wave(cuda):
+    """The card holds eval's 64 rows of 20480 points on the staged route at
+    once: 64 clusters of 2 CTAs, one CTA an SM."""
+    from votenet_tpu_torch.ops.cuda import library
+
+    assert library().votenet_fps_staged_max_clusters(2) >= 64
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_fps_staged_route_ties_across_cta_boundaries(cuda, cluster):
+    """As test_fps_kernel_ties_across_cta_boundaries, on the staged route
+    forced: the lowest index wins every tie across the cluster's CTAs, the
+    winner's coordinates read from its CTA's staged slice."""
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_plain
+
+    base = np.random.RandomState(cluster + 200).randn(37, 3).astype(np.float32)
+    N = 4096
+    xyz = np.zeros((2, N, 3), np.float32)
+    S = -(-N // cluster)
+    for r in range(cluster):
+        pos = r * S + np.random.RandomState(r + 7).permutation(S)[:37]
+        xyz[:, pos] = base
+        xyz[:, r * S:(r + 1) * S][np.all(xyz[:, r * S:(r + 1) * S] == 0, axis=-1)] = base[0]
+    xyz = torch.from_numpy(xyz).to(cuda)
+    got, route = fps_launch_counted(64, xyz, cluster=cluster, route="staged")
+    assert route == "staged"
+    want = farthest_point_sample_plain(64, xyz)
+    assert torch.equal(got, want)
+    assert (want[:, 1:38] < S).all()
+
+
+def test_fps_staged_route_duplicate_points(cuda):
+    """Eval's shape on a cloud of 40 distinct points, each repeated ~512
+    times at shuffled places across both CTAs of every row: every step ties
+    across warps, CTAs and the cluster, and once all 40 are picked every
+    minimum is 0."""
+    rng = np.random.RandomState(11)
+    base = rng.randn(40, 3).astype(np.float32)
+    xyz = np.stack([base[rng.randint(0, 40, 20480)] for _ in range(64)])
+    xyz = torch.from_numpy(xyz).to(cuda)
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_plain
+
+    got, route = fps_launch_counted(256, xyz)
+    assert route == "staged"
+    assert torch.equal(got, farthest_point_sample_plain(256, xyz))
+
+
+@pytest.mark.parametrize("route", ["registers", "staged", "scratch"])
+@pytest.mark.parametrize("B,N", [(8, 20480), (64, 20480), (3, 2048)])
+def test_fps_every_route_forced(cuda, route, B, N):
+    """Each route forced at the rule's cluster size gives the plain
+    version's indices and is counted under its name; the register route
+    cannot take eval's sa1 (B=64) at the size the rule picks."""
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_plain, fps_route
+
+    xyz = torch.from_numpy(cloud(N + B, B, N, "scene")).to(cuda)
+    if (B, route) == (64, "registers"):
+        with pytest.raises(ValueError, match="register"):
+            fps_route(xyz, route=route)
+        return
+    got, counted = fps_launch_counted(300, xyz, route=route)
+    assert counted == route
+    assert torch.equal(got, farthest_point_sample_plain(300, xyz))
 
 
 @pytest.mark.parametrize(

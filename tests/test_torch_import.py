@@ -153,6 +153,7 @@ def test_kernel_wrapper_raises_without_a_card(monkeypatch, kernel):
                 xyz, torch.zeros(1, 4, 8, dtype=torch.int32), torch.zeros(1, 4, 3), torch.ones(3), [layer]
             )
     assert fps_mod.farthest_point_sample_cuda.launches == 0
+    assert sum(fps_mod.farthest_point_sample_cuda.routes.values()) == 0
     assert bq_mod.query_ball_point_cuda.launches == 0
     assert scatter_mod.scatter_add_cuda.launches == 0
     assert samlp_mod.fused_sa_mlp_pool_cuda.launches == 0
@@ -317,6 +318,107 @@ def test_fps_points_per_thread(N, cs, ppt):
     assert fps_mod.fps_points_per_thread(N, cs) == ppt
     if ppt:
         assert fps_mod.FPS_THREADS * ppt * cs >= N
+
+
+# cudaOccupancyMaxActiveClusters of each register variant (ppt) at each
+# cluster size (cs) on an H100 80GB HBM3 (chip_smoke.py --fps prints them)
+CARD_CLUSTERS = {1: {0: 660, 1: 792, 2: 660, 4: 528, 5: 528, 8: 528, 10: 396, 16: 264, 20: 264, 32: 132},
+                 2: {0: 330, 1: 396, 2: 330, 4: 264, 5: 264, 8: 264, 10: 198, 16: 132, 20: 132, 32: 66},
+                 4: {0: 154, 1: 186, 2: 154, 4: 124, 5: 124, 8: 124, 10: 92, 16: 62, 20: 62, 32: 30},
+                 8: {0: 77, 1: 92, 2: 77, 4: 62, 5: 62, 8: 62, 10: 45, 16: 30, 20: 30, 32: 15},
+                 16: {0: 35, 1: 42, 2: 35, 4: 28, 5: 28, 8: 28, 10: 21, 16: 14, 20: 14, 32: 7}}
+
+
+def card_clusters(N):
+    return lambda c: CARD_CLUSTERS[c][fps_mod.fps_points_per_thread(N, c)]
+
+
+# the card's plan at each (B, N): eval's sa1 (64, 20480) and every shape the
+# register route cannot hold take the staged route; the others keep theirs
+CARD_PLANS = {
+    2048: dict.fromkeys((1, 8, 32, 64, 65, 128, 200), (1, 8, "registers")),
+    20480: {**dict.fromkeys((1, 8, 32), (8, 10, "registers")), **dict.fromkeys((64, 65, 128, 200), (2, 40, "staged"))},
+    40960: {**dict.fromkeys((1, 8), (16, 10, "registers")), **dict.fromkeys((32, 64, 65, 128, 200), (4, 40, "staged"))},
+}
+
+
+@pytest.mark.parametrize("N", [2048, 20480, 40960])
+@pytest.mark.parametrize("B", [1, 8, 32, 64, 65, 128, 200])
+def test_fps_plan_on_the_cards_counts(B, N):
+    """Under the card's resident-cluster counts: a shape that the register
+    route takes keeps the cluster size and variant that fps_cluster_size and
+    fps_points_per_thread give it; the others take the staged route at the
+    smallest cluster that covers the row, in one wave up to 66 rows of 20480
+    points, in waves beyond."""
+    want = CARD_PLANS[N][B]
+    assert fps_mod.fps_plan(B, N, card_clusters(N)) == want
+    cs = fps_mod.fps_cluster_size(B, N, card_clusters(N))
+    ppt = fps_mod.fps_points_per_thread(N, cs)
+    if want[2] == "registers":
+        assert (cs, ppt) == want[:2]
+    else:
+        assert ppt == 0 and want[0] >= cs and want[0] * fps_mod.FPS_STAGED_POINTS_PER_CTA >= N
+        assert want[0] // 2 < cs or want[0] // 2 * fps_mod.FPS_STAGED_POINTS_PER_CTA < N
+
+
+@pytest.mark.parametrize("N", [1, 2048, 5000, 20000, 20480, 20481, 40960, 70000, 131073, 163840, 163841, 200000])
+@pytest.mark.parametrize("B", [1, 8, 32, 64, 65, 128, 200])
+@pytest.mark.parametrize("occupancy", ["full", "card"])
+def test_fps_plan_keeps_every_register_shape(B, N, occupancy):
+    """Under a card that holds 132 // cs clusters and under the H100's
+    counts: the register route's (cs, ppt) wherever fps_points_per_thread
+    finds a variant; else the staged route while 16 CTAs of 10240 points
+    cover the row; else the scratch route at the rule's size."""
+    fake = (lambda c: 132 // c) if occupancy == "full" else card_clusters(N)
+    cs = fps_mod.fps_cluster_size(B, N, fake)
+    ppt = fps_mod.fps_points_per_thread(N, cs)
+    got = fps_mod.fps_plan(B, N, fake)
+    if ppt:
+        assert got == (cs, ppt, "registers")
+    elif N <= 16 * fps_mod.FPS_STAGED_POINTS_PER_CTA:
+        assert got == (fps_mod.fps_staged_cluster_size(N, cs), 40, "staged")
+    else:
+        assert got == (cs, 0, "scratch")
+
+
+@pytest.mark.parametrize("N,cs,want", [(1, 1, 1), (10240, 1, 1), (10241, 1, 2), (20480, 2, 2), (20481, 2, 4),
+                                       (20480, 4, 4), (40960, 1, 4), (163840, 1, 16), (163841, 1, 16)])
+def test_fps_staged_cluster_size(N, cs, want):
+    """The smallest power of two from cs up whose 10240-point slices cover
+    the row, 16 at most."""
+    assert fps_mod.fps_staged_cluster_size(N, cs) == want
+
+
+@pytest.mark.parametrize("B,N,cluster,route,want", [
+    (64, 20480, None, "scratch", (2, 0, "scratch")),  # the parent's route at eval's sa1
+    (64, 20480, None, "staged", (2, 40, "staged")),
+    (8, 20480, None, "staged", (8, 40, "staged")),
+    (8, 2048, None, "staged", (1, 40, "staged")),
+    (8, 20480, None, "scratch", (8, 0, "scratch")),
+    (64, 20480, 1, None, (1, 0, "scratch")),  # one CTA cannot stage 20480 points
+    (64, 20480, 2, None, (2, 40, "staged")),
+    (64, 20480, 8, None, (8, 10, "registers")),  # a forced size is taken, resident or not
+    (64, 20481, 2, "scratch", (2, 0, "scratch")),
+    (1, 140000, None, None, (16, 40, "staged")),
+    (1, 200000, None, None, (16, 0, "scratch")),
+    (2, 20000, 16, "staged", (16, 40, "staged")),
+])
+def test_fps_plan_forced(B, N, cluster, route, want):
+    assert fps_mod.fps_plan(B, N, card_clusters(N), cluster, route) == want
+
+
+@pytest.mark.parametrize("B,N,cluster,route", [(64, 20480, None, "registers"), (1, 20480, 1, "staged"),
+                                               (1, 200000, None, "staged"), (8, 2048, None, "dense")])
+def test_fps_plan_refuses_a_route_that_cannot_take_the_row(B, N, cluster, route):
+    with pytest.raises(ValueError, match="fps"):
+        fps_mod.fps_plan(B, N, card_clusters(N), cluster, route)
+
+
+def test_fps_route_tally_has_an_entry_a_route():
+    """farthest_point_sample_cuda counts its launches by route, under the
+    names fps_plan gives."""
+    assert set(fps_mod.farthest_point_sample_cuda.routes) == set(fps_mod.FPS_ROUTES)
+    assert fps_mod.FPS_ROUTES == ("registers", "staged", "scratch")
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -17,14 +17,22 @@
 // is bound by latency: the argmax's reductions and barriers, not bandwidth.
 //
 // Design: a batch row is split over a cluster of `cs` CTAs (1-16, chosen by
-// the wrapper, ops/cuda/fps.py fps_cluster_size), 256 threads each. CTA rank
+// the wrapper, ops/cuda/fps.py fps_plan), 256 threads each. CTA rank
 // r owns the contiguous slice [r*S, (r+1)*S) of the row, S = ceil(N / cs),
 // and each thread owns the points r*S + tid + p*256, p < PPT. Their x, y, z
 // and running minimum stay in registers for the whole run (PPT = 1-32:
-// up to 131072 points at cs = 16); past that the PPT = 0 variant reads the
-// coordinates from device memory each step and keeps the minimum in a
-// wrapper-allocated global scratch. With cs > 1 a step has no barrier,
-// neither of the CTA nor of the cluster:
+// up to 131072 points at cs = 16). Where the wrapper's cluster leaves more
+// than 32 points a thread (eval's sa1 at B=64: its 64 clusters of 8 or 4
+// CTAs are not all resident, so cs falls to 2) the staged instance takes
+// the row: PPT = 40, 212 registers, one CTA an SM, so 64 rows of 20480
+// points are all on chip in one wave of clusters of 2. It also copies its
+// slice of xyz into shared memory, so that a thread's scan keeps only
+// (value, slot), three instructions a point fewer than the five-word
+// candidate, and its warp reads the winner's coordinates there once a
+// step. Past that the PPT = 0 variant reads the coordinates from device
+// memory each step and keeps the minimum in a wrapper-allocated global
+// scratch (7.9 us a step at sa1's B=64 shape against the staged 1.04).
+// With cs > 1 a step has no barrier, neither of the CTA nor of the cluster:
 //  1. every thread updates its minima against the last pick and keeps its
 //     best (value, index, x, y, z); two redux.sync over the value's bits and
 //     the index find the warp's winner;
@@ -204,17 +212,22 @@ __device__ __forceinline__ void owner_xyz(const Cand& mine, int wi, float* x, fl
 
 // grid = B * cs CTAs in clusters of cs, block = kThreads.
 // xyz (B, N, 3) f32, out (B, npoint) i32, scratch (B, N) f32 for PPT == 0.
-// NOSCALAR (PPT > 0 only): the noscalar variant.
-template <int PPT, bool NOSCALAR>
+// NOSCALAR (PPT > 0 only): the noscalar variant. STAGED (the staged route,
+// PPT > 0 only): the CTA's slice of xyz also in dynamic shared memory, so
+// that a thread's scan keeps (value, slot) alone and a warp reads its
+// winner's coordinates there once a step.
+template <int PPT, bool NOSCALAR, bool STAGED = false>
 __global__ void __launch_bounds__(kThreads)
     fps_cluster_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ out,
                        float* __restrict__ scratch) {
   static_assert(!NOSCALAR || PPT > 0, "the noscalar variant keeps its points in registers");
+  static_assert(!STAGED || (PPT > 0 && !NOSCALAR), "the staged scan keeps its points in registers");
   __shared__ Cand cand[2][kMaxCluster * kWarps];  // slot rank * kWarps + warp
   __shared__ Pick pk[2][kMaxCluster * kWarps];    // NOSCALAR: the step's candidates, as cand
   __shared__ uint4 coord[2];                      // NOSCALAR: the bits of the pick's x, y, z
   __shared__ __align__(8) unsigned long long bar[2];
   __shared__ __align__(8) unsigned long long cbar[2];  // NOSCALAR: coord's mbarriers
+  extern __shared__ float staged[];                    // STAGED: x, y, z of the slice's points
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -242,6 +255,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     for (int i = lo + tid; i < hi; i += kThreads) mind[i] = 1e38f;
+  }
+  if constexpr (STAGED) {
+    for (int t = tid; t < 3 * (hi - lo); t += kThreads) staged[t] = p[3 * lo + t];
   }
   if (tid == 0 && cs > 1) {
     bar_init(bar_addr[0], 1);
@@ -341,7 +357,19 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     Cand best = {-1.0f, INT_MAX, 0.0f, 0.0f, 0.0f};
-    if constexpr (PPT > 0) {
+    if constexpr (STAGED) {  // (value, slot) alone; the index once the thread's best is known
+      int bq = 0;
+#pragma unroll
+      for (int q = 0; q < kRegs; ++q) {
+        const float m = fminf(pm[q], sqdist(px[q], py[q], pz[q], cx, cy, cz));
+        pm[q] = m;
+        if (m > best.v) {
+          best.v = m;
+          bq = q;
+        }
+      }
+      if (best.v >= 0.0f) best.i = lo + tid + bq * kThreads;
+    } else if constexpr (PPT > 0) {
 #pragma unroll
       for (int q = 0; q < kRegs; ++q) {
         const float m = fminf(pm[q], sqdist(px[q], py[q], pz[q], cx, cy, cz));
@@ -358,7 +386,14 @@ __global__ void __launch_bounds__(kThreads)
     }
     Cand win = best;
     warp_argmax(win.v, win.i);
-    owner_xyz(best, win.i, &win.x, &win.y, &win.z);
+    if constexpr (STAGED) {
+      const float* w = staged + 3 * (win.i == INT_MAX ? 0 : win.i - lo);  // one word for the whole warp
+      win.x = w[0];
+      win.y = w[1];
+      win.z = w[2];
+    } else {
+      owner_xyz(best, win.i, &win.x, &win.y, &win.z);
+    }
     if (cs == 1) {  // one CTA: its own shared memory and one barrier
       if (lane == 0) cand[par][warp] = win;
       __syncthreads();
@@ -381,55 +416,70 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();  // no CTA leaves while a peer's sends to it may be in flight
 }
 
-template <int PPT, bool NOSCALAR = false>
-cudaError_t launch(const float* xyz, int B, int N, int npoint, int cs, int* out,
-                   float* scratch, cudaStream_t stream) {
-  if (cs > 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fps_cluster_kernel<PPT, NOSCALAR>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(B * cs);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = 0;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, fps_cluster_kernel<PPT, NOSCALAR>, xyz, N, npoint, out, scratch);
-}
+// One instance of the kernel: its launch and its resident-cluster count.
+template <int PPT, bool NOSCALAR = false, bool STAGED = false>
+struct Fps {
+  static constexpr int smem = STAGED ? 3 * kThreads * PPT * static_cast<int>(sizeof(float)) : 0;
 
-template <int PPT>
-int max_clusters(int cs) {
-  if (cs > 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fps_cluster_kernel<PPT, false>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return -static_cast<int>(err);
+  // The attributes a launch of cs CTAs a cluster needs, set on the current
+  // device; then the launch's configuration (attr is filled in place).
+  static cudaError_t configure(int grid, int cs, cudaStream_t stream, cudaLaunchConfig_t* config,
+                               cudaLaunchAttribute* attr) {
+    const auto kernel = fps_cluster_kernel<PPT, NOSCALAR, STAGED>;
+    if (cs > 8) {
+      const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+    }
+    if (smem > 0) {
+      const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    *config = {};
+    config->gridDim = dim3(grid);
+    config->blockDim = dim3(kThreads);
+    config->dynamicSmemBytes = smem;
+    config->stream = stream;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = cs;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    config->attrs = attr;
+    config->numAttrs = 1;
+    return cudaSuccess;
   }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(cs);
-  config.blockDim = dim3(kThreads);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fps_cluster_kernel<PPT, false>, &config);
-  return err == cudaSuccess ? n : -static_cast<int>(err);
-}
+
+  static cudaError_t launch(const float* xyz, int B, int N, int npoint, int cs, int* out, float* scratch,
+                            cudaStream_t stream) {
+    cudaLaunchConfig_t config;
+    cudaLaunchAttribute attr;
+    const cudaError_t err = configure(B * cs, cs, stream, &config, &attr);
+    if (err != cudaSuccess) return err;
+    return cudaLaunchKernelEx(&config, fps_cluster_kernel<PPT, NOSCALAR, STAGED>, xyz, N, npoint, out, scratch);
+  }
+
+  // cudaOccupancyMaxActiveClusters, or minus a cudaError_t.
+  static int max_clusters(int cs) {
+    cudaLaunchConfig_t config;
+    cudaLaunchAttribute attr;
+    cudaError_t err = configure(cs, cs, nullptr, &config, &attr);
+    int n = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&n, fps_cluster_kernel<PPT, NOSCALAR, STAGED>, &config);
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+  }
+};
+
+// The staged route's instance: 40 points a thread in registers (10240 a
+// CTA, one CTA an SM), the slice staged in shared memory.
+constexpr int kStagedPpt = 40;
+using Staged = Fps<kStagedPpt, false, true>;
+
+bool valid_cluster(int cs) { return cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16; }
 
 bool valid_args(int cs, int ppt) {
   switch (ppt) {
     case 0: case 1: case 2: case 4: case 5: case 8: case 10: case 16: case 20: case 32:
-      return cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16;
+      return valid_cluster(cs);
     default:
       return false;
   }
@@ -454,28 +504,28 @@ int votenet_fps(const float* xyz, int B, int N, int npoint, int cs, int ppt, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (noscalar) {
     switch (ppt) {
-      case 1: return launch<1, true>(xyz, B, N, npoint, cs, out, scratch, s);
-      case 2: return launch<2, true>(xyz, B, N, npoint, cs, out, scratch, s);
-      case 4: return launch<4, true>(xyz, B, N, npoint, cs, out, scratch, s);
-      case 5: return launch<5, true>(xyz, B, N, npoint, cs, out, scratch, s);
-      case 8: return launch<8, true>(xyz, B, N, npoint, cs, out, scratch, s);
-      case 10: return launch<10, true>(xyz, B, N, npoint, cs, out, scratch, s);
-      case 16: return launch<16, true>(xyz, B, N, npoint, cs, out, scratch, s);
-      case 20: return launch<20, true>(xyz, B, N, npoint, cs, out, scratch, s);
-      default: return launch<kMaxPpt, true>(xyz, B, N, npoint, cs, out, scratch, s);
+      case 1: return Fps<1, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+      case 2: return Fps<2, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+      case 4: return Fps<4, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+      case 5: return Fps<5, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+      case 8: return Fps<8, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+      case 10: return Fps<10, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+      case 16: return Fps<16, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+      case 20: return Fps<20, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+      default: return Fps<kMaxPpt, true>::launch(xyz, B, N, npoint, cs, out, scratch, s);
     }
   }
   switch (ppt) {
-    case 0: return launch<0>(xyz, B, N, npoint, cs, out, scratch, s);
-    case 1: return launch<1>(xyz, B, N, npoint, cs, out, scratch, s);
-    case 2: return launch<2>(xyz, B, N, npoint, cs, out, scratch, s);
-    case 4: return launch<4>(xyz, B, N, npoint, cs, out, scratch, s);
-    case 5: return launch<5>(xyz, B, N, npoint, cs, out, scratch, s);
-    case 8: return launch<8>(xyz, B, N, npoint, cs, out, scratch, s);
-    case 10: return launch<10>(xyz, B, N, npoint, cs, out, scratch, s);
-    case 16: return launch<16>(xyz, B, N, npoint, cs, out, scratch, s);
-    case 20: return launch<20>(xyz, B, N, npoint, cs, out, scratch, s);
-    default: return launch<kMaxPpt>(xyz, B, N, npoint, cs, out, scratch, s);
+    case 0: return Fps<0>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    case 1: return Fps<1>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    case 2: return Fps<2>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    case 4: return Fps<4>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    case 5: return Fps<5>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    case 8: return Fps<8>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    case 10: return Fps<10>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    case 16: return Fps<16>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    case 20: return Fps<20>::launch(xyz, B, N, npoint, cs, out, scratch, s);
+    default: return Fps<kMaxPpt>::launch(xyz, B, N, npoint, cs, out, scratch, s);
   }
 }
 
@@ -485,17 +535,31 @@ int votenet_fps(const float* xyz, int B, int N, int npoint, int cs, int ppt, int
 int votenet_fps_max_clusters(int cs, int ppt) {
   if (!valid_args(cs, ppt)) return -static_cast<int>(cudaErrorInvalidValue);
   switch (ppt) {
-    case 0: return max_clusters<0>(cs);
-    case 1: return max_clusters<1>(cs);
-    case 2: return max_clusters<2>(cs);
-    case 4: return max_clusters<4>(cs);
-    case 5: return max_clusters<5>(cs);
-    case 8: return max_clusters<8>(cs);
-    case 10: return max_clusters<10>(cs);
-    case 16: return max_clusters<16>(cs);
-    case 20: return max_clusters<20>(cs);
-    default: return max_clusters<kMaxPpt>(cs);
+    case 0: return Fps<0>::max_clusters(cs);
+    case 1: return Fps<1>::max_clusters(cs);
+    case 2: return Fps<2>::max_clusters(cs);
+    case 4: return Fps<4>::max_clusters(cs);
+    case 5: return Fps<5>::max_clusters(cs);
+    case 8: return Fps<8>::max_clusters(cs);
+    case 10: return Fps<10>::max_clusters(cs);
+    case 16: return Fps<16>::max_clusters(cs);
+    case 20: return Fps<20>::max_clusters(cs);
+    default: return Fps<kMaxPpt>::max_clusters(cs);
   }
+}
+
+// The staged route: FPS over clusters of `cs` CTAs (1, 2, 4, 8 or 16), each
+// thread keeping kStagedPpt points in registers, kThreads * kStagedPpt * cs
+// >= N. Returns the cudaError_t of the launch.
+int votenet_fps_staged(const float* xyz, int B, int N, int npoint, int cs, int* out, void* stream) {
+  if (!valid_cluster(cs) || static_cast<long long>(kThreads) * kStagedPpt * cs < N) return cudaErrorInvalidValue;
+  return Staged::launch(xyz, B, N, npoint, cs, out, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// As votenet_fps_max_clusters, for the staged route's instance.
+int votenet_fps_staged_max_clusters(int cs) {
+  if (!valid_cluster(cs)) return -static_cast<int>(cudaErrorInvalidValue);
+  return Staged::max_clusters(cs);
 }
 
 const char* votenet_error_string(int err) {

@@ -116,6 +116,10 @@ def library() -> ctypes.CDLL:
             lib.votenet_fps.restype = i32
             lib.votenet_fps_max_clusters.argtypes = [i32, i32]
             lib.votenet_fps_max_clusters.restype = i32
+            lib.votenet_fps_staged.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr]
+            lib.votenet_fps_staged.restype = i32
+            lib.votenet_fps_staged_max_clusters.argtypes = [i32]
+            lib.votenet_fps_staged_max_clusters.restype = i32
             lib.votenet_ball_query.argtypes = [
                 ptr, ptr, i32, i32, i32, f32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr
             ]
