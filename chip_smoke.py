@@ -13,6 +13,7 @@ paths on one NVIDIA GPU.
     python3 chip_smoke.py --sass  # SASS of the batch-norm pool and split kernels' hot loops and the samlp kernels
     python3 chip_smoke.py --split  # phase 33 alone (no final line), the split K1-K4 beside their controls
     python3 chip_smoke.py --fps  # FPS's routes alone (no final line): occupancy, B=1-64 rows, scratch vs staged
+    python3 chip_smoke.py --attention  # phases 34-35 alone (no final line): the attention kernel, a Group-Free forward
     python3 chip_smoke.py --split-ablation  # the split K1-K4 with one step of their design taken out each
     python3 chip_smoke.py --samlp-ablation  # samlp's bf16 kernel without its gather, products or epilogues
     python3 chip_smoke.py --cast-sites  # a bf16 forward's and step's and a mixed step's launches, copies by call site
@@ -329,6 +330,20 @@ Phases, each checked; any failure exits non-zero without the final line:
    forward's none after the first, and the split stages at each split site
    (``bn_launches``: ``bn_split_*``, ``bn_prologue_split``). It runs after
    phase 32.
+34. The attention kernel (``csrc/attention.cu``) against the plain f32
+   chain it replaces (``multi_head_attention_plain`` on the card: the
+   (B, 8, Lq, Lk) scores in device memory, softmax, the second product),
+   both held against an f64 run, at Group-Free 3D's eval shapes (B=64,
+   8 heads of 36: self-attention 256 x 256, cross-attention 256 x 1024):
+   the kernel's gap to f64 within ATTENTION_TOL_FACTOR times the plain
+   chain's own (at least 1e-6 of the output's scale); beside both,
+   ``F.scaled_dot_product_attention`` on the same heads (the library
+   column).
+35. Group-Free 3D (``groupfree_config()``, seeded weights) at B=64 through
+   ``make_packed_predict_fn``: one forward's launches read from counters
+   set to 0 just before it (the attention kernel 2 a decoder layer, FPS and
+   the ball query 4, the head's decode + IoU and greedy 1 each), FPS's
+   routes, and the device launches of a second forward (torch.profiler).
 
 Output: a JSON line of the kernels, the ``nvidia-smi`` line of the card, and
 last ``{"ok": true, "device": {...}}``. In the kernels' line ``ms``,
@@ -350,7 +365,9 @@ B=8 end points, ``replaced_ms`` the two launches it replaces, phase 31),
 IoU triangle and the decode alone on the same B=8 boxes and end points),
 ``ballquery_fast_bf16``
 (``launches`` phase 23's serving forward; ``production_ms`` the exact
-kernel's) and the batch-norm kernels and their pooled variants (``launches`` phase
+kernel's), ``attention`` (``launches`` phase 35's Group-Free
+forward; ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` sums of
+phase 34's self- and cross-attention at B=64) and the batch-norm kernels and their pooled variants (``launches`` phase
 7's training path, beside serving's, eval's and ``run_train``'s; ``ms``,
 ``plain_ms``, ``bound_ms``, ``library_ms`` and ``eager_ms`` sums over the
 sites of a B=8 step in f32 that take each, phase 32; ``bf16_us`` and
@@ -5342,6 +5359,110 @@ def compare_outputs(path_a, path_b):
     finish(checks, "outputs against the other checkout", None)
 
 
+ATTENTION_SHAPES = (("self", 64, 256, 256), ("cross", 64, 256, 1024))  # Group-Free 3D's at eval's B=64
+ATTENTION_TOL_FACTOR = 4  # the kernel's gap to f64 against the plain f32 chain's (tests/test_torch_cuda.py's)
+
+
+def phase_attention(report, stats):
+    """Phase 34: the attention kernel against the plain f32 chain and an f64
+    run at ATTENTION_SHAPES, inputs of scale 2 (scores up to ~20, which the
+    exponential carries into the weights), k and v views of one wider
+    tensor as the decoder hands them; ``F.scaled_dot_product_attention`` on
+    the same heads, contiguous (B, 8, L, 36), beside them. Sums each
+    shape's times into ``stats["attention"]``; returns each row."""
+    import torch
+    import torch.nn.functional as F
+
+    from votenet_tpu_torch.ops.cuda.attention import (
+        attention_scale,
+        multi_head_attention_cuda,
+        multi_head_attention_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("phase 34: the attention kernel (csrc/attention.cu) against the plain f32 chain on the card, both against "
+          "f64, Group-Free 3D's eval shapes, 8 heads of 36, TF32 off (CUDA events, warm L2; library: "
+          "F.scaled_dot_product_attention)")
+    print(TABLE_HEAD)
+    st, rows = stats["attention"], {}
+    for layer, B, Lq, Lk in ATTENTION_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(Lk)
+        q = torch.randn(B, Lq, 288, generator=g, device="cuda") * 2.0
+        k, v = (torch.randn(B, Lk, 576, generator=g, device="cuda") * 2.0).split(288, dim=-1)
+        got = multi_head_attention_cuda(q, k, v, 8)
+        plain = multi_head_attention_plain(q, k, v, 8)
+        want = multi_head_attention_plain(q.double(), k.double(), v.double(), 8)
+        heads = [t.reshape(B, -1, 8, 36).transpose(1, 2).contiguous() for t in (q, k, v)]
+        lib = F.scaled_dot_product_attention(*heads, scale=attention_scale(36)).transpose(1, 2).reshape(B, Lq, 288)
+        scale = float(want.abs().max())
+        gap, plain_gap, lib_gap = (float((t.double() - want).abs().max()) for t in (got, plain, lib))
+        tol = ATTENTION_TOL_FACTOR * max(plain_gap, 1e-6 * scale)
+        del got, plain, want, lib
+        k_ms = cuda_ms(lambda: multi_head_attention_cuda(q, k, v, 8), 50)
+        p_ms = cuda_ms(lambda: multi_head_attention_plain(q, k, v, 8), 20)
+        l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=attention_scale(36)), 50)
+        bound = bound_ms(4.0 * B * Lq * Lk * 288, 4.0 * B * 288 * (2 * Lq + 2 * Lk))
+        report("attention", layer, B, f"{Lq}x{Lk}, 8 heads of 36", gap <= tol, gap / scale, k_ms, p_ms, bound, l_ms,
+               total=False)
+        for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("ops_ms", bound[0]), ("bytes_ms", bound[1]),
+                         ("bound_ms", max(bound))):
+            st[key] += val
+        st["library_ms"] = (st["library_ms"] or 0.0) + l_ms
+        rows[f"{layer}_B{B}_{Lq}x{Lk}"] = {
+            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": max(bound),
+            "gap_of_scale": gap / scale, "plain_gap_of_scale": plain_gap / scale, "library_gap_of_scale": lib_gap / scale,
+            "tolerance_of_scale": tol / scale}
+        print(f"    {layer}: gap to f64 {gap / scale:.3g} of scale (tolerance {tol / scale:.3g}: "
+              f"{ATTENTION_TOL_FACTOR}x the plain chain's {plain_gap / scale:.3g}); library {lib_gap / scale:.3g}")
+        del q, k, v, heads
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_groupfree_forward():
+    """Phase 35: Group-Free 3D at its published widths, seeded weights, one
+    B=64 batch of 20000 points with a height channel through
+    ``make_packed_predict_fn``, as the eval path runs it: after a warm-up
+    forward, the kernel wrappers' counters are set to 0 and one forward's
+    launches read; FPS's routes for the same forward; a second forward's
+    device launches from torch.profiler."""
+    import torch
+
+    from votenet_tpu_torch.eval import make_packed_predict_fn
+    from votenet_tpu_torch.models.groupfree import GroupFree3D, groupfree_config
+    from votenet_tpu_torch.ops.cuda.attention import multi_head_attention_cuda
+    from votenet_tpu_torch.ops.cuda.fps import farthest_point_sample_cuda
+
+    gcfg = groupfree_config()
+    B, N = 64, gcfg.base.point_num
+    model = GroupFree3D(gcfg, torch.Generator().manual_seed(SEED)).cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    room = torch.tensor([6.0, 2.5, 6.0], device="cuda")
+    xyz = torch.rand(B, N, 3, generator=g, device="cuda") * room - torch.tensor([3.0, 1.0, 0.0], device="cuda")
+    points = torch.cat([xyz, xyz[..., 1:2] - xyz[..., 1:2].amin(dim=1, keepdim=True)], dim=-1).contiguous()
+    predict = make_packed_predict_fn(model, gcfg.base)
+    counters = {**eval_counters(), "attention": multi_head_attention_cuda}
+    predict(points)
+    zero_counts(counters)
+    routes0 = dict(farthest_point_sample_cuda.routes)
+    out = predict(points)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in launch_counts(counters).items() if n}
+    routes = {k: n - routes0[k] for k, n in farthest_point_sample_cuda.routes.items()}
+    tally = launch_tally(device_kernel_names(lambda: predict(points)))
+    want = {"attention": 2 * gcfg.num_layers, "fps": 4, "ballquery": 4, "decode_iou": 1, "nms": 1}
+    print(f"phase 35: Group-Free 3D (L{gcfg.num_layers} O{gcfg.num_queries}, seeded weights) at B={B} through "
+          f"make_packed_predict_fn: launches a forward {launches}, FPS routes {routes}, {tally['total']} device "
+          f"launches (torch.profiler), {int(out['cnt'].sum())} kept boxes")
+    wrong = {k: (launches.get(k, 0), n) for k, n in want.items() if launches.get(k, 0) != n}
+    del model, out, points, xyz
+    torch.cuda.empty_cache()
+    if wrong:
+        raise AssertionError(f"a Group-Free forward launched (got, want) {wrong}")
+    return {"launches": launches, "fps_routes": routes, "device_launches": tally["total"],
+            "device_launches_by_name": tally["by_name"]}
+
+
 def main() -> int:
     import torch
 
@@ -5377,7 +5498,7 @@ def main() -> int:
     stats = {k: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops_ms": 0.0, "bytes_ms": 0.0,
                  "bound_ms": 0.0}
              for k in ("fps", "ballquery", "scatter", "samlp", "scatter_fast_bf16", "nms3d", "decode_iou", "iou3d",
-                       "decode")
+                       "decode", "attention")
              + variants + BN_ROWS + SPLIT_ROWS + (CAST_ROW,)}
     production_ms = dict.fromkeys(variants, 0.0)  # phases 16-18: the production kernels' sums beside
 
@@ -5431,6 +5552,12 @@ def main() -> int:
         print(json.dumps({"split_times": {k: {"ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
                                               "bound_ms": stats[k]["bound_ms"], "library_ms": stats[k]["library_ms"]}
                                           for k in SPLIT_ROWS + (CAST_ROW,)}, "failed": failed}))
+        print(card)
+        return 1 if failed else 0
+    if "--attention" in sys.argv[1:]:  # phases 34-35 alone
+        rows = run("attention kernel", lambda: phase_attention(report, stats))
+        forward = run("group-free forward", phase_groupfree_forward)
+        print(json.dumps({"attention": rows, "groupfree_forward": forward, "failed": failed}))
         print(card)
         return 1 if failed else 0
     if "--fps" in sys.argv[1:]:  # FPS's routes alone
@@ -5569,6 +5696,9 @@ def main() -> int:
     if state_dict is not None:
         paths.update(run("bf16_hilo gather packing", lambda: phase_packing(scenes, state_dict, bare_step_ms)) or {})
     paths.update(run("steps_per_dispatch", phase_dispatch) or {})
+    # phases 34-35: the attention kernel at Group-Free 3D's shapes, a Group-Free forward's launches
+    run("attention kernel", lambda: phase_attention(report, stats))
+    groupfree = run("group-free forward", phase_groupfree_forward)
 
     if failed:
         print(f"chip_smoke: FAILED: {failed}", file=sys.stderr)
@@ -5791,6 +5921,18 @@ def main() -> int:
         "library_is": "torch._foreach_copy_ into the same bf16 tensors",
         "ms_is": "one launch over a full-width bf16 VoteNet's 27 weight views and the special values; plain_ms: "
                  "the per-leaf .to() it replaces",
+    })
+    kernels.append({
+        "name": "attention", "route": "cuda", "source": "votenet_tpu_torch/csrc/attention.cu",
+        "replaces": ("none: the port's own kernel (the JAX package computes no attention); the eager chain "
+                     "votenet_tpu_torch/ops/cuda/attention.py multi_head_attention_plain"),
+        "launches": groupfree["launches"]["attention"], "launches_groupfree_forward": groupfree["launches"],
+        "fps_routes_groupfree_forward": groupfree["fps_routes"],
+        "device_launches_groupfree_forward": groupfree["device_launches"], **measured("attention"),
+        "tolerance": f"{ATTENTION_TOL_FACTOR}x the plain f32 chain's gap to f64, at least 1e-6 of scale",
+        "library_is": "F.scaled_dot_product_attention on the same heads, contiguous (B, 8, L, 36) f32, TF32 off",
+        "ms_is": "the sum of one self- (256 x 256) and one cross-attention (256 x 1024) at B=64, 8 heads of 36; "
+                 "launches: phase 35's B=64 Group-Free forward",
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2325,3 +2325,96 @@ def test_copies_follow_the_model_to_the_card(cuda):
         fresh = VoteNet(cfg, torch.Generator().manual_seed(3)).cuda().eval()
         want = fresh(pts.cuda())
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+# ---------------------------------------------------------------- attention (csrc/attention.cu)
+
+ATTENTION_CASES = [(64, 256, 256), (64, 256, 1024), (3, 100, 77), (2, 300, 1000), (1, 1, 1), (2, 257, 65),
+                   (1, 513, 17)]
+
+
+def attention_inputs(B, Lq, Lk, seed, scale=1.0, E=288):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Lq, E, generator=g, device="cuda") * scale
+    k, v = (torch.randn(B, Lk, 2 * E, generator=g, device="cuda") * scale).split(E, dim=-1)
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,Lq,Lk", ATTENTION_CASES)
+def test_attention_kernel_matches_plain(cuda, B, Lq, Lk):
+    """The kernel at the cell's shapes (B=64: self 256 x 256, cross 256 x
+    1024) and at ragged ones (Lq past a block's 256 queries, Lk past a
+    64-key tile and a 16-key chunk), k and v views of one wider tensor:
+    against an f64 run, within four times the plain f32 chain's own gap
+    (and 1e-6 of the output's scale): both round the scores, whose size
+    (here up to ~20) the exponential carries into the weights, and both
+    sum 36 products and up to 1024 terms in f32, in other orders."""
+    from votenet_tpu_torch.ops.cuda.attention import multi_head_attention_cuda, multi_head_attention_plain
+
+    q, k, v = attention_inputs(B, Lq, Lk, B * Lq + Lk, scale=2.0)
+    got = multi_head_attention_cuda(q, k, v, 8)
+    torch.cuda.synchronize()
+    want = multi_head_attention_plain(q.double(), k.double(), v.double(), 8)
+    plain = multi_head_attention_plain(q, k, v, 8)
+    scale = float(want.abs().max())
+    plain_gap = float((plain.double() - want).abs().max())
+    assert float((got.double() - want).abs().max()) <= 4 * max(plain_gap, 1e-6 * scale)
+
+
+def test_attention_kernel_takes_the_in_projections_views(cuda):
+    """q, k and v as the self-attention hands them: three views of one (B, L,
+    3E) product, rows 3E apart."""
+    from votenet_tpu_torch.ops.cuda.attention import multi_head_attention_cuda, multi_head_attention_plain
+
+    qkv = torch.randn(4, 256, 864, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    q, k, v = qkv.split(288, dim=-1)
+    got = multi_head_attention_cuda(q, k, v, 8)
+    want = multi_head_attention_plain(q.double(), k.double(), v.double(), 8)
+    assert float((got.double() - want).abs().max()) <= 2e-6 * float(want.abs().max())
+
+
+def test_attention_kernel_counts_one_launch_a_call_and_refuses_other_shapes(cuda):
+    from votenet_tpu_torch.ops import multi_head_attention
+    from votenet_tpu_torch.ops.cuda.attention import multi_head_attention_cuda
+
+    q, k, v = attention_inputs(2, 16, 40, 3)
+    before = multi_head_attention_cuda.launches
+    multi_head_attention(q, k, v, 8)
+    multi_head_attention(q, k, v, 8)
+    assert multi_head_attention_cuda.launches - before == 2
+    with pytest.raises(ValueError, match="36 channels"):
+        multi_head_attention_cuda(q, k, v, 4)  # heads of 72
+    with pytest.raises(ValueError, match="strides"):
+        multi_head_attention_cuda(torch.zeros(2, 16, 289, device=cuda)[:, :, 1:], k, v, 8)  # rows 289 apart
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        multi_head_attention_cuda(q.cpu(), k, v, 8)
+
+
+def test_groupfree_on_the_card_within_the_cells_limits(cuda):
+    """Group-Free 3D at its published widths, B=4 scenes and weights as the
+    benchmark makes them (the cell eval_gf3d_l6o256_b64), through
+    ``make_packed_predict_fn``: the detections against the plain
+    reference's within the cell's limits; 12 attention launches a
+    forward."""
+    from portbench import harness
+    from portbench.drivers.eval_groupfree import comparison, program_config, reference_detections, scenes, weights
+    from portbench.yardstick.compare import judge
+    from votenet_tpu_torch.eval.evaluator import DeviceSceneCache, Evaluator, make_packed_predict_fn
+    from votenet_tpu_torch.models.groupfree import GroupFree3D
+    from votenet_tpu_torch.ops.cuda.attention import multi_head_attention_cuda
+
+    cell = harness.load_cell("eval_gf3d_l6o256_b64")
+    cfg, limits = cell.model, cell.limits
+    gcfg = program_config(cell)
+    sd = weights(cell, 2 ** 31 + 11, cuda)
+    model = GroupFree3D(gcfg).to(cuda)
+    model.load_state_dict(sd)
+    points = scenes(2 ** 31 + 12, 4, cfg, cuda)
+    host = points.cpu().numpy()
+    before = multi_head_attention_cuda.launches
+    dets = Evaluator(gcfg.base, {}, batch_size=4).predictions_for_scenes(
+        make_packed_predict_fn(model, gcfg.base), DeviceSceneCache(((i, host[i]) for i in range(4)), 4, device=cuda))
+    assert multi_head_attention_cuda.launches - before == 2 * gcfg.num_layers
+    ref = reference_detections(sd, points, cell, block=4)
+    numbers = comparison([dets[i] for i in range(4)], ref, limits["tau"])
+    assert numbers["ref_kept"] > 0 and judge(numbers, limits)[0], numbers

@@ -16,7 +16,11 @@ Differences from the JAX evaluator, by design:
   repeat-padded rows too (``votenet_tpu/eval/evaluator.py:84``), which can
   fetch rows that no scene keeps;
 - :meth:`Evaluator.score` scores predictions already made, so one pass of
-  inference serves several IoU thresholds.
+  inference serves several IoU thresholds;
+- a decode's copies to the host wait for their own forward alone (on a
+  side stream, after an event the forward's outputs recorded), not for the
+  forwards queued behind it: a copy on the compute stream would drain the
+  queue at every decode, and the pipeline would overlap nothing.
 """
 
 from __future__ import annotations
@@ -144,9 +148,11 @@ class Evaluator:
             batch_iter = _host_batches(list(scenes), B)
         pred_all: Detections = {}
         pending: deque = deque()
+        side = {}  # the decodes' copy stream, one a CUDA device
         for i, (ids, points) in enumerate(batch_iter):
             with annotate("votenet.eval.predict", i):
-                pending.append((i, ids, predict_fn(points)))
+                out = predict_fn(points)
+                pending.append((i, ids, out, _ready(out, side)))
             while len(pending) > self.pipeline_depth:
                 _decode(*pending.popleft(), pred_all)
         while pending:
@@ -194,9 +200,28 @@ def gt_dict_from_labels(scene_labels: Dict[int, Dict]) -> Dict[int, List]:
     return gt_all
 
 
-def _decode(i: int, ids: List[int], out: Dict, pred_all: Detections) -> None:
+def _ready(out: Dict, side: Dict):
+    """(a copy stream of the outputs' CUDA device, an event recorded on the
+    current stream after the forward), or None for host outputs."""
+    t = next((v for v in out.values() if torch.is_tensor(v) and v.is_cuda), None)
+    if t is None:
+        return None
+    if t.device not in side:
+        side[t.device] = torch.cuda.Stream(device=t.device)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return side[t.device], event
+
+
+def _decode(i: int, ids: List[int], out: Dict, ready, pred_all: Detections) -> None:
     with annotate("votenet.eval.decode", i):
-        decode_batch_predictions(ids, out, pred_all)
+        if ready is None:
+            decode_batch_predictions(ids, out, pred_all)
+            return
+        stream, event = ready
+        stream.wait_event(event)
+        with torch.cuda.stream(stream):  # the copies wait for this forward, not the ones queued after it
+            decode_batch_predictions(ids, out, pred_all)
 
 
 def _host_batches(scenes: List[Tuple[int, np.ndarray]], B: int):

@@ -417,6 +417,14 @@ class PointNetSAModule(nn.Module):
     and the point-sharded path take precedence, and eval is unchanged, as
     in the JAX module.
 
+    ``normalize_xyz=True`` divides the grouped coordinates' offsets from
+    their centre by the ball's radius before the MLP (Group-Free 3D's
+    backbone, ``models/groupfree.py``), on the fused path in training and
+    eval alike; the MLP takes ``x / r`` and ``c / r`` where it took the
+    coordinates and the centres, so that the offsets are ``x / r - c / r``.
+    The default leaves the arithmetic as it was, bit for bit; the explicit
+    and point-sharded paths raise ValueError with it.
+
     ``sp=True`` runs the grouping stage point-sharded over ``sp_group``
     (the JAX module's ``sp_mesh``, ``pointnet2.py:370-420``): ``xyz`` and
     ``points`` are this rank's slabs of the cloud, FPS, the centres' gather,
@@ -452,8 +460,11 @@ class PointNetSAModule(nn.Module):
         use_bn: bool = True,
         bq_precision: Optional[str] = None,
         gather_packing: str = "none",
+        normalize_xyz: bool = False,
     ):
         super().__init__()
+        if normalize_xyz and (sp or group_all or not use_xyz or pooling == "weighted_avg" or len(mlp) == 0):
+            raise ValueError("normalize_xyz is wired on the fused path only")
         if sp and split_coords:
             raise ValueError("sp + split_coords (mixed precision) is not wired; run SP in f32")
         if sp and (group_all or knn):
@@ -464,6 +475,7 @@ class PointNetSAModule(nn.Module):
         self.sp, self.sp_group = sp, sp_group
         self.group_all, self.pooling, self.knn, self.use_xyz = group_all, pooling, knn, use_xyz
         self.bq_precision = bq_precision
+        self.normalize_xyz = normalize_xyz
         self.fused = not group_all and use_xyz and pooling != "weighted_avg" and len(mlp) > 0
         self.coord_grad = coord_grad
         self.mlp_pool = "max" if pooling == "max" and use_bn and len(mlp) > 0 else None  # the fused paths' pool
@@ -530,27 +542,30 @@ class PointNetSAModule(nn.Module):
             _, idx = ops.knn_point(self.nsample, xyz, new_xyz)
         else:
             idx, _ = ops.query_ball_point(self.radius, self.nsample, xyz, new_xyz, self.bq_precision)
+        centre = new_xyz
+        if self.normalize_xyz:  # the offsets over the radius, (x - c) / r, formed as x / r - c / r
+            xyz, centre = xyz / self.radius, new_xyz / self.radius
         gather_xyz = xyz if self.coord_grad else xyz.detach()
         if self.split_coords and points is not None:
             feat = points.to(self.mlp.dtype)
             if self.training:
                 grouped = (ops.group_point(gather_xyz, idx, scatter=self.scatter),
                            ops.group_point(feat, idx, scatter=self.scatter))
-                new_points = self.mlp(grouped, center=new_xyz, pool=self.mlp_pool)
+                new_points = self.mlp(grouped, center=centre, pool=self.mlp_pool)
             else:
-                new_points = self.mlp((gather_xyz, feat), center=new_xyz, idx=idx, pool=self.mlp_pool)
+                new_points = self.mlp((gather_xyz, feat), center=centre, idx=idx, pool=self.mlp_pool)
         elif self.training and self.packed and points is not None:
             hi, lo = split_hilo(gather_xyz)
             table = torch.cat([hi, lo, points.to(torch.bfloat16)], dim=-1)
             g = ops.group_point(table, idx, grad_skip_prefix=6, scatter=self.scatter)
-            new_points = self.mlp((g[..., :3].float() + g[..., 3:6].float(), g[..., 6:]), center=new_xyz,
+            new_points = self.mlp((g[..., :3].float() + g[..., 3:6].float(), g[..., 6:]), center=centre,
                                   pool=self.mlp_pool)
         elif self.training:
             # torch.cat promotes f32 coordinates and bf16 features to f32, as jnp.concatenate does
             both = gather_xyz if points is None else torch.cat([gather_xyz, points], dim=-1)
             skip = 0 if self.coord_grad or points is None else 3
             grouped = ops.group_point(both, idx, grad_skip_prefix=skip, scatter=self.scatter)
-            new_points = self.mlp(grouped, center=new_xyz, pool=self.mlp_pool)
+            new_points = self.mlp(grouped, center=centre, pool=self.mlp_pool)
         else:
             dt = self.mlp.dtype
             if points is None:
@@ -562,8 +577,8 @@ class PointNetSAModule(nn.Module):
             else:
                 both = torch.cat([xyz, points], dim=-1)
             if self.samlp:  # pooled by the fused op
-                return new_xyz, self._fused_eval_mlp_pool(both, new_xyz, idx), idx
-            new_points = self.mlp(both, center=new_xyz, idx=idx, pool=self.mlp_pool)
+                return new_xyz, self._fused_eval_mlp_pool(both, centre, idx), idx
+            new_points = self.mlp(both, center=centre, idx=idx, pool=self.mlp_pool)
         return new_xyz, self._pool_rest(new_points), idx
 
     def _pool_rest(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ and its IoU matrix run kernels of the port's own on a CUDA tensor
 (``nms3d``, ``box3d_iou_matrix``), and so does batch norm + ReLU, one
 autograd op whose four stages are kernels on the card
 (``batch_norm_relu``), and the bf16 weight copies' casts, a table of
-tensors in one launch (``cast_bf16_multi``). The reference's other ops, on no path
+tensors in one launch (``cast_bf16_multi``), and Group-Free 3D's multi-head
+attention, one launch a call with no score matrix in device memory
+(``multi_head_attention``). The reference's other ops, on no path
 (``knn_point``, ``select_top_k``, ``query_ball_point_topk``,
 ``prob_sample``), the ball query's dense and streaming forms
 (``query_ball_point_dense``, ``query_ball_point_streaming``), three_nn's
@@ -20,6 +22,7 @@ tensors in one launch (``cast_bf16_multi``). The reference's other ops, on no pa
 (``box3d_iou_pairwise``) are plain PyTorch everywhere.
 """
 
+from votenet_tpu_torch.ops.attention import multi_head_attention
 from votenet_tpu_torch.ops.batchnorm import batch_norm_relu
 from votenet_tpu_torch.ops.cast import cast_bf16_multi
 from votenet_tpu_torch.ops.common import pairwise_sqdist
@@ -49,5 +52,5 @@ __all__ = [
     "three_nn", "three_nn_dense", "three_nn_streaming", "three_interpolate",
     "box3d_iou_pairwise", "box3d_iou_matrix", "nms3d", "nms3d_indices", "fused_sa_mlp_pool",
     "knn_point", "select_top_k", "query_ball_point_topk", "prob_sample", "batch_norm_relu",
-    "cast_bf16_multi",
+    "cast_bf16_multi", "multi_head_attention",
 ]

@@ -170,6 +170,9 @@ def library() -> ctypes.CDLL:
             # the table (host CastEntry records), their count, the direction, the grid's x, the stream
             lib.votenet_cast_bf16_multi.argtypes = [ptr, i32, i32, i32, ptr]
             lib.votenet_cast_bf16_multi.restype = i32
+            # q, k, v, o, B, Lq, Lk, H, D, q's, k's and v's batch and row strides, scale, stream
+            lib.votenet_attention.argtypes = [ptr, ptr, ptr, ptr, *[i32] * 5, *[i64] * 6, f32, ptr]
+            lib.votenet_attention.restype = i32
             lib.votenet_cast_entry_bytes.argtypes = []
             lib.votenet_cast_entry_bytes.restype = i32
             lib.votenet_error_string.argtypes = [i32]

@@ -32,7 +32,11 @@ class VoteNetPredictor:
 
     ``state_dict`` is the port's (``models.convert.convert_flax_variables``
     turns a JAX checkpoint into one); without it the weights are drawn from
-    ``generator`` (seed 0 when not given). On a CUDA device, FPS and the
+    ``generator`` (seed 0 when not given). ``model`` serves another
+    detector in VoteNet's place (``models.groupfree.GroupFree3D``, with its
+    ``gcfg.base`` as ``config``): any module whose end points
+    ``predict_boxes`` reads; ``state_dict`` then loads into it and
+    ``generator`` is not used. On a CUDA device, FPS and the
     ball query run the kernels of ``csrc/``; on the CPU, their plain
     versions. f32 matmuls stay in full f32: TF32 is switched off for the
     process. ``config.compute_dtype="bfloat16"`` (run_eval's throughput
@@ -48,6 +52,7 @@ class VoteNetPredictor:
         batch_size: int = 8,
         nms_iou: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
+        model: Optional[torch.nn.Module] = None,
     ):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -56,15 +61,15 @@ class VoteNetPredictor:
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.nms_iou = self.config.nms_iou if nms_iou is None else nms_iou
-        self.model = VoteNet(self.config, generator)
+        self.model = model if model is not None else VoteNet(self.config, generator)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device)
 
     @torch.inference_mode()
     def __call__(self, points) -> Dict[str, torch.Tensor]:
-        """Raw fixed-shape prediction for a (B, N, 3) batch (numpy or tensor)
-        -> bboxes (B, P, 8, 3), class_scores (B, P, NC), keep (B, P) bool,
+        """Raw fixed-shape prediction for a (B, N, C) batch (numpy or tensor;
+        C = 3, or the channels the model takes) -> bboxes (B, P, 8, 3), class_scores (B, P, NC), keep (B, P) bool,
         objectness (B, P, 2), as tensors on the predictor's device."""
         if not torch.is_tensor(points):
             points = torch.from_numpy(np.asarray(points, dtype=np.float32))
